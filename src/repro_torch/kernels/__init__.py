@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper with their plain PyTorch versions;
+``ops`` dispatches between them by device."""
