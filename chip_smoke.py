@@ -8,21 +8,36 @@ Needs one CUDA GPU and the repository checkout around this file. It
   1. prints the toolchain and the card, and builds the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (into ``build/kernels``);
   2. holds each kernel against its plain PyTorch version at the main
-     path's shapes (plus one extra case each, and fp32 cases) and times
-     kernel, plain version and a PyTorch yardstick with CUDA events;
-  3. drives the main path: llama2-7b at full width and depth in bf16,
-     random weights from a seed, 3 sessions x 2 rounds of
+     paths' shapes (plus extra cases: other head sizes, windows, softcaps,
+     fp32), checks that paged decode gives contiguous decode's bits and
+     that prefill attention is deterministic, and times kernel, plain
+     version and a PyTorch yardstick with CUDA events;
+  3. drives the lifecycle path: llama2-7b at full width and depth in
+     bf16, random weights from a seed, 3 sessions x 2 rounds of
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
      checking restored K/V, greedy decoding (MATCH) and round 1's first
-     token against a cache that was never evicted, and that both kernels
-     were launched;
-  4. prints the kernels' JSON line, then the device line last.
+     token against a cache that was never evicted;
+  4. drives the serving engine on the contiguous and then the paged KV
+     backend: 6 sessions x 2 rounds over 4 slots with SplitFuse prefill
+     chunks and mid-stream preemption, checking that both backends give
+     the same tokens, that every restore rebuilds the K/V a session held
+     before its pause bitwise (hidden and recompute layers), that every
+     prefill ran the flash kernel and every decode step its decode kernel
+     once per layer, and that every request agrees with a plain
+     computation on the same weights (one unchunked, unbatched forward
+     over the session's whole token stream): the logits that sampled each
+     of its tokens, and each token as the plain logits' best up to bf16
+     noise;
+  5. checks that each path launched its kernels (counts reset before and
+     read after each path), then prints the kernels' JSON line, the card,
+     and the device line last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -244,6 +259,181 @@ def check_decode(card: str, gen):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def paged_case(lens, Kv, G, hd, bs, MB, dtype, gen):
+    """A permuted page pool (NB, bs, Kv, hd) with pages of junk besides
+    the rows' live pages, sentinel table entries (NB) past each row's
+    pages, and the same rows as a contiguous (B, MB·bs, Kv, hd) cache."""
+    import torch
+    dev = "cuda"
+    B = len(lens)
+    pages = [-(-n // bs) for n in lens]
+    NB = sum(pages) + 7
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))
+    k_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
+    table = torch.full((B, MB), NB, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(pages):
+        table[b, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    table = table.to(dev)
+    q = torch.randn(B * Kv, G, hd, generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32,
+                          device=dev).repeat_interleave(Kv)
+    idx = table.clamp(max=NB - 1).long()
+    k = k_pool[idx].reshape(B, MB * bs, Kv, hd)
+    v = v_pool[idx].reshape(B, MB * bs, Kv, hd)
+    return q, k_pool, v_pool, table, kv_len, k, v
+
+
+def check_paged_decode(card: str, gen):
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    # the engine's decode step on llama2-7b: 4 slots, pages of 16 tokens
+    lens, Kv, G, hd, bs, MB = [2300, 1537, 777, 2049], 32, 1, 128, 16, 160
+    q, kp, vp, table, kv_len, k, v = paged_case(lens, Kv, G, hd, bs, MB,
+                                                torch.bfloat16, gen)
+    out = dec.decode_attention_paged_cuda(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    err = check_close("paged decode (main)", out,
+                      dec.decode_attention_paged_plain(q, kp, vp, table,
+                                                       kv_len), "bf16")
+    # the bitwise rule: paged decode gives contiguous decode's bits
+    if not torch_equal(out, dec.decode_attention_cuda(q, k, v, kv_len)):
+        raise AssertionError("paged decode differs from contiguous decode "
+                             "over the same logical cache")
+    ms = time_ms(lambda: dec.decode_attention_paged_cuda(q, kp, vp, table,
+                                                         kv_len), 20)
+    plain_ms = time_ms(lambda: dec.decode_attention_paged_plain(
+        q, kp, vp, table, kv_len), 20)
+    contiguous_ms = time_ms(lambda: dec.decode_attention_cuda(q, k, v,
+                                                              kv_len), 20)
+    B, live = len(lens), sum(lens) * Kv
+    flops = 4 * G * hd * live
+    nbytes = 2 * (2 * B * Kv * G * hd + 2 * live * hd) + 4 * B * Kv \
+        + 4 * sum(-(-n // bs) for n in lens)
+    bound_ms, bound_by = bound(flops, nbytes, card)
+    print(f"decode_attention_paged B={B} Kv={Kv} G={G} hd={hd} bs={bs} "
+          f"lens={lens} bf16: max_abs_err {err:.3g}, bitwise equal to "
+          f"contiguous; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"contiguous kernel on the gathered cache {contiguous_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        a = paged_case([1000, 333], 4, 4, 128, 16, 64, dtype, gen)
+        kw = dict(softcap=50.0, window=256)
+        o2 = dec.decode_attention_paged_cuda(*a[:5], **kw)
+        torch.cuda.synchronize()
+        e = check_close(f"paged decode G=4 window softcap {name}", o2,
+                        dec.decode_attention_paged_plain(*a[:5], **kw), name)
+        if not torch_equal(o2, dec.decode_attention_cuda(
+                a[0], a[5], a[6], a[4], **kw)):
+            raise AssertionError(f"paged decode {name} differs from "
+                                 "contiguous decode")
+        print(f"decode_attention_paged G=4 bs=16 window=256 softcap=50 "
+              f"{name}: max_abs_err {e:.3g}, bitwise equal to contiguous")
+    return {"name": "decode_attention_paged", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:89",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "yardstick": {"what": "decode_attention (kernel #3) on the "
+                                  "gathered contiguous cache",
+                          "ms": contiguous_ms}}
+
+
+def flash_band(offsets, kv_lens, Sq, window=None):
+    """(query, key) pairs a causal prefill must visit: per query at
+    position p, keys below min(p + 1, kv_len), from p - window + 1."""
+    pairs = 0
+    for off, kl in zip(offsets, kv_lens):
+        for i in range(Sq):
+            p = off + i
+            hi = min(p + 1, kl)
+            lo = max(0, p - window + 1) if window else 0
+            pairs += max(hi - lo, 0)
+    return pairs
+
+
+def flash_case(B, Sq, Skv, H, Kv, hd, dtype, gen):
+    import torch
+    dev = "cuda"
+    q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Kv, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def check_flash(card: str, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    H = Kv = 32
+    hd = 128
+    row = None
+    # the main path's prefills: round 0 self-prefill, round 1 over restored
+    # history, an engine chunk over history
+    for hist, Sq in ((0, 1024), (2016, 256), (1900, 128)):
+        Skv = hist + Sq
+        q, k, v = flash_case(1, Sq, Skv, H, Kv, hd, torch.bfloat16, gen)
+        off = torch.tensor([hist], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([Skv], dtype=torch.int32, device="cuda")
+        out = fa.flash_attention_cuda(q, k, v, off, kl)
+        torch.cuda.synchronize()
+        err = check_close(f"flash hist={hist} Sq={Sq}", out,
+                          fa.flash_attention_plain(q, k, v, off, kl), "bf16")
+        if not torch_equal(out, fa.flash_attention_cuda(q, k, v, off, kl)):
+            raise AssertionError("flash attention is not deterministic")
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl), 20)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, off,
+                                                            kl), 5)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if hist == 0:
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), 20)
+        else:
+            mask = (torch.arange(Skv, device="cuda")[None, :]
+                    <= hist + torch.arange(Sq, device="cuda")[:, None])
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), 20)
+        flops = 4 * hd * H * flash_band([hist], [Skv], Sq)
+        nbytes = 2 * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8
+        bound_ms, bound_by = bound(flops, nbytes, card)
+        print(f"flash_attention Sq={Sq} on {hist} of history H=Kv={H} "
+              f"hd={hd} bf16: max_abs_err {err:.3g}, deterministic; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA yardstick "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP in the causal band, "
+              f"{nbytes / 1e6:.1f} MB)")
+        if row is None:
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/"
+                             "flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:83",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+    # extra cases: GQA, window and softcap, per-batch offsets, hd=64
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q, k, v = flash_case(2, 200, 520, 8, 2, 64, dtype, gen)
+        off = torch.tensor([300, 250], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([500, 450], dtype=torch.int32, device="cuda")
+        kw = dict(softcap=30.0, window=128)
+        o2 = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
+        torch.cuda.synchronize()
+        e = check_close(f"flash window softcap {name}", o2,
+                        fa.flash_attention_plain(q, k, v, off, kl, **kw),
+                        name)
+        o3 = fa.flash_attention_cuda(q, k, v, off, kl, causal=False)
+        torch.cuda.synchronize()
+        e = max(e, check_close(f"flash non-causal {name}", o3,
+                               fa.flash_attention_plain(q, k, v, off, kl,
+                                                        causal=False), name))
+        print(f"flash_attention B=2 Sq=200 H=8 Kv=2 hd=64 offsets 300/250 "
+              f"window=128 softcap=30, and non-causal, {name}: "
+              f"max_abs_err {e:.3g}")
+    return row
+
+
 # --------------------------------------------------------------- main path
 def greedy(logits):
     import torch
@@ -440,7 +630,278 @@ def serve_session(model, params, mgr, session, n0, rng):
         n_hist = n_total
 
 
+# ------------------------------------------------------------ engine path
+ENGINE_PROMPTS = (1024, 1536, 2000, 512, 768, 1024)   # round 0, per session
+ENGINE_BATCH = 4
+ENGINE_MAX_SEQ = 2560        # 2000 + 16 + 256 + 16 tokens fit, in pages
+ENGINE_CHUNK = 128
+ENGINE_QUANTUM = 4
+
+# The engine against a plain computation on the same weights (one B=1
+# forward over a session's whole token stream: no chunks, no batch, no
+# restore, no cache): the logits that sampled each generated token
+# within PLAIN_REL relative L2 error of the plain ones at its position,
+# and the token within PLAIN_GAP standard deviations (of the plain logits
+# there) of the plain maximum. The two round in bf16 through 32 layers over products of other
+# shapes, so they agree only to bf16 noise, and a near tie may go either
+# way; a wrong position, length or batch row moves the logits by the
+# order of their own spread.
+PLAIN_REL = 0.05
+PLAIN_GAP = 0.25
+
+
+def engine_classes():
+    """The engine and manager of the port, instrumented for this phase:
+    session s0 is planned all-hidden, the rest under the PAPER_H800
+    planner (recompute prefix + hidden); every pause or retire snapshots
+    the session's K/V [0, n) on the card, and every completed restore is
+    held against the last snapshot bitwise; every prefill and decode step
+    counts its kernel launches."""
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import InferenceEngine, Phase
+
+    class Manager(HCacheManager):
+        def save_prefill(self, session, tokens, prefill_out, *, start=0):
+            self.schedule_override = "hidden" if session == "s0" else None
+            try:
+                return super().save_prefill(session, tokens, prefill_out,
+                                            start=start)
+            finally:
+                self.schedule_override = None
+
+    class Engine(InferenceEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.snapshots, self.checked = {}, []
+            self.last_logits, self.token_logits = None, {}
+            self.prefills = self.decodes = 0
+            self.walls = {"restore": 0.0, "prefill": 0.0, "decode": 0.0}
+            L = self.model.cfg.n_layers
+            save = self.mgr.save_session_pause
+            prefill = self.adapter.prefill_chunk
+            decode = self.kv.decode
+
+            def save_and_snapshot(session, cache, n_tokens, **kw):
+                self.snapshots[session] = (
+                    cache["k"][:, 0, :n_tokens].clone(),
+                    cache["v"][:, 0, :n_tokens].clone())
+                return save(session, cache, n_tokens, **kw)
+
+            def counted_prefill(*args, **kw):
+                before = fa.launches
+                out = prefill(*args, **kw)
+                if fa.launches - before != L:
+                    raise AssertionError("a prefill did not run the flash "
+                                         "kernel once per layer")
+                self.last_logits = out["logits"][0, -1:]
+                self.prefills += 1
+                return out
+
+            def counted_decode(*args, **kw):
+                paged = self.kv.name == "paged"
+                before = dec.paged_launches if paged else dec.launches
+                out = decode(*args, **kw)
+                after = dec.paged_launches if paged else dec.launches
+                if after - before != L:
+                    raise AssertionError(f"a {self.kv.name} decode step did "
+                                         "not run its decode kernel once "
+                                         "per layer")
+                self.last_logits = out[0][:, -1]
+                self.decodes += 1
+                return out
+
+            self.mgr.save_session_pause = save_and_snapshot
+            self.adapter = copy.copy(self.model.adapter)
+            self.adapter.prefill_chunk = counted_prefill
+            self.kv.decode = counted_decode
+
+        def _emit_token(self, seq, tok):
+            # the logits that sampled tok: a prefill's (1, V) or row
+            # seq.slot of a decode step's (B, V)
+            row = self.last_logits[0 if len(self.last_logits) == 1
+                                   else seq.slot]
+            self.token_logits.setdefault(id(seq), []).append(row.float())
+            super()._emit_token(seq, tok)
+
+        def _timed(self, what, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            self.walls[what] += time.perf_counter() - t0
+
+        def _prefill_step(self, seq):
+            self._timed("prefill", super()._prefill_step, seq)
+
+        def _decode_batch(self):
+            self._timed("decode", super()._decode_batch)
+
+        def _restore_step(self):
+            restoring = [s for s in self.slots
+                         if s is not None and s.phase == Phase.RESTORING]
+            self._timed("restore", super()._restore_step)
+            for s in restoring:
+                if s.phase != Phase.PREFILL:
+                    continue
+                sid = s.request.session_id
+                k, v = s.view.gather_hist(s.history_len)
+                sk, sv = self.snapshots[sid]
+                methods = self.mgr.store.get_manifest(sid)["methods"]
+                for li, m in enumerate(methods):
+                    if not (torch.equal(k[li, 0], sk[li])
+                            and torch.equal(v[li, 0], sv[li])):
+                        raise AssertionError(
+                            f"{self.kv.name}: restored {m} layer {li} of "
+                            f"{sid} ({s.history_len} tokens) differs from "
+                            "its K/V before the pause")
+                self.checked.append((sid, s.history_len, set(methods)))
+
+    return Manager, Engine
+
+
+def check_against_plain(model, params, requests, plain):
+    """Hold an engine run against a plain computation on the same
+    weights. ``requests[(rnd, sid)] = (prompt, generated, the logits
+    that sampled each generated token)``. The plain logits come from one B=1 forward over the
+    session's whole token stream: the earlier rounds' prompts and
+    generated tokens (a round's last token never enters the history),
+    then this round's prompt and generated tokens. ``plain`` keeps, per
+    request, the plain logits at the positions that sampled its tokens,
+    for the next backend's run. Raises past PLAIN_REL or PLAIN_GAP;
+    returns the worst relative error (of first tokens, cold and restored,
+    and of decoded ones) and the worst gap."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    history = {}
+    worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0}
+    for key in sorted(requests):                 # round 0 before round 1
+        rnd, sid = key
+        prompt, gen, got = requests[key]
+        stream = history.get(sid, []) + [int(t) for t in prompt] + gen[:-1]
+        history[sid] = stream
+        if key not in plain:
+            toks = torch.tensor(stream, device=model.device)[None]
+            logits = tfm.lm_forward(params, toks, model.h)["logits"]
+            plain[key] = logits[0, len(stream) - len(gen):].float()
+            del logits
+        ref = plain[key]                         # row i sampled gen[i]
+        got = torch.stack(got)
+        if got.shape != ref.shape or not bool(got.isfinite().all()):
+            raise AssertionError(f"{sid}/{rnd}: token logits of shape "
+                                 f"{tuple(got.shape)} or not finite")
+        rel = ((got - ref).norm(dim=-1)
+               / (ref - ref.mean(-1, keepdim=True)).norm(dim=-1))
+        rows = torch.arange(len(gen), device=ref.device)
+        picked = ref[rows, torch.tensor(gen, device=ref.device)]
+        gap = float(((ref.amax(-1) - picked) / ref.std(-1)).max())
+        name = "restored" if rnd else "cold"
+        worst[name] = max(worst[name], float(rel[0]))
+        worst["decode"] = max(worst["decode"], float(rel[1:].max()))
+        worst["gap"] = max(worst["gap"], gap)
+        if float(rel.max()) > PLAIN_REL:
+            raise AssertionError(
+                f"{sid}/{rnd}: the logits of token {int(rel.argmax())} are "
+                f"off the plain forward's by {float(rel.max()):.4f} "
+                "(relative)")
+        if gap > PLAIN_GAP:
+            raise AssertionError(f"{sid}/{rnd}: a generated token lies "
+                                 f"{gap:.3f} std below the plain forward's "
+                                 "best")
+    return worst
+
+
+def run_engine(model, params, backend: str):
+    """6 sessions x 2 rounds through the continuous-batching engine on
+    ``backend``; returns tokens, metrics, what was checked and, per
+    request, what ``check_against_plain`` needs."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request
+    from repro_torch.storage import ChunkStore, make_array
+    Manager, Engine = engine_classes()
+    store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
+    mgr = Manager(model, store, restore_group_size=8)
+    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+                 max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
+                 preempt_quantum=ENGINE_QUANTUM, backend=backend)
+    rng = np.random.default_rng(SEED)
+    tokens, rows, requests = {}, [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rnd in range(2):
+        seqs = []
+        for s, n0 in enumerate(ENGINE_PROMPTS):
+            n = n0 if rnd == 0 else ROUND1_TOKENS
+            prompt = rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+            seqs.append(eng.submit(Request(f"s{s}", prompt,
+                                           max_new_tokens=DECODE_TOKENS)))
+        eng.run()
+        for seq in seqs:
+            sid = seq.request.session_id
+            tokens[(rnd, sid)] = list(seq.generated)
+            requests[(rnd, sid)] = (seq.request.prompt, list(seq.generated),
+                                    eng.token_logits[id(seq)])
+            rows.append(f"{sid}/{rnd}: ttft {seq.ttft_wall * 1e3:.0f} ms "
+                        + ("(restored)" if rnd else "(cold)")
+                        + f", pauses {seq.pauses}, last restore "
+                        f"{seq.restore_wall * 1e3:.0f} ms")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics
+    methods = set().union(*(c[2] for c in eng.checked)) if eng.checked \
+        else set()
+    res = {"tokens": tokens, "metrics": m, "wall": wall,
+           "checked": len(eng.checked), "methods": methods,
+           "prefills": eng.prefills, "decodes": eng.decodes}
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    walls = dict(eng.walls)
+    walls["other"] = wall - sum(walls.values())
+    print(f"engine {backend}: {wall:.1f} s for 12 requests; TTFT cold mean "
+          f"{mean(m.ttft_wall_cold):.0f} ms (max "
+          f"{1e3 * max(m.ttft_wall_cold, default=0):.0f}), restored mean "
+          f"{mean(m.ttft_wall_restored):.0f} ms (max "
+          f"{1e3 * max(m.ttft_wall_restored, default=0):.0f}); restore wall "
+          f"mean {1e3 * m.restore_wall_sum / max(len(m.restore_sim_all), 1):.0f}"
+          f" ms over {len(m.restore_sim_all)} "
+          f"restores ({m.restored_tokens} tokens); decode "
+          f"{1e3 * walls['decode'] / max(m.decode_steps, 1):.1f} ms per "
+          f"step over {m.decode_steps} steps; "
+          f"{eng.prefills} prefill chunks; preemptions {m.preemptions}; "
+          f"peak reserved tokens {m.reserved_tokens_peak}; "
+          f"{len(eng.checked)} restores bitwise equal to their snapshots "
+          f"(methods {sorted(methods)})")
+    print(f"engine {backend} wall by phase (synchronised): " + ", ".join(
+        f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
+    print(f"engine {backend} requests: " + "; ".join(rows))
+    eng.close()
+    res["requests"] = requests
+    return res
+
+
+def check_engine(con, pag):
+    """Both backends' runs agree and exercised what the phase is for."""
+    if con["tokens"] != pag["tokens"]:
+        bad = [k for k in con["tokens"] if con["tokens"][k] != pag["tokens"][k]]
+        raise AssertionError(f"paged and contiguous tokens differ for {bad}")
+    for name, r in (("contiguous", con), ("paged", pag)):
+        m = r["metrics"]
+        if m.preemptions <= 0 or m.restored_tokens <= 0:
+            raise AssertionError(f"{name}: no preemption or no restore")
+        if r["checked"] <= 0 or not {"hidden", "recompute"} <= r["methods"]:
+            raise AssertionError(f"{name}: restores of hidden and recompute "
+                                 "layers were not both checked")
+    if not (pag["metrics"].reserved_tokens_peak
+            < con["metrics"].reserved_tokens_peak):
+        raise AssertionError("paged reserved no less than contiguous")
+    print("engine: tokens identical on both backends for all 12 requests")
+
+
 def main() -> None:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -450,6 +911,7 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import restore_kv as rkv
 
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -463,20 +925,59 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_restore(card, gen), check_decode(card, gen)]
+    kernels = [check_restore(card, gen), check_decode(card, gen),
+               check_paged_decode(card, gen), check_flash(card, gen)]
+
+    def reset():
+        rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
+
+    def read():
+        return {"restore_kv_grouped": rkv.launches,
+                "decode_attention": dec.launches,
+                "decode_attention_paged": dec.paged_launches,
+                "flash_attention": fa.launches}
 
     model, params = build_model()
-    rkv.launches = dec.launches = 0
-    t0 = time.perf_counter()
-    run_main_path(model, params)
-    counts = {"restore_kv_grouped": rkv.launches,
-              "decode_attention": dec.launches}
-    print(f"main path done in {time.perf_counter() - t0:.1f} s; kernel "
-          f"launches {counts}")
+    counts = {}
+
+    def drive(name, fn, needs):
+        reset()
+        t0 = time.perf_counter()
+        out = fn()
+        got = read()
+        print(f"{name} done in {time.perf_counter() - t0:.1f} s; kernel "
+              f"launches {got}")
+        for k in needs:
+            if got[k] <= 0:
+                raise AssertionError(f"{k} never ran on the {name} path")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        return out
+
+    drive("lifecycle", lambda: run_main_path(model, params),
+          ("restore_kv_grouped", "decode_attention", "flash_attention"))
+    runs, plain = {}, {}
+    for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                   ("paged", "decode_attention_paged")):
+        runs[backend] = drive(
+            f"engine {backend}", lambda b=backend: run_engine(model, params, b),
+            ("restore_kv_grouped", decode_kernel, "flash_attention"))
+        # outside the counted path: the plain forward launches kernels too
+        t1 = time.perf_counter()
+        worst = check_against_plain(model, params,
+                                    runs[backend].pop("requests"), plain)
+        print(f"engine {backend} against the plain forward (12 requests, "
+              f"{time.perf_counter() - t1:.1f} s): logits relative error "
+              f"max {worst['cold']:.5f} at cold first tokens, "
+              f"{worst['restored']:.5f} at restored first tokens, "
+              f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}); "
+              f"generated tokens at most {worst['gap']:.4f} std below the "
+              f"plain best (limit {PLAIN_GAP})")
+        gc.collect()                 # free this backend's cache first
+        torch.cuda.empty_cache()
+    check_engine(runs["contiguous"], runs["paged"])
     for k in kernels:
         k["launches"] = counts[k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never ran on the main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,7 @@ class HCacheManager:
         self._pack_params = None
         self.saver = saver or TwoStageSaver(store)
         self.dtype_bytes = dtype_bytes
+        self.io_streams = 1          # concurrent restores (engine-reported)
         self.schedule_override = schedule_override   # None|hidden|kv|recompute
 
     def close(self) -> None:
@@ -70,6 +71,11 @@ class HCacheManager:
             self._pack = RestoreParamPack(self.model, params)
             self._pack_params = params
         return self._pack
+
+    def set_io_streams(self, n: int) -> None:
+        """Engine-reported restore multiplicity: how many sessions pull
+        the store at once; an executor prices its IO legs under it."""
+        self.io_streams = max(int(n), 1)
 
     # ------------------------------------------------------------- planning
     def plan(self, n_tokens: int) -> Schedule:
@@ -136,10 +142,14 @@ class HCacheManager:
             data=to_host(hidden), layers=list(range(L))))
 
     def save_session_pause(self, session: str, cache: dict, n_tokens: int,
-                           *, tokens_tail) -> None:
+                           *, tokens_tail, batch_width: int = 1,
+                           batch_row: int = 0) -> None:
         """After decoding: drain the saver, append the decoded tokens and
         the K/V of ``kv``-method layers from the live cache (row 0), and
-        mark the store restorable at ``n_tokens``."""
+        mark the store restorable at ``n_tokens``. The decode segment is
+        recorded with the batch it ran in (``batch_width`` rows, the
+        session at ``batch_row``) when that is wider than one, so the
+        recompute replay runs the same shapes."""
         self.saver.drain()
         manifest = self.store.get_manifest(session)
         if manifest is None:
@@ -148,17 +158,21 @@ class HCacheManager:
         tail = np.asarray(tokens_tail).reshape(-1)
         self.store.put_blob(session, "tok", 0, np.concatenate(
             [self._tokens(session)[:prev_n], tail.astype(np.int64)]))
+        adapter = self.model.adapter
         for li, method in enumerate(manifest["methods"]):
             if method != "kv":
                 continue
-            for stream, name in (("kvk", "k"), ("kvv", "v")):
-                x = cache[name][li][0, prev_n:n_tokens]
+            for stream, name in zip(("kvk", "kvv"), adapter.kv_names):
+                x = cache[name][adapter.kv_row(li)][0, prev_n:n_tokens]
                 self.store.append_tokens(session, stream, li, prev_n,
                                          to_host(x.reshape(x.shape[0], -1)))
         self.store.flush(session)
         if n_tokens > prev_n:
+            seg = [prev_n, int(n_tokens) - prev_n, "decode"]
+            if batch_width > 1:
+                seg += [int(batch_width), int(batch_row)]
             manifest.setdefault("segments", [[0, prev_n, "prefill"]]).append(
-                [prev_n, int(n_tokens) - prev_n, "decode"])
+                seg)
         manifest["n_tokens"] = int(n_tokens)
         self.store.put_manifest(session, manifest)
 
@@ -167,9 +181,13 @@ class HCacheManager:
         return np.asarray(self.store.get_blob(session, "tok", 0))
 
     def begin_restore(self, params, session: str,
-                      sink: RestoreSink) -> RestorationExecutor:
-        """An executor that restores ``session`` into ``sink``."""
-        return RestorationExecutor(self, params, session, sink=sink)
+                      sink: Optional[RestoreSink] = None,
+                      start_token: int = 0) -> RestorationExecutor:
+        """An executor that restores ``session`` into ``sink`` (attached
+        later when None). ``start_token > 0`` restores only the tokens from
+        there on, for a slot that already holds [0, start_token)."""
+        return RestorationExecutor(self, params, session, sink=sink,
+                                   start_token=start_token)
 
     def restore(self, params, session: str, *,
                 capacity: Optional[int] = None) -> RestoreResult:

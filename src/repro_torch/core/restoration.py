@@ -282,15 +282,17 @@ def to_device(x, dtype: torch.dtype, device) -> torch.Tensor:
 class RestoreSink:
     """Receives restored state one piece at a time, in any order."""
 
-    def put_kv(self, row: int, k, v) -> None:
-        """One attention layer's K/V (k, v: (1, n, kv_heads, head_dim));
-        ``row`` indexes the stacked-KV buffer."""
+    def put_kv(self, row: int, k, v, start: int = 0) -> None:
+        """One attention layer's K/V (k, v: (1, n, kv_heads, head_dim)) at
+        tokens [start, start + n); ``row`` indexes the stacked-KV
+        buffer."""
         raise NotImplementedError
 
-    def put_kv_group(self, rows: Sequence[int], k, v) -> None:
+    def put_kv_group(self, rows: Sequence[int], k, v,
+                     start: int = 0) -> None:
         """A whole projection group's K/V; k/v (G, 1, n, kv_heads, hd)."""
         for g, row in enumerate(rows):
-            self.put_kv(row, k[g], v[g])
+            self.put_kv(row, k[g], v[g], start)
 
     def finish(self, n_tokens: int) -> None:
         raise NotImplementedError
@@ -318,11 +320,11 @@ class CacheAssembler(RestoreSink):
             self.v = torch.zeros_like(self.k)
         return self.k, self.v
 
-    def put_kv(self, row, k, v):
+    def put_kv(self, row, k, v, start=0):
         n = k.shape[1]
-        kb, vb = self._buffers(n)
-        kb[row, :, :n] = k
-        vb[row, :, :n] = v
+        kb, vb = self._buffers(start + n)
+        kb[row, :, start:start + n] = k
+        vb[row, :, start:start + n] = v
 
     def finish(self, n_tokens):
         kb, vb = self._buffers(n_tokens)
@@ -350,16 +352,20 @@ class RestoreParamPack:
         self.model = model
         self.blocks = params["blocks"]
         self.attn = model.h.attn
-        self._tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._tables: Dict[Tuple[int, int],
+                           Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def rope_tables(self, n_pos: int):
-        """cos/sin (n_pos, head_dim//2) for positions [0, n_pos)."""
-        got = self._tables.get(n_pos)
+    def rope_tables(self, n_pos: int, offset: int = 0):
+        """cos/sin (n_pos, head_dim//2) for positions [offset,
+        offset + n_pos)."""
+        key = (n_pos, offset)
+        got = self._tables.get(key)
         if got is None:
-            cos, sin = rope_table(n_pos, self.attn.head_dim,
+            end = offset + n_pos
+            cos, sin = rope_table(end, self.attn.head_dim,
                                   self.attn.rope_theta, self.model.device)
-            got = (cos[:n_pos].contiguous(), sin[:n_pos].contiguous())
-            self._tables[n_pos] = got
+            got = (cos[offset:end].contiguous(), sin[offset:end].contiguous())
+            self._tables[key] = got
         return got
 
 
@@ -381,11 +387,16 @@ class RestorationExecutor:
 
     Created by ``HCacheManager.begin_restore``. ``step(max_tasks)`` runs a
     bounded number of tasks, event-driven across the two virtual streams
-    (whichever stream's clock is behind goes next). Projection tasks are
-    groups of ``mgr.restore_group_size`` layers. ``project_wall`` sums the
-    wall seconds inside projection groups, synchronised with the device."""
+    (whichever stream's clock is behind goes next); a serving engine
+    steps it a few tasks per engine step. ``prefetch_step`` runs IO tasks
+    only, before a sink is attached: pieces finished without a sink are
+    kept and flushed by ``attach_sink``. Projection tasks are groups of
+    ``mgr.restore_group_size`` layers. ``project_wall`` sums the wall
+    seconds inside projection groups, synchronised with the device;
+    ``wall_time`` the seconds inside ``step`` and ``prefetch_step``."""
 
-    def __init__(self, mgr, params, session: str, sink: RestoreSink):
+    def __init__(self, mgr, params, session: str,
+                 sink: Optional[RestoreSink] = None, start_token: int = 0):
         manifest = mgr.store.get_manifest(session)
         if manifest is None:
             raise KeyError(f"no stored state for session {session!r}")
@@ -396,6 +407,19 @@ class RestorationExecutor:
         self.sink = sink
         self.n_tokens = int(manifest["n_tokens"])
         self.methods = tuple(manifest["methods"])
+        # tokens [0, start_token) are already in the target slot: the
+        # graph restores only the suffix (reads from its first chunk,
+        # projections at its bucket, RoPE and sink writes at the offset).
+        # The recompute method rebuilds from token 0 and cannot skip.
+        start_token = int(start_token)
+        if start_token and "recompute" in self.methods:
+            raise ValueError("restore-skip is incompatible with "
+                             "recompute-method layers")
+        if not 0 <= start_token < max(self.n_tokens, 1):
+            raise ValueError(f"start_token {start_token} outside "
+                             f"[0, {self.n_tokens})")
+        self.start_token = start_token
+        self.n_eff = self.n_tokens - start_token
         self.schedule = Schedule(self.methods, 0.0, 0.0, 0.0, 0.0)
         mgr.store.sync_clocks(0.0)
         kinds = mgr.cfg.block_kinds()
@@ -407,10 +431,11 @@ class RestorationExecutor:
         self._g_pad = min(self.group_size, max(n_hidden, 1))
         self.dispatch_overhead = mgr.hw.dispatch_overhead
         self.tasks = compile_tasks(self.methods, group_size=self.group_size)
-        self.costs = layer_costs(mgr.cfg, self.n_tokens, mgr.dtype_bytes)
+        self.costs = layer_costs(mgr.cfg, self.n_eff, mgr.dtype_bytes)
         self.topology = mgr.store.shard_topology()
         self.times, layer_links = link_priced_times(
-            self.costs, mgr.hw, topology=self.topology)
+            self.costs, mgr.hw, io_streams=mgr.io_streams,
+            topology=self.topology)
         self._task_links = task_links(self.tasks, layer_links)
         self.executed: List[int] = []
         self._done = [False] * len(self.tasks)
@@ -432,12 +457,30 @@ class RestorationExecutor:
         self._re_kv = None
         self._re_next = 0
         self._finished = False
+        self._pending: List[Tuple[str, tuple]] = []   # pieces before a sink
+        self._io_base = mgr.store.read_completion()
+        self.io_measured = 0.0       # virtual read completion of this restore
+        self.wall_time = 0.0         # seconds inside step() / prefetch_step()
         self.project_wall = 0.0
 
     # ------------------------------------------------------------- plumbing
     @property
     def done(self) -> bool:
         return all(self._done) and not self._kvio
+
+    def attach_sink(self, sink: RestoreSink) -> None:
+        """Direct the restore into ``sink``, flushing the pieces that
+        finished before one was attached (a prefetched executor)."""
+        self.sink = sink
+        for op, args in self._pending:
+            getattr(sink, op)(*args)
+        self._pending.clear()
+
+    def _emit(self, op: str, *args) -> None:
+        if self.sink is not None:
+            getattr(self.sink, op)(*args)
+        else:
+            self._pending.append((op, args))
 
     def timeline(self):
         """Timeline derived from the order tasks actually executed in."""
@@ -471,16 +514,31 @@ class RestorationExecutor:
     def step(self, max_tasks: int = 4) -> bool:
         """Execute up to ``max_tasks`` tasks; True when restoration is
         done. A projection group counts as one task."""
+        t0 = time.perf_counter()
         for _ in range(max_tasks):
             idx = self._pick()
             if idx is None:
                 break
             self._run_task(idx)
         self._reap_kv()
-        if self.done and not self._finished:
+        if self.done and not self._finished and self.sink is not None:
             self.sink.finish(self.n_tokens)
             self._finished = True
+        self.io_measured = max(
+            self.io_measured, self.mgr.store.read_completion() - self._io_base)
+        self.wall_time += time.perf_counter() - t0
         return self.done
+
+    def prefetch_step(self, max_tasks: int = 1) -> int:
+        """Run up to ``max_tasks`` IO tasks (no sink needed); returns how
+        many ran. Warms the reads of a queued session."""
+        t0 = time.perf_counter()
+        n = 0
+        while n < max_tasks and self._io_queue:
+            self._run_task(self._io_queue[0])
+            n += 1
+        self.wall_time += time.perf_counter() - t0
+        return n
 
     def run(self) -> None:
         while not self.step(max_tasks=max(len(self.tasks), 1)):
@@ -508,27 +566,30 @@ class RestorationExecutor:
     def _exec_io_h(self, t: Task) -> None:
         # the read completes when the projection consumes it
         self._hio[t.layer] = self.mgr.store.submit_layer_read(
-            self.session, "h", t.layer, self.n_tokens)
+            self.session, "h", t.layer, self.n_tokens,
+            start_token=self.start_token)
 
     def _exec_io_kv(self, t: Task) -> None:
         store, sess, n = self.mgr.store, self.session, self.n_tokens
-        self._kvio.append((t.layer,
-                           store.submit_layer_read(sess, "kvk", t.layer, n),
-                           store.submit_layer_read(sess, "kvv", t.layer, n)))
+        d = self.start_token
+        self._kvio.append((
+            t.layer,
+            store.submit_layer_read(sess, "kvk", t.layer, n, start_token=d),
+            store.submit_layer_read(sess, "kvv", t.layer, n, start_token=d)))
 
     def _reap_kv(self) -> None:
         """Complete the K/V reads and emit them to the sink."""
         cfg, model = self.mgr.cfg, self.model
         for layer, rk, rv in self._kvio:
             ak, av = rk.wait(), rv.wait()
-            shape = (1, self.n_tokens, cfg.n_kv_heads, cfg.head_dim_)
+            shape = (1, self.n_eff, cfg.n_kv_heads, cfg.head_dim_)
             k = to_device(ak.data, model.dtype, model.device).reshape(shape)
             v = to_device(av.data, model.dtype, model.device).reshape(shape)
-            self.sink.put_kv(self._row_of[layer], k, v)
+            self._emit("put_kv", self._row_of[layer], k, v, self.start_token)
         self._kvio = []
 
     def _exec_project(self, t: Task) -> None:
-        model, pack, n = self.model, self.pack, self.n_tokens
+        model, pack, n = self.model, self.pack, self.n_eff
         members = list(t.members)
         S = s_bucket(n)
         G = max(self._g_pad, len(members))
@@ -545,7 +606,7 @@ class RestorationExecutor:
         # hidden states; the padded outputs are sliced away below
         rows_pad = torch.tensor(rows + [rows[-1]] * (G - len(rows)),
                                 dtype=torch.int32, device=model.device)
-        cos, sin = pack.rope_tables(S)
+        cos, sin = pack.rope_tables(S, self.start_token)
         t0 = time.perf_counter()
         hidden = to_device(stack, model.dtype, model.device)
         k, v = project_group(pack, hidden, rows_pad, cos, sin)
@@ -553,8 +614,8 @@ class RestorationExecutor:
             torch.cuda.synchronize(k.device)
         self.project_wall += time.perf_counter() - t0
         g_real = len(members)
-        self.sink.put_kv_group(tuple(rows), k[:g_real, None, :n],
-                               v[:g_real, None, :n])
+        self._emit("put_kv_group", tuple(rows), k[:g_real, None, :n],
+                   v[:g_real, None, :n], self.start_token)
 
     def _exec_recompute(self, t: Task) -> None:
         """The recompute prefix is rebuilt once, at its first task, by
@@ -570,5 +631,5 @@ class RestorationExecutor:
                     model.device), self.segments, model.h,
                 len(self._re_layers))
         k, v = self._re_kv
-        self.sink.put_kv(self._row_of[t.layer], k[t.layer], v[t.layer])
+        self._emit("put_kv", self._row_of[t.layer], k[t.layer], v[t.layer])
         self._re_next += 1

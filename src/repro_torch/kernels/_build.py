@@ -8,9 +8,10 @@ Route: ``torch.utils.cpp_extension.load`` over all sources in one call,
 with PyTorch's headers confined to ``csrc/binding.cpp``; where ``ninja``
 (which ``load`` needs) is missing, ``nvcc`` compiles the kernel sources
 into a shared library with a plain C interface, loaded with ``ctypes``.
-Either way the returned object exposes ``restore_kv_grouped`` and
-``decode_attention`` taking device addresses and sizes as Python numbers,
-and raises when a launch fails.
+Either way the returned object exposes ``restore_kv_grouped``,
+``decode_attention``, ``decode_attention_paged`` and ``flash_attention``
+taking device addresses and sizes as Python numbers, and raises when a
+launch fails.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("restore_kv.cu", "decode_attention.cu")
+KERNEL_SOURCES = ("restore_kv.cu", "decode_attention.cu",
+                  "flash_attention.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-lineinfo"] + ARCH_FLAGS
 
@@ -36,6 +38,10 @@ _ARGTYPES = {
     "hc_restore_kv_grouped": [_VP] * 10 + [_I] * 7 + [_VP],
     "hc_decode_attention": [_VP] * 5 + [_I] * 5 + [_LL] * 6
     + [_F, _F, _I, _I, _VP],
+    "hc_decode_attention_paged": [_VP] * 6 + [_I] * 7 + [_LL] * 6
+    + [_F, _F, _I, _I, _VP],
+    "hc_flash_attention": [_VP] * 6 + [_I] * 6 + [_LL] * 9
+    + [_F, _F, _I, _I, _I, _VP],
 }
 
 
@@ -61,6 +67,12 @@ class _CtypesKernels:
 
     def decode_attention(self, *args) -> None:
         self._call("hc_decode_attention", *args)
+
+    def decode_attention_paged(self, *args) -> None:
+        self._call("hc_decode_attention_paged", *args)
+
+    def flash_attention(self, *args) -> None:
+        self._call("hc_flash_attention", *args)
 
 
 def _build_with_nvcc() -> _CtypesKernels:

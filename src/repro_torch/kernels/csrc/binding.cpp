@@ -17,6 +17,22 @@ extern "C" int hc_decode_attention(
     long long ss, long long sh, long long vsb, long long vss, long long vsh,
     float scale, float softcap, int window, int dtype, void* stream);
 
+extern "C" int hc_decode_attention_paged(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* table, const void* kv_len, void* out, int BKv, int G,
+    int hd, int n_kv_heads, int nb, int bs, int mb, long long kblk,
+    long long koff, long long kh, long long vblk, long long voff,
+    long long vh, float scale, float softcap, int window, int dtype,
+    void* stream);
+
+extern "C" int hc_flash_attention(
+    const void* q, const void* k, const void* v, const void* q_offset,
+    const void* kv_len, void* out, int B, int Sq, int Skv, int H, int Kv,
+    int hd, long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, float scale, float softcap, int causal, int window,
+    int dtype, void* stream);
+
 namespace {
 
 void* ptr(int64_t p) { return reinterpret_cast<void*>(p); }
@@ -53,9 +69,42 @@ void decode_attention(int64_t q, int64_t k, int64_t v, int64_t kv_len,
         "decode_attention");
 }
 
+void decode_attention_paged(int64_t q, int64_t k_pool, int64_t v_pool,
+                            int64_t table, int64_t kv_len, int64_t out,
+                            int BKv, int G, int hd, int n_kv_heads, int nb,
+                            int bs, int mb, int64_t kblk, int64_t koff,
+                            int64_t kh, int64_t vblk, int64_t voff,
+                            int64_t vh, double scale, double softcap,
+                            int window, int dtype, int64_t stream) {
+  check(hc_decode_attention_paged(
+            ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(kv_len),
+            ptr(out), BKv, G, hd, n_kv_heads, nb, bs, mb, kblk, koff, kh,
+            vblk, voff, vh, static_cast<float>(scale),
+            static_cast<float>(softcap), window, dtype, ptr(stream)),
+        "decode_attention_paged");
+}
+
+void flash_attention(int64_t q, int64_t k, int64_t v, int64_t q_offset,
+                     int64_t kv_len, int64_t out, int B, int Sq, int Skv,
+                     int H, int Kv, int hd, int64_t qsb, int64_t qss,
+                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+                     int64_t vsb, int64_t vss, int64_t vsh, double scale,
+                     double softcap, int causal, int window, int dtype,
+                     int64_t stream) {
+  check(hc_flash_attention(ptr(q), ptr(k), ptr(v), ptr(q_offset),
+                           ptr(kv_len), ptr(out), B, Sq, Skv, H, Kv, hd, qsb,
+                           qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+                           static_cast<float>(scale),
+                           static_cast<float>(softcap), causal, window,
+                           dtype, ptr(stream)),
+        "flash_attention");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("restore_kv_grouped", &restore_kv_grouped);
   m.def("decode_attention", &decode_attention);
+  m.def("decode_attention_paged", &decode_attention_paged);
+  m.def("flash_attention", &flash_attention);
 }

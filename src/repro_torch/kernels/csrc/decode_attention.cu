@@ -1,9 +1,11 @@
-// Single-token decode attention over a contiguous KV cache, read in place
-// through its strides.
+// Single-token decode attention over a contiguous KV cache or a paged
+// one, read in place through strides.
 //
-// Replaces the TPU kernel repro/kernels/decode_attention.py ::
-// decode_attention_pallas (the same function as the jnp decode path that
-// repro/models/transformer.py::block_decode runs).
+// Replaces the TPU kernels repro/kernels/decode_attention.py ::
+// decode_attention_pallas (contiguous cache; the same function as the jnp
+// decode path that repro/models/transformer.py::block_decode runs) and
+// decode_attention_paged_pallas (a physical page pool addressed through a
+// block table; repro/models/transformer.py::block_decode_paged).
 //
 // What bounds it on an H100: bytes. Each (batch, kv head) reads its live
 // K and V once, 2 * kv_len * hd * 2 bytes in bf16, and does ~4 FLOP per
@@ -22,6 +24,17 @@
 // the warps' partial results are merged in a fixed order (no atomics), so
 // equal inputs give bitwise-equal outputs. Split-K across blocks
 // (flash-decoding) is later work.
+//
+// Paged: the kernel body is the same template, instantiated with another
+// address policy. Only where a key's row is read changes: the lane at
+// logical position p reads page table[b, p / bs] at offset p % bs (per
+// lane, since with bs = 16 one 32-key tile spans two pages), and the V
+// loop takes each key's row address from the lane that computed it. The
+// walk, the online softmax and the merge order are untouched, so paged
+// decode gives the same bits as contiguous decode over the same logical
+// cache. Table entries >= num_blocks are unallocated sentinels: the
+// kernel reads only positions below kv_len, and clamps an entry to the
+// pool in any case, so a sentinel is never dereferenced.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -75,16 +88,45 @@ from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Where the row of (batch b, kv head h, position pos) lives.
 template <typename T>
+struct ContiguousAddr {           // (B, Smax, Kv, hd) or (BKv, Smax, hd)
+  const T* k;
+  const T* v;
+  int64_t sb, ss, sh, vsb, vss, vsh;
+  __device__ __forceinline__ const T* krow(int b, int h, int pos) const {
+    return k + b * sb + h * sh + (int64_t)pos * ss;
+  }
+  __device__ __forceinline__ const T* vrow(int b, int h, int pos) const {
+    return v + b * vsb + h * vsh + (int64_t)pos * vss;
+  }
+};
+
+template <typename T>
+struct PagedAddr {                // pools (NB, bs, Kv, hd) or (NB, bs, hd)
+  const T* k;
+  const T* v;
+  const int32_t* table;           // (rows, mb)
+  int nb, bs, mb;
+  int64_t kblk, koff, kh, vblk, voff, vh;
+  __device__ __forceinline__ int64_t page(int b, int pos) const {
+    return min(table[(int64_t)b * mb + pos / bs], nb - 1);
+  }
+  __device__ __forceinline__ const T* krow(int b, int h, int pos) const {
+    return k + page(b, pos) * kblk + (pos % bs) * koff + h * kh;
+  }
+  __device__ __forceinline__ const T* vrow(int b, int h, int pos) const {
+    return v + page(b, pos) * vblk + (pos % bs) * voff + h * vh;
+  }
+};
+
+template <typename T, typename Addr>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
-                        const T* __restrict__ k,     // strided cache
-                        const T* __restrict__ v,
+                        const Addr addr,             // the K/V rows
                         const int32_t* __restrict__ kv_len,  // (BKv,)
                         T* __restrict__ out,         // (BKv, G, hd)
                         int G, int hd, int n_kv_heads, int smax,
-                        int64_t sb, int64_t ss, int64_t sh,  // k strides
-                        int64_t vsb, int64_t vss, int64_t vsh,
                         float scale, float softcap, int window) {
   __shared__ float qs[MAX_G][MAX_HD];
   __shared__ float acc_s[MAX_G][MAX_HD];
@@ -105,8 +147,6 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
     acc_s[e / hd][e % hd] = 0.f;
   }
   __syncthreads();
-  const T* kb = k + b * sb + h * sh;
-  const T* vb = v + b * vsb + h * vsh;
   const int d0 = lane * DPL;          // this lane's P @ V columns
 
   float m[MAX_G], l[MAX_G], acc[MAX_G][DPL];
@@ -129,8 +169,12 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
     float s[MAX_G];
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
+    // this lane's V row, handed to the other lanes in the weighted sum
+    // (every key below len is read there, as keys before the window carry
+    // p = 0)
+    const T* vr = kpos < len ? addr.vrow(b, h, kpos) : nullptr;
     if (live) {
-      const T* kr = kb + (int64_t)kpos * ss;
+      const T* kr = addr.krow(b, h, kpos);
       for (int d = 0; d < hd; d += 8) {
         float kv8[8];
         load8(kr + d, kv8);
@@ -168,7 +212,9 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
     const int n_keys = min(TILE, len - t * TILE);
     for (int j = 0; j < n_keys; ++j) {
       float vv[DPL] = {0.f, 0.f, 0.f, 0.f};
-      if (d0 < hd) load4(vb + (int64_t)(t * TILE + j) * vss + d0, vv);
+      const T* vj = reinterpret_cast<const T*>(__shfl_sync(
+          0xffffffffu, reinterpret_cast<unsigned long long>(vr), j));
+      if (d0 < hd) load4(vj + d0, vv);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
         if (g >= G) break;
@@ -220,6 +266,19 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
   }
 }
 
+template <typename T, typename Addr>
+void launch(const void* q, const Addr& addr, const int32_t* lens, void* out,
+            int BKv, int G, int hd, int n_kv_heads, int smax, float scale,
+            float softcap, int window, cudaStream_t st) {
+  decode_attention_kernel<T, Addr><<<BKv, WARPS * 32, 0, st>>>(
+      static_cast<const T*>(q), addr, lens, static_cast<T*>(out), G, hd,
+      n_kv_heads, smax, scale, softcap, window);
+}
+
+bool bad_sizes(int G, int hd) {
+  return G < 1 || G > MAX_G || hd < 8 || hd > MAX_HD || hd % 8;
+}
+
 }  // namespace
 
 // k/v element (bkv, s, d) lives at base + b*sb + s*ss + h*sh + d with
@@ -233,23 +292,58 @@ extern "C" int hc_decode_attention(
     void* out, int BKv, int G, int hd, int n_kv_heads, int smax, long long sb,
     long long ss, long long sh, long long vsb, long long vss, long long vsh,
     float scale, float softcap, int window, int dtype, void* stream) {
-  if (G < 1 || G > MAX_G || hd < 8 || hd > MAX_HD || hd % 8 || smax < 1)
-    return -1;
+  if (bad_sizes(G, hd) || smax < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* lens = static_cast<const int32_t*>(kv_len);
-  if (dtype == 0)
-    decode_attention_kernel<float><<<BKv, WARPS * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), lens, static_cast<float*>(out), G, hd,
-        n_kv_heads, smax, sb, ss, sh, vsb, vss, vsh, scale, softcap, window);
-  else if (dtype == 1)
-    decode_attention_kernel<__nv_bfloat16><<<BKv, WARPS * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
+  if (dtype == 0) {
+    const ContiguousAddr<float> a{static_cast<const float*>(k),
+                                  static_cast<const float*>(v), sb, ss, sh,
+                                  vsb, vss, vsh};
+    launch<float>(q, a, lens, out, BKv, G, hd, n_kv_heads, smax, scale,
+                  softcap, window, st);
+  } else if (dtype == 1) {
+    const ContiguousAddr<__nv_bfloat16> a{
         static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), lens,
-        static_cast<__nv_bfloat16*>(out), G, hd, n_kv_heads, smax, sb, ss,
-        sh, vsb, vss, vsh, scale, softcap, window);
-  else
+        static_cast<const __nv_bfloat16*>(v), sb, ss, sh, vsb, vss, vsh};
+    launch<__nv_bfloat16>(q, a, lens, out, BKv, G, hd, n_kv_heads, smax,
+                          scale, softcap, window, st);
+  } else {
     return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged: row bkv reads table row b = bkv / n_kv_heads and kv head
+// h = bkv % n_kv_heads. k/v element (page, off, h, d) lives at base +
+// page*kblk + off*koff + h*kh + d (elements; hd and every stride a
+// multiple of 8, base pointers 16-byte aligned); table (rows, mb) int32,
+// entries >= nb are sentinels. Same return codes as above.
+extern "C" int hc_decode_attention_paged(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* table, const void* kv_len, void* out, int BKv, int G,
+    int hd, int n_kv_heads, int nb, int bs, int mb, long long kblk,
+    long long koff, long long kh, long long vblk, long long voff,
+    long long vh, float scale, float softcap, int window, int dtype,
+    void* stream) {
+  if (bad_sizes(G, hd) || nb < 1 || bs < 1 || mb < 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* lens = static_cast<const int32_t*>(kv_len);
+  const int32_t* tbl = static_cast<const int32_t*>(table);
+  if (dtype == 0) {
+    const PagedAddr<float> a{static_cast<const float*>(k_pool),
+                             static_cast<const float*>(v_pool), tbl, nb, bs,
+                             mb, kblk, koff, kh, vblk, voff, vh};
+    launch<float>(q, a, lens, out, BKv, G, hd, n_kv_heads, mb * bs, scale,
+                  softcap, window, st);
+  } else if (dtype == 1) {
+    const PagedAddr<__nv_bfloat16> a{
+        static_cast<const __nv_bfloat16*>(k_pool),
+        static_cast<const __nv_bfloat16*>(v_pool), tbl, nb, bs, mb, kblk,
+        koff, kh, vblk, voff, vh};
+    launch<__nv_bfloat16>(q, a, lens, out, BKv, G, hd, n_kv_heads,
+                          mb * bs, scale, softcap, window, st);
+  } else {
+    return -1;
+  }
   return static_cast<int>(cudaGetLastError());
 }

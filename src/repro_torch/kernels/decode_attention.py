@@ -1,4 +1,4 @@
-"""Single-token decode attention against a contiguous KV cache.
+"""Single-token decode attention against a contiguous or a paged KV cache.
 
 q ``(BKv, G, hd)``: one query token, G query heads per kv head. The cache
 is either ``(BKv, Smax, hd)`` or the model's own ``(B, Smax, Kv, hd)``
@@ -8,10 +8,20 @@ layout with ``BKv = B·Kv`` (row ``b·Kv + h`` reads batch b, kv head h).
 window``, get no weight; ``softcap`` squashes the logits before masking.
 Returns ``(BKv, G, hd)`` in q's dtype.
 
-``decode_attention_cuda`` launches the hand-written kernel
-(``csrc/decode_attention.cu``), which reads the 4-D cache in place
-through its strides; ``decode_attention_plain`` is the plain PyTorch
-version. ``kernels.ops`` picks one by device.
+Paged: the same attention over a physical page pool addressed through a
+block table. The pool is either one head's ``(NB, bs, hd)`` with a table
+``(BKv, MB)``, or a layer's ``(NB, bs, Kv, hd)`` with a table ``(B, MB)``
+(row ``b·Kv + h`` reads table row b, head h). Logical position p of a
+row lives in page ``table[row, p // bs]`` at offset ``p % bs``; entries
+``>= NB`` are unallocated sentinels, which are clamped on read and can
+only alias positions at or past ``kv_len``.
+
+``decode_attention_cuda`` and ``decode_attention_paged_cuda`` launch the
+hand-written kernel (``csrc/decode_attention.cu``; one kernel body, two
+address policies, so paged and contiguous give the same bits), which
+reads the cache or pool in place through its strides;
+``decode_attention_plain`` and ``decode_attention_paged_plain`` are the
+plain PyTorch versions. ``kernels.ops`` picks one by device.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ MAX_GROUP = 16
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches so far; chip_smoke.py resets and reads it
+# kernel launches so far (contiguous, paged); chip_smoke.py resets and
+# reads them
 launches = 0
+paged_launches = 0
 
 
 def _as_rows(cache: torch.Tensor) -> torch.Tensor:
@@ -41,23 +53,25 @@ def _as_rows(cache: torch.Tensor) -> torch.Tensor:
 def decode_attention_plain(q, k, v, kv_len, *,
                            softcap: Optional[float] = None,
                            window: Optional[int] = None):
-    """Plain PyTorch version (fp32 scores and softmax). Like the kernel it
-    reads only positions below the longest ``kv_len``, so its result does
-    not depend on the cache's spare capacity."""
-    live = max(int(kv_len.max()), 1) if kv_len.numel() else 1
-    k, v = _as_rows(k[:, :live]), _as_rows(v[:, :live])
-    s = torch.einsum("bgh,bkh->bgk", q.float(), k.float()) \
-        * q.shape[-1] ** -0.5
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    kpos = torch.arange(k.shape[1], device=q.device)[None, None, :]
-    kl = kv_len.to(q.device).long()[:, None, None]
-    mask = kpos < kl
-    if window is not None:
-        mask &= kpos > kl - 1 - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bgk,bkh->bgh", p, v.float()).to(q.dtype)
+    """Plain PyTorch version (fp32 scores and softmax), one row at a time.
+    Like the kernel, a row reads only its own live positions, so its result
+    depends neither on the cache's spare capacity nor on the other rows'
+    lengths: a session decoded beside others gives the bits it gives
+    alone."""
+    k, v = _as_rows(k), _as_rows(v)
+    out = torch.empty_like(q)
+    scale = q.shape[-1] ** -0.5
+    for r, n in enumerate(kv_len.tolist()):
+        n = min(max(int(n), 1), k.shape[1])
+        s = (q[r].float() @ k[r, :n].float().T) * scale        # (G, n)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        if window is not None:
+            kpos = torch.arange(n, device=q.device)
+            s = torch.where(kpos > n - 1 - window, s,
+                            torch.full_like(s, NEG_INF))
+        out[r] = (torch.softmax(s, dim=-1) @ v[r, :n].float()).to(q.dtype)
+    return out
 
 
 def decode_attention_cuda(q, k, v, kv_len, *,
@@ -114,4 +128,87 @@ def decode_attention_cuda(q, k, v, kv_len, *,
         int(window) if window is not None else 0, _DTYPE_CODE[dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    return out
+
+
+def _gather_pages(pool: torch.Tensor, table: torch.Tensor, n_pages: int):
+    """The logical layout of the first ``n_pages`` table columns: a
+    (rows, n_pages·bs, ...) copy of the pool's pages, sentinels clamped."""
+    tbl = table[:, :n_pages].clamp(max=pool.shape[0] - 1).long()
+    rows = tbl.shape[0]
+    return pool[tbl].reshape(rows, n_pages * pool.shape[1], *pool.shape[2:])
+
+
+def decode_attention_paged_plain(q, k_pool, v_pool, block_table, kv_len, *,
+                                 softcap: Optional[float] = None,
+                                 window: Optional[int] = None):
+    """Plain PyTorch version: gather the pages that hold live positions
+    into the logical layout, then the contiguous plain version, so the two
+    give the same bits for the same logical cache."""
+    bs = k_pool.shape[1]
+    live = max(int(kv_len.max()), 1) if kv_len.numel() else 1
+    n_pages = min(-(-live // bs), block_table.shape[1])
+    table = block_table.to(k_pool.device)
+    return decode_attention_plain(
+        q, _gather_pages(k_pool, table, n_pages),
+        _gather_pages(v_pool, table, n_pages), kv_len, softcap=softcap,
+        window=window)
+
+
+def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, kv_len, *,
+                                softcap: Optional[float] = None,
+                                window: Optional[int] = None):
+    """Launch the CUDA kernel on the pool; same contract as the plain
+    version."""
+    global paged_launches
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention_paged_cuda needs CUDA tensors")
+    dtype, dev = q.dtype, q.device
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if q.dim() != 3 or not q.is_contiguous():
+        raise ValueError("q must be a contiguous (BKv, G, hd) tensor")
+    BKv, G, hd = q.shape
+    if not 1 <= G <= MAX_GROUP or not 8 <= hd <= MAX_HEAD_DIM or hd % 8:
+        raise ValueError(f"unsupported G={G} or hd={hd}")
+    if k_pool.dim() not in (3, 4) or k_pool.shape != v_pool.shape:
+        raise ValueError("pools must be equal (NB, bs, hd) or "
+                         "(NB, bs, Kv, hd) tensors")
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    n_kv = 1 if k_pool.dim() == 3 else k_pool.shape[2]
+    strides = []
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.device != dev or t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on {dev}")
+        if t.shape[-1] != hd:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+        sblk, soff = t.stride(0), t.stride(1)
+        sh = 0 if t.dim() == 3 else t.stride(2)
+        if t.stride(-1) != 1 or (sblk | soff | sh) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous last dimension, "
+                             "strides that are multiples of 8 and a "
+                             "16-byte aligned start")
+        strides += [sblk, soff, sh]
+    if block_table.device != dev or block_table.dtype != torch.int32 \
+            or block_table.dim() != 2 or not block_table.is_contiguous() \
+            or block_table.shape[0] * n_kv != BKv:
+        raise ValueError("block_table must be a contiguous (BKv / Kv, MB) "
+                         "int32 tensor on q's device")
+    if kv_len.device != dev or kv_len.dtype != torch.int32 \
+            or tuple(kv_len.shape) != (BKv,) or not kv_len.is_contiguous():
+        raise ValueError("kv_len must be a contiguous (BKv,) int32 tensor "
+                         "on q's device")
+    out = torch.empty_like(q)
+    MB = block_table.shape[1]
+    if BKv == 0 or MB == 0:
+        return out
+    lib = _build.library()
+    lib.decode_attention_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), BKv, G,
+        hd, n_kv, NB, bs, MB, *strides, hd ** -0.5,
+        float(softcap) if softcap is not None else 0.0,
+        int(window) if window is not None else 0, _DTYPE_CODE[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    paged_launches += 1
     return out

@@ -4,6 +4,7 @@ skip the kernel on the card."""
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import restore_kv as _rkv
 
 
@@ -21,3 +22,21 @@ def decode_attention(q, k, v, kv_len, *, softcap=None, window=None):
     fn = (_dec.decode_attention_cuda if q.device.type == "cuda"
           else _dec.decode_attention_plain)
     return fn(q, k, v, kv_len, softcap=softcap, window=window)
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_table, kv_len, *,
+                           softcap=None, window=None):
+    """See ``kernels/decode_attention.py``."""
+    fn = (_dec.decode_attention_paged_cuda if q.device.type == "cuda"
+          else _dec.decode_attention_paged_plain)
+    return fn(q, k_pool, v_pool, block_table, kv_len, softcap=softcap,
+              window=window)
+
+
+def flash_attention(q, k, v, q_offset, kv_len, *, causal=True, softcap=None,
+                    window=None):
+    """See ``kernels/flash_attention.py``."""
+    fn = (_fa.flash_attention_cuda if q.device.type == "cuda"
+          else _fa.flash_attention_plain)
+    return fn(q, k, v, q_offset, kv_len, causal=causal, softcap=softcap,
+              window=window)

@@ -1,0 +1,212 @@
+"""Serving entry point: the HCache engine over a synthetic multi-round
+conversation trace.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --sessions 4 --rounds 2                     # smoke config, fp32
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend paged \
+        --full                                      # llama2-7b, bf16, GPU
+
+It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
+CPU); with no GPU present and no ``--device`` it fails instead of falling
+back to the CPU. Weights are random, from seed 0. Flags of parts that are
+not ported yet are refused with a message that names the missing part.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.config.arch import reduced_for_smoke
+from repro_torch.config.hardware import PROFILES
+from repro_torch.configs import get_arch
+from repro_torch.core.capacity import (ADMISSION_POLICIES, EVICTION_POLICIES,
+                                       RestoreCostAwareAdmission)
+from repro_torch.core.hcache import HCacheManager
+from repro_torch.models.model import Model, resolve_device
+from repro_torch.serving import BACKENDS, InferenceEngine, Request
+from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
+                                 make_shards)
+
+# flags of the JAX package's serve.py whose parts are not ported yet, and
+# the ROADMAP item that brings each
+NOT_PORTED = {
+    "--budget-kb": "the host-storage budget manager (restoration extras: "
+                   "the int8 codec with CapacityManager)",
+    "--tp": "tensor parallelism (multi-GPU)",
+    "--hw-profile": "the measured hardware profile (restoration extras: "
+                    "MeasuredProfile)",
+    "--enc-seq": "encoder-decoder models (other families)",
+    "--prefix-sharing": "prefix sharing and copy-on-write pages",
+    "--serve-http": "the HTTP front door",
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--arch", default="llama2-7b")
+    p.add_argument("--sessions", type=int, default=3)
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--prompt-len", type=int, default=24)
+    p.add_argument("--gen", type=int, default=8)
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--max-seq", type=int, default=256)
+    p.add_argument("--profile", default="a100", choices=sorted(PROFILES))
+    p.add_argument("--ssds", type=int, default=4)
+    p.add_argument("--hosts", type=int, default=1,
+                   help="distributed store: number of host shards, each "
+                        "with --ssds simulated SSDs behind its own NIC "
+                        "link (1 = one-host store)")
+    p.add_argument("--nic-bw", type=float, default=None, metavar="GBPS",
+                   help="per-shard NIC bandwidth in GB/s (default: the "
+                        "hardware model's NIC_BW)")
+    p.add_argument("--placement", default="layer",
+                   choices=("layer", "chunk"),
+                   help="shard placement: layer-striped or token-chunk-"
+                        "striped")
+    p.add_argument("--async-io", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="attach the per-shard async IO engine (default: "
+                        "on when --hosts > 1)")
+    p.add_argument("--full", action="store_true",
+                   help="the architecture at its published size (default: "
+                        "a reduced smoke config)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch versions of the kernels in fp32)")
+    p.add_argument("--preempt-quantum", type=int, default=None,
+                   help="enable mid-stream eviction after N resident steps")
+    p.add_argument("--eviction", default="lru",
+                   choices=sorted(EVICTION_POLICIES))
+    p.add_argument("--admission", default="fifo",
+                   choices=sorted(ADMISSION_POLICIES))
+    p.add_argument("--admission-aging", type=float, default=0.0,
+                   help="restore_cost admission: seconds of makespan "
+                        "credit per queued engine step (anti-starvation)")
+    p.add_argument("--backend", default="contiguous",
+                   choices=sorted(BACKENDS),
+                   help="KV-cache layout: contiguous slots or a "
+                        "block-table page pool")
+    p.add_argument("--block-size", type=int, default=16,
+                   help="paged backend: tokens per physical page")
+    p.add_argument("--cache-blocks", type=int, default=None,
+                   help="paged backend: physical pages in the pool "
+                        "(default max_batch * max_seq / block_size)")
+    p.add_argument("--restore-group-size", default="8",
+                   help="projection layers per restoration launch (an "
+                        "integer; 1 = per layer)")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="dump the final EngineMetrics counters and gauges "
+                        "as JSON to PATH on exit")
+    p.add_argument("--priority-levels", type=int, default=1,
+                   help="synthetic trace: session s gets priority "
+                        "s %% N (exercises --admission priority)")
+    for flag in NOT_PORTED:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def _refuse_unported(p: argparse.ArgumentParser, args) -> int:
+    for flag, what in NOT_PORTED.items():
+        val = getattr(args, flag[2:].replace("-", "_"))
+        if val is not None and not (flag == "--tp" and str(val) == "1"):
+            p.error(f"{flag}: {what} is not ported to repro_torch yet")
+    try:
+        return int(args.restore_group_size)
+    except ValueError:
+        p.error(f"--restore-group-size {args.restore_group_size}: 'auto' "
+                "and 'fetch' group sizes are not ported to repro_torch yet "
+                "(restoration extras); give an integer")
+
+
+def main(argv=None) -> None:
+    p = _parser()
+    args = p.parse_args(argv)
+    group_size = _refuse_unported(p, args)
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = reduced_for_smoke(cfg)
+    model = Model(cfg, dtype=dtype, device=device)
+    params = model.init(0)
+    if args.hosts > 1:
+        from repro_torch.config.hardware import NIC_BW
+        nic_bw = (args.nic_bw * 1e9 if args.nic_bw else NIC_BW)
+        store = ChunkStore(shards=make_shards(args.hosts, args.ssds, "ssd",
+                                              nic_bw=nic_bw),
+                           chunk_tokens=64, placement=args.placement)
+        if args.async_io is not False:
+            store.attach_io_engine(AsyncIOEngine(args.hosts))
+    else:
+        store = ChunkStore(make_array("ssd", args.ssds), chunk_tokens=64)
+        if args.async_io:
+            store.attach_io_engine(AsyncIOEngine(1))
+    mgr = HCacheManager(model, store, hw=PROFILES[args.profile],
+                        restore_group_size=group_size)
+    admission = (RestoreCostAwareAdmission(aging=args.admission_aging)
+                 if args.admission == "restore_cost"
+                 else ADMISSION_POLICIES[args.admission]())
+    engine = InferenceEngine(model, params, mgr, max_batch=args.max_batch,
+                             max_seq=args.max_seq,
+                             preempt_quantum=args.preempt_quantum,
+                             eviction=EVICTION_POLICIES[args.eviction](),
+                             admission=admission,
+                             backend=args.backend,
+                             block_size=args.block_size,
+                             cache_blocks=args.cache_blocks)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {dtype} on "
+          f"{device}")
+
+    rng = np.random.default_rng(0)
+    for rnd in range(args.rounds):
+        for s in range(args.sessions):
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  args.prompt_len).astype(np.int32)
+            engine.submit(Request(f"user{s}", prompt,
+                                  max_new_tokens=args.gen,
+                                  priority=s % max(args.priority_levels,
+                                                   1)))
+        engine.run()
+        for s in range(args.sessions):
+            seq = engine.sessions[f"user{s}"]
+            print(f"round {rnd} user{s}: {len(seq.generated)} tokens, "
+                  f"restore_sim {seq.restore_sim * 1e3:.2f} ms, "
+                  f"ttft_wall {seq.ttft_wall:.3f} s")
+    m = engine.metrics
+    print(f"\nrestored {m.restored_tokens} tokens over "
+          f"{len(m.ttft_wall)} requests; decode steps {m.decode_steps}; "
+          f"preemptions {m.preemptions}; "
+          f"store {store.bytes_used / 1e6:.1f} MB across "
+          f"{len(store.devices)} devices")
+    print(f"cache backend {engine.kv.name}: peak concurrency "
+          f"{m.concurrent_peak} slots, peak live/reserved tokens "
+          f"{m.live_tokens_peak}/{m.reserved_tokens_peak}, mean occupancy "
+          f"{m.occupancy_mean:.2f} (fragmentation "
+          f"{m.fragmentation_mean:.2f}), free blocks {m.free_blocks}, "
+          f"alloc stalls {m.alloc_stalls}")
+    for r in m.device_gauges:
+        print(f"device {r['device']}: free pages {r['free_pages']}, "
+              f"pool occupancy {r['occupancy_pct']}%, live/reserved "
+              f"{r['util_pct']}%, restore-projection utilization "
+              f"{r['proj_util_pct']}%")
+    print("recoverable sessions:", engine.recoverable_sessions())
+    _dump_metrics(engine, args.metrics_json)
+    engine.close()
+    store.close()                # joins the async IO workers, if attached
+
+
+def _dump_metrics(engine, path) -> None:
+    if not path:
+        return
+    with open(path, "w") as f:
+        json.dump(engine.metrics.to_dict(), f, indent=2)
+    print(f"metrics -> {path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,33 @@
-"""LMAdapter — the seam between the ``lm`` model and the HCache manager:
-how a prefill and a decode step are invoked and which pieces of a prefill
-output are persisted. The other families' adapters are not ported yet."""
+"""LMAdapter — the seam between the ``lm`` model and the HCache manager
+and serving engine: how a prefill, a prefill chunk and a decode step are
+invoked, how a prefill's output lands in a ``CacheView``, and which
+pieces of a prefill output are persisted. The other families' adapters
+are not ported yet.
+
+The adapter does not import ``repro_torch.serving``: the serving seam
+methods are duck-typed over the engine's ``SequenceState`` and the
+backend's ``CacheView``.
+
+Capability flags (as the JAX package's ``FamilyAdapter`` has them):
+``chunkable`` (the prompt may be split into SplitFuse chunks),
+``supports_resume`` (a paused session resumes by prefilling over its
+restored history), ``supports_paged`` (the block-table backend applies),
+``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V)
+and ``kv_row`` (a layer's row in that stack).
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 class LMAdapter:
     kind = "lm"
+    chunkable = True
+    supports_resume = True
+    supports_paged = True
     supports_recompute = True
+    kv_names = ("k", "v")
 
     def __init__(self, model):
         self.model = model
@@ -29,10 +48,41 @@ class LMAdapter:
         from repro_torch.models import transformer as tfm
         return tfm.lm_decode_step(params, cache, tokens, self.model.h)
 
+    def decode_step_paged(self, params, cache, tokens):
+        from repro_torch.models import transformer as tfm
+        return tfm.lm_decode_step_paged(params, cache, tokens, self.model.h)
+
     def restore_kv_from_hidden(self, params, hidden, *, positions):
         from repro_torch.models import transformer as tfm
         return tfm.lm_restore_kv(params, hidden, self.model.h,
                                  positions=positions)
+
+    # -------------------------------------------------- serving: prefill
+    def prefill_chunk(self, params, seq, chunk, hist, *, capture_hidden):
+        """One prefill chunk of a resident sequence: ``chunk`` a 1-D token
+        array, ``hist`` the tokens already in its ``CacheView``."""
+        hist_kv = seq.view.gather_hist(hist) if hist else None
+        tokens = torch.from_numpy(np.asarray(chunk, np.int64))[None].to(
+            self.model.device)
+        return self.prefill(params, {"tokens": tokens},
+                            capture_hidden=capture_hidden, hist_kv=hist_kv,
+                            hist_len=hist if hist_kv is not None else None)
+
+    def absorb_prefill(self, view, out, n, hist) -> None:
+        """Write a prefill output's K/V (``n`` tokens at offset ``hist``)
+        through the view; the caller owns ``view.set_length``."""
+        k, v = out["kv"]
+        view.write_kv(k, v, hist)
+
+    def decode_hidden(self, hidden):
+        """The (L, B, 1, D) hidden stack a decode step persists."""
+        return hidden
+
+    # ------------------------------------------------ serving: save naming
+    def kv_row(self, li: int) -> int:
+        """Stacked-K/V row of global layer ``li`` (every layer of the
+        dense family is an attention layer)."""
+        return li
 
     def prefill_hidden(self, out: dict, li: int) -> torch.Tensor:
         """Layer ``li``'s hidden states (S, D) from a B=1 prefill output."""
@@ -40,4 +90,5 @@ class LMAdapter:
 
     def prefill_kv(self, out: dict, li: int):
         """Layer ``li``'s (k, v), each (S, Kv, hd), from a B=1 prefill."""
-        return out["kv"][0][li][0], out["kv"][1][li][0]
+        row = self.kv_row(li)
+        return out["kv"][0][row][0], out["kv"][1][row][0]

@@ -1,15 +1,17 @@
 """Attention: GQA / MHA with causal, sliding-window and softcap masking.
 
-Prefill attention is ``flash_attention`` below, a chunked online-softmax
-written in plain torch ops (the counterpart of the JAX package's
-``flash_attention_jnp``). Decode attention goes through the kernel
-dispatcher (``kernels.ops.decode_attention``). K and V are not projected
-here: ``models/transformer.py`` projects them through the restoration
-kernel, so prefill and restoration share one K/V code path.
+Prefill attention (``kernels.ops.flash_attention``) and decode attention
+over a contiguous cache (``kernels.ops.decode_attention``) or a paged
+pool (``kernels.ops.decode_attention_paged``) all go through the kernel
+dispatcher: the CUDA kernels on the card, their plain PyTorch versions on
+the CPU. K and V are not projected here: ``models/transformer.py``
+projects them through the restoration kernel, so prefill and restoration
+share one K/V code path.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -17,8 +19,6 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.layers.rope import apply_rope_tables
 from repro_torch.models.module import bias_param, dense_param, normal_init
-
-NEG_INF = -2.0e38
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +30,6 @@ class AttnHyper:
     use_rope: bool = True
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
-    chunk: int = 1024            # kv chunk of the prefill path
 
 
 def init_attention(gen: torch.Generator, d_model: int, h: AttnHyper, dtype,
@@ -63,79 +62,28 @@ def project_q(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
     return q
 
 
-def _mask_bias(q_pos, kv_pos, *, causal: bool, window: Optional[int],
-               kv_len=None):
-    """Additive bias (B,1,1,Sq,Skv): 0 where attendable, NEG_INF elsewhere.
-    q_pos (B,Sq) absolute query positions; kv_pos (Skv,); kv_len None, an
-    int, or (B,)."""
-    qp = q_pos[:, :, None]
-    kp = kv_pos[None, None, :]
-    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                    dtype=torch.bool, device=q_pos.device)
-    if causal:
-        ok &= kp <= qp
-    if window is not None:
-        ok &= kp > qp - window
-    if kv_len is not None:
-        if isinstance(kv_len, int):
-            ok &= kp < kv_len
-        else:
-            ok &= kp < kv_len.reshape(-1, 1, 1)
-    bias = torch.where(ok, 0.0, NEG_INF).float()
-    return bias[:, None, None, :, :]
+@functools.lru_cache(maxsize=256)
+def _prefill_lens(B: int, q_offset: int, kv_len: int, device: torch.device):
+    """(q_offset, kv_len) as (B,) int32 device tensors, uploaded once per
+    distinct prefill shape: a fresh upload per layer would make the host
+    wait for the device every layer."""
+    t = torch.tensor([[q_offset] * B, [kv_len] * B], dtype=torch.int32,
+                     device=device)
+    return t[0], t[1]
 
 
-def _scores(q, k, softcap):
-    """q (B,Sq,Kv,g,hd), k (B,C,Kv,hd) -> (B,Kv,g,Sq,C) fp32."""
-    s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float())
-    s = s * q.shape[-1] ** -0.5
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    return s
-
-
-def flash_attention(q, k, v, h: AttnHyper, *, q_positions, causal: bool,
-                    window: Optional[int] = None, kv_len=None):
-    """Chunked online-softmax attention in plain torch ops.
-
-    q (B,Sq,H,hd), k/v (B,Skv,Kv,hd) -> (B,Sq,H,hd). The K/V chunks are a
-    Python loop (``jax.lax.scan`` in the JAX package)."""
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    Kv = h.n_kv_heads
-    g = H // Kv
-    qg = q.reshape(B, Sq, Kv, g, hd)
-    C = min(h.chunk, Skv)
-    n_chunks = (Skv + C - 1) // C
-    if n_chunks * C != Skv and kv_len is None:
-        kv_len = Skv          # mask the short last chunk's padding
-    m = torch.full((B, Kv, g, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, Kv, g, Sq, hd), dtype=torch.float32,
-                      device=q.device)
-    for idx in range(n_chunks):
-        kc, vc = k[:, idx * C:(idx + 1) * C], v[:, idx * C:(idx + 1) * C]
-        c = kc.shape[1]
-        if c < C:
-            pad = (0, 0, 0, 0, 0, C - c)
-            kc = torch.nn.functional.pad(kc, pad)
-            vc = torch.nn.functional.pad(vc, pad)
-        s = _scores(qg, kc, h.attn_softcap)
-        kv_pos = idx * C + torch.arange(C, device=q.device)
-        s = s + _mask_bias(q_positions, kv_pos, causal=causal,
-                           window=window, kv_len=kv_len)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(v.dtype).float(),
-                          vc.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-    return out.to(q.dtype)
+def flash_attention(q, k, v, h: AttnHyper, *, q_offset: int, causal: bool,
+                    window: Optional[int] = None,
+                    kv_len: Optional[int] = None):
+    """Prefill attention through the kernel dispatcher
+    (``kernels.ops.flash_attention``). q (B,Sq,H,hd), k/v (B,Skv,Kv,hd)
+    -> (B,Sq,H,hd); query row i sits at position ``q_offset + i``, and
+    ``kv_len`` (default Skv) keys are live."""
+    B, Skv = q.shape[0], k.shape[1]
+    qo, kl = _prefill_lens(B, int(q_offset),
+                           Skv if kv_len is None else int(kv_len), q.device)
+    return ops.flash_attention(q, k, v, qo, kl, causal=causal,
+                               softcap=h.attn_softcap, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, h: AttnHyper, *, kv_len,
@@ -155,3 +103,17 @@ def attn_output(p: dict, attn: torch.Tensor):
     """attn (B,S,H,hd) -> (B,S,D) through the output projection."""
     B, S, H, hd = attn.shape
     return torch.matmul(attn.reshape(B, S, H * hd), p["wo"])
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_table, h: AttnHyper, *,
+                           kv_len, window: Optional[int] = None):
+    """One decode token per sequence over a paged pool. q (B,1,H,hd); pools
+    (NB,bs,Kv,hd) of this layer, read in place; block_table (B,MB) int32;
+    kv_len (B,) int live lengths including the new token."""
+    B, _, H, hd = q.shape
+    Kv = h.n_kv_heads
+    qg = q.reshape(B * Kv, H // Kv, hd)
+    lens = kv_len.to(torch.int32).repeat_interleave(Kv).contiguous()
+    out = ops.decode_attention_paged(qg, k_pool, v_pool, block_table, lens,
+                                     softcap=h.attn_softcap, window=window)
+    return out.reshape(B, 1, H, hd)

@@ -8,6 +8,7 @@ Entry points (functions over the parameter dict):
                      emitting stacked K/V
   lm_decode_step  -> one decode token per sequence; also returns the
                      per-layer hidden states
+  lm_decode_step_paged -> the same over a paged KV pool (block tables)
   lm_restore_kv   -> the paper's op: stacked K/V from stacked saved
                      hidden states (norm + projection + RoPE only)
 
@@ -164,11 +165,12 @@ def _block_tail(p: dict, x, attn_out, h: LMHyper):
 
 # ---------------------------------------------------------------- blocks
 def block_forward(blocks: dict, li: int, x, h: LMHyper, *, cos, sin,
-                  positions, window: Optional[int], hist_kv=None,
+                  window: Optional[int], hist_kv=None,
                   hist_len: Optional[int] = None):
-    """Full-sequence block ``li``. x (B,S,D); cos/sin (B,S,hd/2); optional
-    restored history K/V (B,Sh,Kv,hd) pair prepended to the attention
-    context. Returns (x_out, (k, v) of the new tokens)."""
+    """Full-sequence block ``li``. x (B,S,D) at positions hist_len + [0, S);
+    cos/sin (B,S,hd/2); optional restored history K/V (B,Sh,Kv,hd) pair
+    prepended to the attention context. Returns (x_out, (k, v) of the new
+    tokens)."""
     q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
     if hist_kv is not None:
         hk, hv = hist_kv
@@ -178,7 +180,7 @@ def block_forward(blocks: dict, li: int, x, h: LMHyper, *, cos, sin,
     else:
         k_all, v_all, kv_len = k, v, None
     attn_out = attn_lib.flash_attention(
-        q, k_all, v_all, h.attn, q_positions=positions, causal=True,
+        q, k_all, v_all, h.attn, q_offset=hist_len or 0, causal=True,
         window=window, kv_len=kv_len)
     return _block_tail(layer_params(blocks, li), x, attn_out, h), (k, v)
 
@@ -200,6 +202,29 @@ def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
     v_cache[bidx, slot] = torch.where(fits, v[:, 0], v_cache[bidx, slot])
     attn_out = attn_lib.decode_attention(q, k_cache, v_cache, h.attn,
                                          kv_len=lengths + 1, window=window)
+    return _block_tail(layer_params(blocks, li), x, attn_out, h)
+
+
+def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
+                       v_pool, block_table, write, lengths, cos, sin,
+                       window: Optional[int]):
+    """Single-token block ``li`` over a paged KV cache. x (B,1,D); pools
+    (NB,bs,Kv,hd) of this layer; block_table (B,MB) int32 (entries >= NB
+    are unallocated sentinels); lengths (B,) tokens already cached;
+    ``write`` = (rows, slots): the batch rows whose new K/V lands in the
+    pool and their flat pool positions ``page·bs + offset`` (the paged
+    backend computes them from its host copies of table and lengths). The K/V of the other rows is dropped, as the
+    JAX package's ``mode="drop"`` scatter drops it: an unallocated or
+    full row owns no page to write to. The write is in place; attention
+    then reads the pool in place through the block table."""
+    q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
+    rows, slots = write
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    k_pool.view(NB * bs, *k_pool.shape[2:])[slots] = k[rows, 0]
+    v_pool.view(NB * bs, *v_pool.shape[2:])[slots] = v[rows, 0]
+    attn_out = attn_lib.decode_attention_paged(
+        q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
+        window=window)
     return _block_tail(layer_params(blocks, li), x, attn_out, h)
 
 
@@ -242,8 +267,8 @@ def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
         hkv = (None if hist_kv is None
                else (hist_kv[0][li], hist_kv[1][li]))
         x, (k, v) = block_forward(blocks, li, x, h, cos=cos, sin=sin,
-                                  positions=positions, window=windows[li],
-                                  hist_kv=hkv, hist_len=hist_len)
+                                  window=windows[li], hist_kv=hkv,
+                                  hist_len=hist_len)
         if emit_kv:
             ks.append(k)
             vs.append(v)
@@ -274,6 +299,35 @@ def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     return _final_logits(params, x, h), new_cache, torch.stack(hidden)
 
 
+def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
+                         h: LMHyper):
+    """One decode step over a paged KV cache. cache: dict(k_pool, v_pool
+    (L,NB,bs,Kv,hd), block_table (B,MB) int32, lengths (B,) int32, write:
+    the (rows, flat pool positions) of the rows whose new K/V is kept, as
+    device tensors, which the caller computes from its host copies of
+    table and lengths).
+    tokens (B,1). Returns (logits (B,1,V), new cache, hidden (L,B,1,D));
+    the new cache shares the pools, which this step wrote into in place.
+    With every live position mapped by the table this gives the bits of
+    ``lm_decode_step`` at logical width MB·bs."""
+    lengths, table = cache["lengths"], cache["block_table"]
+    k_pool, v_pool, write = cache["k_pool"], cache["v_pool"], cache["write"]
+    cos, sin = rope_at(h.attn, lengths[:, None])
+    x = _embed_input(params, h, tokens)
+    windows = layer_windows(h)
+    hidden = []
+    for li in range(h.cfg.n_layers):
+        hidden.append(x)
+        x = block_decode_paged(params["blocks"], li, x, h,
+                               k_pool=k_pool[li], v_pool=v_pool[li],
+                               block_table=table, write=write,
+                               lengths=lengths, cos=cos, sin=sin,
+                               window=windows[li])
+    new_cache = {"k_pool": k_pool, "v_pool": v_pool, "block_table": table,
+                 "lengths": lengths + 1}
+    return _final_logits(params, x, h), new_cache, torch.stack(hidden)
+
+
 # -------------------------------------------------------------- HCache op
 def lm_restore_kv(params: dict, hidden: torch.Tensor, h: LMHyper, *,
                   positions: torch.Tensor):
@@ -299,43 +353,58 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
     """K/V of layers [0, n_layers) rebuilt from tokens by replaying the
     session's history segment by segment, the way it was first computed.
 
-    tokens (N,) int; segments: [start, n, "prefill" | "decode"] covering
-    [0, N) in order — a prefill segment runs as one prefill over the
-    history before it, a decode segment one token at a time. Each layer's
-    output therefore comes from the same operations on the same shapes as
-    the original prefills and decode steps, so the rebuilt K/V equals
-    theirs bitwise wherever those operations are deterministic per shape
-    (the kernels and cuBLAS on one card). Rebuilding the whole stream in
-    one prefill would instead sum attention in another order and drift
-    from the decoded history. Returns (k, v): (n_layers, 1, N, Kv, hd)."""
+    tokens (N,) int; segments: [start, n, "prefill"] or [start, n,
+    "decode"(, width, row)] covering [0, N) in order. A prefill segment
+    runs as one prefill over the history before it, a decode segment one
+    token at a time, in a batch of ``width`` rows (default 1) with the
+    session at row ``row`` and zero tokens elsewhere, as a serving
+    engine's batched decode ran it. Each layer's output therefore comes
+    from the same operations on the same shapes as the original prefills
+    and decode steps, so the rebuilt K/V equals theirs bitwise wherever
+    those operations are deterministic per shape (the kernels and cuBLAS
+    on one card: a library product picks its algorithm from the batch
+    width, so a B=4 step need not give a B=1 step's bits). Rebuilding the
+    whole stream in one prefill would instead sum attention in another
+    order and drift from the decoded history. Returns (k, v):
+    (n_layers, 1, N, Kv, hd)."""
     N = tokens.shape[0]
     a = h.attn
-    k = torch.zeros((n_layers, 1, N, a.n_kv_heads, a.head_dim), dtype=h.dtype,
-                    device=tokens.device)
-    v = torch.zeros_like(k)
+    dev = tokens.device
+    W = max([int(seg[3]) for seg in segments
+             if seg[2] == "decode" and len(seg) > 3] + [1])
+    # 2W - 1 cache rows with the session's at row W - 1: the W-row window
+    # that starts at W - 1 - row puts it at batch row ``row``
+    shape = (n_layers, 2 * W - 1, N, a.n_kv_heads, a.head_dim)
+    kbuf = torch.zeros(shape, dtype=h.dtype, device=dev)
+    vbuf = torch.zeros_like(kbuf)
+    k, v = kbuf[:, W - 1:W], vbuf[:, W - 1:W]
     blocks, windows = params["blocks"], layer_windows(h)
-    for start, n, kind in segments:
+    for seg in segments:
+        start, n, kind = seg[0], seg[1], seg[2]
         if kind == "prefill":
-            positions = start + torch.arange(n, device=tokens.device)[None]
+            positions = start + torch.arange(n, device=dev)[None]
             cos, sin = rope_at(a, positions)
             x = _embed_input(params, h, tokens[None, start:start + n])
             for li in range(n_layers):
                 hist = ((k[li][:, :start], v[li][:, :start])
                         if start else None)
                 x, (kl, vl) = block_forward(
-                    blocks, li, x, h, cos=cos, sin=sin, positions=positions,
-                    window=windows[li], hist_kv=hist,
-                    hist_len=start if start else None)
+                    blocks, li, x, h, cos=cos, sin=sin, window=windows[li],
+                    hist_kv=hist, hist_len=start if start else None)
                 k[li][:, start:start + n] = kl
                 v[li][:, start:start + n] = vl
-        else:
-            for p in range(start, start + n):
-                lengths = torch.tensor([p], dtype=torch.int32,
-                                       device=tokens.device)
-                cos, sin = rope_at(a, lengths[:, None])
-                x = _embed_input(params, h, tokens[None, p:p + 1])
-                for li in range(n_layers):
-                    x = block_decode(blocks, li, x, h, k_cache=k[li],
-                                     v_cache=v[li], lengths=lengths, cos=cos,
-                                     sin=sin, window=windows[li])
+            continue
+        width, row = (int(seg[3]), int(seg[4])) if len(seg) > 3 else (1, 0)
+        lo = W - 1 - row
+        kc, vc = kbuf[:, lo:lo + width], vbuf[:, lo:lo + width]
+        toks = torch.zeros((width, 1), dtype=tokens.dtype, device=dev)
+        for p in range(start, start + n):
+            toks[row, 0] = tokens[p]
+            lengths = torch.full((width,), p, dtype=torch.int32, device=dev)
+            cos, sin = rope_at(a, lengths[:, None])
+            x = _embed_input(params, h, toks)
+            for li in range(n_layers):
+                x = block_decode(blocks, li, x, h, k_cache=kc[li],
+                                 v_cache=vc[li], lengths=lengths, cos=cos,
+                                 sin=sin, window=windows[li])
     return k, v

@@ -1,0 +1,523 @@
+"""KV-cache backends behind one ``CacheView`` seam.
+
+The serving engine never touches cache buffers directly. All state lives
+in a ``KVCacheBackend``:
+
+  * ``ContiguousBackend`` — every batch slot owns ``max_seq`` contiguous
+    positions of a stacked ``(L, B, Smax, Kv, hd)`` buffer;
+  * ``PagedBackend``      — block tables over a physical page pool
+    ``(L, num_blocks, block_size, Kv, hd)`` plus a ``BlockAllocator``
+    free list. A slot reserves only the pages its session can use, so
+    the pool, not ``max_batch × max_seq``, caps concurrency.
+
+Consumers all go through a slot-bound ``CacheView`` handle:
+
+    view.write_layer(row, k, v, start)        one restored layer
+    view.write_layer_group(rows, k, v, start) a restoration group
+    view.write_kv(k, v, start)                stacked prefill K/V
+    view.gather_hist(hist)                    history K/V for a prefill
+    view.snapshot()                           B=1 dict for a pause dump
+    view.set_length(n)                        live-length bookkeeping
+    view.free()                               release the slot
+
+``ViewSink`` adapts a ``CacheView`` to the restoration executor's
+``RestoreSink``. Every write lands in place in the device buffers (the
+JAX package returns new arrays from donated updates). Lengths and block
+tables live on the host; a decode step uploads them once, with its
+tokens and the paged write addresses, in one copy, and nothing is read
+back from the device per slot.
+
+Paged decode writes the new token's K/V into its page and attention
+reads the pool through the block table (``transformer.
+lm_decode_step_paged``, kernel ``decode_attention_paged``); the history
+of a chunked prefill is gathered into the contiguous (L, 1, hist, Kv,
+hd) shape, so the prefill runs the same launches on both backends.
+Masked attention weights are exactly zero past the live length, so the
+two layouts give the same bits.
+
+Left for the prefix-sharing slice: ``adopt_shared``, the copy-on-write
+barrier and page release of shared prefixes (``BlockAllocator`` keeps
+its refcounts for them already), the sharded pool and the enc-dec
+pairings.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.restoration import RestoreSink
+
+
+@dataclasses.dataclass
+class OccupancyStats:
+    """Gauges for EngineMetrics: how much of the reserved cache capacity
+    holds live tokens."""
+
+    live_tokens: int            # tokens of occupied slots (sum of lengths)
+    reserved_tokens: int        # capacity handed out to occupied slots
+    capacity_tokens: int        # total backend capacity
+    free_blocks: int            # paged: free pages; contiguous: free slots
+
+    @property
+    def utilization(self) -> float:
+        """live / reserved — 1.0 means no internal fragmentation."""
+        return (self.live_tokens / self.reserved_tokens
+                if self.reserved_tokens else 0.0)
+
+    @property
+    def fragmentation(self) -> float:
+        return 1.0 - self.utilization if self.reserved_tokens else 0.0
+
+
+class BlockAllocator:
+    """Refcounted LIFO free list over ``num_blocks`` physical pages (LIFO
+    so pages freed by an eviction are immediately reused — cache-warm on
+    real hardware, and deterministic for the reuse tests).
+
+    Pages are reference counted so several block-table rows (and the
+    prefix index) may map the same physical page: ``alloc`` hands a page
+    out at refcount 1, ``incref`` adds a holder, and ``free`` drops one
+    holder per page — the page returns to the free list only when its
+    last holder releases it. Freeing a page that has no live holders
+    raises instead of silently corrupting the free list (a double free
+    used to append the page twice, letting the allocator grant the same
+    physical page to two sessions)."""
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self._ref: List[int] = [0] * num_blocks
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def refcount(self, block: int) -> int:
+        return self._ref[block]
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` pages, or None when the pool cannot satisfy the request
+        (callers treat None as admission backpressure — never a partial
+        grant)."""
+        if n < 0 or n > len(self._free):
+            return None
+        taken = [self._free.pop() for _ in range(n)]
+        for b in taken:
+            self._ref[b] = 1
+        return taken
+
+    def incref(self, block: int) -> None:
+        if self._ref[block] <= 0:
+            raise RuntimeError(
+                f"incref of unallocated page {block} (refcount "
+                f"{self._ref[block]}) — sharing a page that is already "
+                f"on the free list")
+        self._ref[block] += 1
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Drop one holder per page; a page with no remaining holders
+        returns to the free list (reversed, preserving LIFO reuse
+        order for the common unshared case)."""
+        for b in reversed(list(blocks)):
+            if self._ref[b] <= 0:
+                raise RuntimeError(
+                    f"double free of page {b}: page is already free "
+                    f"(refcount {self._ref[b]})")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+
+
+# -------------------------------------------------------------------- views
+class CacheView:
+    """Slot-bound handle; the only way engine, restoration and save code
+    touch cache state."""
+
+    def write_layer(self, row: int, k, v, start: int = 0) -> None:
+        """One attention layer's restored K/V at tokens [start, start+n);
+        k, v: (1, n, Kv, hd); row indexes the stacked-KV buffer."""
+        raise NotImplementedError
+
+    def write_layer_group(self, rows: Sequence[int], k, v,
+                          start: int = 0) -> None:
+        """A whole restoration group's K/V; rows are stacked-KV rows,
+        k/v (G, 1, n, Kv, hd)."""
+        for g, row in enumerate(rows):
+            self.write_layer(row, k[g], v[g], start)
+
+    def write_kv(self, k, v, start: int) -> None:
+        """Stacked prefill K/V (L, 1, n, Kv, hd) at token offset start."""
+        raise NotImplementedError
+
+    def gather_hist(self, hist: int):
+        """History K/V for a prefill, a stacked (L, 1, hist, Kv, hd)
+        pair."""
+        raise NotImplementedError
+
+    def snapshot(self) -> dict:
+        """B=1 restorable dict (what ``save_session_pause`` dumps); the
+        K/V buffers cover at least the slot's live length."""
+        raise NotImplementedError
+
+    def set_length(self, n: int) -> None:
+        raise NotImplementedError
+
+    def free(self) -> None:
+        """Release the slot's reserved capacity (retire / mid-stream
+        eviction). The view must not be used afterwards."""
+        raise NotImplementedError
+
+
+class ViewSink(RestoreSink):
+    """Layout-agnostic ``RestoreSink``: every restored piece goes through
+    the ``CacheView``, so the executor does not know whether the slot is
+    contiguous or paged."""
+
+    def __init__(self, view: CacheView):
+        self.view = view
+
+    def put_kv(self, row, k, v, start=0):
+        self.view.write_layer(row, k, v, start)
+
+    def put_kv_group(self, rows, k, v, start=0):
+        self.view.write_layer_group(rows, k, v, start)
+
+    def finish(self, n_tokens):
+        self.view.set_length(n_tokens)
+
+
+# ----------------------------------------------------------------- backends
+class KVCacheBackend:
+    """Owns all decode-cache state for the engine's ``max_batch`` slots.
+    ``lengths_np`` is the host copy of the live lengths; the device sees
+    them at the next decode step."""
+
+    name = "backend"
+
+    def view(self, slot: int) -> CacheView:
+        raise NotImplementedError
+
+    def can_reserve(self, n_tokens: int) -> bool:
+        """Admission backpressure check: could a slot hold ``n_tokens``?"""
+        raise NotImplementedError
+
+    def reserve(self, slot: int, n_tokens: int) -> bool:
+        """Bind capacity for up to ``n_tokens`` to ``slot``. False means
+        the pool is exhausted (the caller must requeue, not proceed)."""
+        raise NotImplementedError
+
+    def free_slot(self, slot: int) -> None:
+        raise NotImplementedError
+
+    def decode(self, params, tokens: np.ndarray):
+        """One batched decode step over tokens (max_batch, 1); advances
+        every slot's length by one. Returns (logits, per-layer hidden
+        states)."""
+        raise NotImplementedError
+
+    def occupancy(self) -> OccupancyStats:
+        raise NotImplementedError
+
+    def _upload(self, *parts: np.ndarray) -> List[torch.Tensor]:
+        """Host int arrays -> device int64 tensors, in one copy."""
+        flat = np.concatenate([np.asarray(p, np.int64).ravel()
+                               for p in parts])
+        dev = torch.from_numpy(flat).to(self.model.device)
+        out, at = [], 0
+        for p in parts:
+            n = int(np.asarray(p).size)
+            out.append(dev[at:at + n].view(np.asarray(p).shape))
+            at += n
+        return out
+
+    def get_lengths(self) -> np.ndarray:
+        return self.lengths_np.copy()
+
+    def set_lengths(self, lengths: np.ndarray) -> None:
+        self.lengths_np[:] = lengths
+
+    def set_length(self, slot: int, n: int) -> None:
+        self.lengths_np[slot] = n
+
+    def device_occupancy(self) -> List[dict]:
+        """Per-device gauges (one row for one device): ``device``,
+        ``free_pages``, ``occupancy_pct`` (reserved capacity in use),
+        ``util_pct`` (live tokens / reserved capacity)."""
+        occ = self.occupancy()
+        pct = int(round(100.0 * occ.reserved_tokens
+                        / max(occ.capacity_tokens, 1)))
+        return [{"device": 0, "free_pages": int(occ.free_blocks),
+                 "occupancy_pct": pct,
+                 "util_pct": int(round(100.0 * occ.utilization))}]
+
+
+# ------------------------------------------------------------- contiguous
+class _ContiguousView(CacheView):
+    def __init__(self, backend: "ContiguousBackend", slot: int):
+        self.b = backend
+        self.slot = slot
+
+    def write_layer(self, row, k, v, start=0):
+        n = k.shape[1]
+        self.b.k[row, self.slot, start:start + n] = k[0]
+        self.b.v[row, self.slot, start:start + n] = v[0]
+
+    def write_kv(self, k, v, start):
+        n = k.shape[2]
+        self.b.k[:, self.slot, start:start + n] = k[:, 0]
+        self.b.v[:, self.slot, start:start + n] = v[:, 0]
+
+    def gather_hist(self, hist):
+        i = self.slot
+        return self.b.k[:, i:i + 1, :hist], self.b.v[:, i:i + 1, :hist]
+
+    def snapshot(self):
+        i = self.slot
+        return {"k": self.b.k[:, i:i + 1], "v": self.b.v[:, i:i + 1]}
+
+    def set_length(self, n):
+        self.b.set_length(self.slot, n)
+
+    def free(self):
+        self.b.free_slot(self.slot)
+
+
+class ContiguousBackend(KVCacheBackend):
+    """``max_seq`` contiguous positions per slot; a reservation always
+    costs ``max_seq`` capacity, whatever the session's true length."""
+
+    name = "contiguous"
+
+    def __init__(self, model, max_batch: int, max_seq: int):
+        self.model = model
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        cache = model.init_cache(max_batch, max_seq)
+        self.k, self.v = cache["k"], cache["v"]
+        self.lengths_np = np.zeros((max_batch,), np.int64)
+        self._reserved = [0] * max_batch
+
+    def view(self, slot):
+        return _ContiguousView(self, slot)
+
+    def can_reserve(self, n_tokens):
+        # a free slot always implies a full max_seq reservation; sessions
+        # longer than max_seq were never servable under this layout
+        return True
+
+    def reserve(self, slot, n_tokens):
+        self._reserved[slot] = self.max_seq
+        return True
+
+    def free_slot(self, slot):
+        self._reserved[slot] = 0
+
+    def decode(self, params, tokens):
+        tok, lengths = self._upload(tokens, self.lengths_np)
+        cache = {"k": self.k, "v": self.v,
+                 "lengths": lengths.to(torch.int32)}
+        lg, _, hidden = self.model.decode_step_full(params, cache, tok)
+        self.lengths_np += 1
+        return lg, hidden
+
+    def occupancy(self):
+        live = int(sum(int(self.lengths_np[i])
+                       for i, r in enumerate(self._reserved) if r))
+        reserved = int(sum(self._reserved))
+        free_slots = sum(1 for r in self._reserved if not r)
+        return OccupancyStats(live, reserved, self.max_batch * self.max_seq,
+                              free_slots)
+
+
+# ------------------------------------------------------------------ paged
+class _PagedView(CacheView):
+    def __init__(self, backend: "PagedBackend", slot: int):
+        self.b = backend
+        self.slot = slot
+
+    def _slots(self, start: int, n: int) -> torch.Tensor:
+        """Flat pool positions (page·bs + offset) of logical tokens
+        [start, start + n), uploaded once."""
+        b = self.b
+        pos = start + np.arange(n)
+        flat = (b.table_np[self.slot][pos // b.block_size].astype(np.int64)
+                * b.block_size + pos % b.block_size)
+        if n and int(flat.max()) >= b.num_blocks * b.block_size:
+            raise RuntimeError(f"slot {self.slot}: tokens [{start}, "
+                               f"{start + n}) exceed its reservation")
+        return b._upload(flat)[0]
+
+    def write_layer(self, row, k, v, start=0):
+        self.write_layer_group((row,), k[None], v[None], start)
+
+    def write_layer_group(self, rows, k, v, start=0):
+        b = self.b
+        idx = self._slots(start, k.shape[2])
+        kf, vf = b.flat_pools()
+        for g, row in enumerate(rows):
+            kf[row, idx] = k[g, 0]
+            vf[row, idx] = v[g, 0]
+
+    def write_kv(self, k, v, start):
+        idx = self._slots(start, k.shape[2])
+        kf, vf = self.b.flat_pools()
+        kf[:, idx] = k[:, 0]
+        vf[:, idx] = v[:, 0]
+
+    def _gather(self, n_pages: int):
+        b = self.b
+        pages = b._upload(b.table_np[self.slot][:n_pages])[0]
+        shape = (b.k_pool.shape[0], 1, n_pages * b.block_size) \
+            + tuple(b.k_pool.shape[3:])
+        return (b.k_pool[:, pages].reshape(shape),
+                b.v_pool[:, pages].reshape(shape))
+
+    def gather_hist(self, hist):
+        k, v = self._gather(-(-hist // self.b.block_size))
+        return k[:, :, :hist], v[:, :, :hist]
+
+    def snapshot(self):
+        k, v = self._gather(len(self.b.slot_blocks[self.slot]))
+        return {"k": k, "v": v}
+
+    def set_length(self, n):
+        self.b.set_length(self.slot, n)
+
+    def free(self):
+        self.b.free_slot(self.slot)
+
+
+def paged_write_index(block_table: np.ndarray, lengths: np.ndarray,
+                      num_blocks: int, block_size: int):
+    """Where each row's new token lands in a paged pool, from host copies
+    of the block table (B, MB) and the lengths (B,): (rows, flat pool
+    positions ``page·bs + offset``) of the rows whose logical page is
+    allocated. A row whose page is a sentinel, or lies past the table (the
+    row is exactly full), drops its write."""
+    MB = block_table.shape[1]
+    page = np.asarray(lengths, np.int64) // block_size
+    rows = np.nonzero(page < MB)[0]
+    blk = block_table[rows, page[rows]].astype(np.int64)
+    keep = blk < num_blocks
+    rows, blk = rows[keep], blk[keep]
+    return rows, blk * block_size + np.asarray(lengths)[rows] % block_size
+
+
+class PagedBackend(KVCacheBackend):
+    """Block-table paged KV cache.
+
+    Physical pages ``(L, num_blocks, block_size, Kv, hd)`` are shared by
+    all slots; ``table_np[slot, j]`` maps a slot's logical page *j* to a
+    physical page (entries == ``num_blocks`` are unallocated sentinels:
+    the decode step drops writes to them and attention never reads
+    them). Reservations are made in whole pages for the session's
+    worst-case final length, so admission is bounded by actual need, not
+    ``max_batch × max_seq``."""
+
+    name = "paged"
+
+    def __init__(self, model, max_batch: int, max_seq: int, *,
+                 block_size: int = 16, num_blocks: Optional[int] = None):
+        if not model.adapter.supports_paged:
+            raise NotImplementedError(
+                f"paged KV cache requires an lm-family model; "
+                f"{model.cfg.name} is {model.kind!r}")
+        self.model = model
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.block_size = block_size
+        self.blocks_per_seq = -(-max_seq // block_size)
+        self.num_blocks = (max_batch * self.blocks_per_seq
+                           if num_blocks is None else num_blocks)
+        cache = model.init_paged_cache(max_batch, self.num_blocks,
+                                       block_size, self.blocks_per_seq)
+        self.k_pool, self.v_pool = cache["k_pool"], cache["v_pool"]
+        self.table_np = np.full((max_batch, self.blocks_per_seq),
+                                self.num_blocks, np.int32)
+        self.lengths_np = np.zeros((max_batch,), np.int64)
+        self.allocator = BlockAllocator(self.num_blocks)
+        self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+
+    def flat_pools(self):
+        """The pools as (L, num_blocks·bs, Kv, hd) views."""
+        L = self.k_pool.shape[0]
+        shape = (L, self.num_blocks * self.block_size) \
+            + tuple(self.k_pool.shape[3:])
+        return self.k_pool.view(shape), self.v_pool.view(shape)
+
+    def view(self, slot):
+        return _PagedView(self, slot)
+
+    def _blocks_needed(self, n_tokens: int) -> int:
+        need = max(-(-max(n_tokens, 1) // self.block_size), 1)
+        # a session whose worst case exceeds max_seq (or the whole pool)
+        # gets at most one full table row — matching the contiguous
+        # layout, where overflow decode writes past the reservation are
+        # silently dropped rather than crashing or wedging admission
+        return min(need, self.blocks_per_seq, self.num_blocks)
+
+    def can_reserve(self, n_tokens):
+        return self._blocks_needed(n_tokens) <= self.allocator.free_count
+
+    def reserve(self, slot, n_tokens):
+        need = self._blocks_needed(n_tokens)
+        have = self.slot_blocks[slot]
+        if len(have) >= need:
+            return True
+        blocks = self.allocator.alloc(need - len(have))
+        if blocks is None:
+            return False
+        have.extend(blocks)
+        row = self.table_np[slot]
+        row[:] = self.num_blocks
+        row[:len(have)] = have
+        return True
+
+    def free_slot(self, slot):
+        self.allocator.free(self.slot_blocks[slot])
+        self.slot_blocks[slot] = []
+        self.table_np[slot, :] = self.num_blocks
+        self.lengths_np[slot] = 0
+
+    def decode(self, params, tokens):
+        rows, slots = paged_write_index(self.table_np, self.lengths_np,
+                                        self.num_blocks, self.block_size)
+        tok, lengths, table, rows_t, slots_t = self._upload(
+            tokens, self.lengths_np, self.table_np, rows, slots)
+        cache = {"k_pool": self.k_pool, "v_pool": self.v_pool,
+                 "block_table": table.to(torch.int32),
+                 "lengths": lengths.to(torch.int32),
+                 "write": (rows_t, slots_t)}
+        lg, _, hidden = self.model.decode_step_paged(params, cache, tok)
+        self.lengths_np += 1
+        return lg, hidden
+
+    def occupancy(self):
+        live = int(sum(int(self.lengths_np[i])
+                       for i, blks in enumerate(self.slot_blocks) if blks))
+        reserved = sum(len(b) for b in self.slot_blocks) * self.block_size
+        return OccupancyStats(live, reserved,
+                              self.num_blocks * self.block_size,
+                              self.allocator.free_count)
+
+
+BACKENDS = {"contiguous": ContiguousBackend, "paged": PagedBackend}
+
+
+def make_backend(spec: Union[str, KVCacheBackend], model, max_batch: int,
+                 max_seq: int, *, block_size: int = 16,
+                 num_blocks: Optional[int] = None) -> KVCacheBackend:
+    """Engine-facing factory: a name ('contiguous' | 'paged') or an
+    already-built backend instance."""
+    if isinstance(spec, KVCacheBackend):
+        return spec
+    if spec not in BACKENDS:
+        raise ValueError(f"unknown KV-cache backend {spec!r}; "
+                         f"one of {sorted(BACKENDS)}")
+    if spec == "paged":
+        return PagedBackend(model, max_batch, max_seq,
+                            block_size=block_size, num_blocks=num_blocks)
+    return ContiguousBackend(model, max_batch, max_seq)

@@ -5,10 +5,13 @@
 Needs one CUDA GPU. Builds llama2-7b at full width and depth in bf16
 (random weights, seed 0), prefills and saves one 1024-token session with
 the hidden-state method on every layer, then profiles (1) one restore of
-it and (2) 8 decode steps from the restored cache. For each window it
-prints the wall time, the device time summed over kernels and copies,
-the device's idle share (1 - device time / wall), and the kernels with
-the most device time. Fails when no CUDA device is present.
+it, (2) 8 decode steps from the restored cache, (3) an engine-sized
+prefill chunk, 128 tokens over 1900 tokens of history, and (4) 8 decode
+steps of the paged backend at the engine's batch of 4 slots holding
+~2000 tokens each. For each window it prints the wall time, the device
+time summed over kernels and copies, the device's idle share (1 - device
+time / wall), and the kernels with the most device time. Fails when no
+CUDA device is present.
 """
 from __future__ import annotations
 
@@ -22,11 +25,14 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_arch
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.models import Model
+from repro_torch.serving import PagedBackend
 from repro_torch.storage import ChunkStore, make_array
 
 N_TOKENS = 1024
 DECODE_STEPS = 8
 TOP = 8
+CHUNK, HIST = 128, 1900              # an engine prefill chunk over history
+SLOTS, SLOT_TOKENS = 4, (2300, 1537, 777, 2049)   # paged decode batch
 
 
 def report(name: str, prof, wall_s: float) -> None:
@@ -94,8 +100,43 @@ def main() -> None:
         _, prof, wall = profiled(decode)
         report(f"{DECODE_STEPS} decode steps at ~{N_TOKENS} tokens", prof,
                wall)
+        del cache, res
+        profile_engine_windows(model, params)
     finally:
         mgr.close()
+
+
+def profile_engine_windows(model, params) -> None:
+    """A prefill chunk over history and paged decode steps at batch 4."""
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         HIST + CHUNK)).to(model.device)
+    hist = model.prefill(params, {"tokens": toks[None, :HIST]})["kv"]
+
+    def chunk():
+        return model.prefill(params, {"tokens": toks[None, HIST:]},
+                             hist_kv=hist, hist_len=HIST)
+
+    chunk()                                         # warm
+    _, prof, wall = profiled(chunk)
+    report(f"prefill chunk of {CHUNK} tokens over {HIST} of history", prof,
+           wall)
+    del hist
+    kv = PagedBackend(model, SLOTS, 2560)
+    for slot, n in enumerate(SLOT_TOKENS):
+        kv.reserve(slot, n + 2 * DECODE_STEPS)
+        kv.set_length(slot, n)
+    tokens = rng.integers(0, model.cfg.vocab_size, (SLOTS, 1))
+
+    def paged_decode():
+        for _ in range(DECODE_STEPS):
+            lg, _ = kv.decode(params, tokens)
+            torch.argmax(lg[:, -1], -1).cpu()
+
+    paged_decode()                                  # warm
+    _, prof, wall = profiled(paged_decode)
+    report(f"{DECODE_STEPS} paged decode steps, {SLOTS} slots at "
+           f"{SLOT_TOKENS} tokens", prof, wall)
 
 
 if __name__ == "__main__":
