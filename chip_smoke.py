@@ -28,7 +28,16 @@ Needs one CUDA GPU and the repository checkout around this file. It
      over the session's whole token stream): the logits that sampled each
      of its tokens, and each token as the plain logits' best up to bf16
      noise;
-  5. checks that each path launched its kernels (counts reset before and
+  5. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
+     width and depth in bf16 (random weights from a seed) through the
+     lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
+     evict -> restore, the restored conv and ssm states bitwise equal to
+     the live ones, greedy decoding MATCH against the never-evicted
+     states) and through the engine on the contiguous backend (6
+     single-round sessions over 4 slots: every request against one
+     unbatched forward over its stream, every retired session's restore
+     bitwise equal to the states the engine held at retire);
+  6. checks that each path launched its kernels (counts reset before and
      read after each path), then prints the kernels' JSON line, the card,
      and the device line last.
 
@@ -48,8 +57,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# Published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s.
+# Published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s,
+# and fp32 FLOP/s outside the tensor cores.
 PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
+FP32_PEAKS = {"sxm": 67e12, "pcie": 51e12}
 
 # |kernel - plain| <= RTOL * |plain| + ATOL, compared in fp32. bf16 keeps
 # 8 significant bits: the two outputs are each rounded to bf16 from fp32
@@ -70,8 +81,12 @@ def sh(cmd):
                           check=True).stdout.strip()
 
 
+def card_kind(name: str) -> str:
+    return "pcie" if "PCIe" in name else "sxm"
+
+
 def card_peaks(name: str):
-    return PEAKS["pcie" if "PCIe" in name else "sxm"]
+    return PEAKS[card_kind(name)]
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -91,8 +106,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, name: str):
+def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
+    """Median device time of one ``fn`` call, from ``n`` calls captured in
+    a CUDA graph and replayed: for a kernel of a few microseconds the
+    host's launch overhead would otherwise be what an eager loop times."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, reps) / n
+
+
+def bound(flops: float, nbytes: float, name: str, flops_peak=None):
     peak_flops, peak_bw = card_peaks(name)
+    peak_flops = flops_peak or peak_flops
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -434,6 +467,114 @@ def check_flash(card: str, gen):
     return row
 
 
+
+def ssm_case(Bt, I, N, dtype, gen, S=None):
+    """Inputs of the Mamba1 state update as the layer makes them: fp32 h,
+    dt (softplus range) and A (-exp of the init's log(1..N)); x, B, C, D
+    in the model dtype; with a token axis when S is given."""
+    import torch
+    dev = "cuda"
+    lead = (Bt,) if S is None else (Bt, S)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    h = rnd(Bt, I, N)
+    dt = torch.nn.functional.softplus(rnd(*lead, I) - 4.0)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(I, N).contiguous()
+    x, Bm, Cm = rnd(*lead, I), rnd(*lead, N), rnd(*lead, N)
+    D = torch.ones(I, device=dev)
+    return (h, dt, x.to(dtype), A, Bm.to(dtype), Cm.to(dtype), D.to(dtype))
+
+
+def ssm_bytes(Bt, I, N, es):
+    """Bytes the update must move: h read and h' written (fp32), A and dt
+    (fp32), x, B, C, D read and y written (``es`` bytes each)."""
+    return (2 * Bt * I * N * 4 + I * N * 4 + Bt * I * 4
+            + es * (2 * Bt * I + 2 * Bt * N + I))
+
+
+def check_ssm_update(card: str, gen):
+    import torch
+    from repro_torch.kernels import ssm_update as ssu
+    I, N = 8192, 16
+    row = None
+    # the main path's decode steps (B = 1 in the lifecycle, the engine's
+    # 4 slots), then fp32 and an odd shape
+    for Bt, I_, N_, dtype, name in ((4, I, N, torch.bfloat16, "bf16"),
+                                    (1, I, N, torch.bfloat16, "bf16"),
+                                    (4, I, N, torch.float32, "fp32"),
+                                    (3, 96, 4, torch.bfloat16, "bf16"),
+                                    (3, 96, 4, torch.float32, "fp32")):
+        args = ssm_case(Bt, I_, N_, dtype, gen)
+        h_new, y = ssu.ssm_update_cuda(*args)
+        torch.cuda.synchronize()
+        ph, py = ssu.ssm_update_plain(*args)
+        err = max(check_close(f"ssm_update h' B={Bt} {name}", h_new, ph,
+                              "fp32"),
+                  check_close(f"ssm_update y B={Bt} {name}", y, py, name))
+        # written over its own input, as decode runs it
+        h_in = args[0].clone()
+        ssu.ssm_update_cuda(h_in, *args[1:], h_out=h_in)
+        if not torch_equal(h_in, h_new):
+            raise AssertionError("ssm_update in place differs")
+        if (I_, N_) != (I, N):
+            print(f"ssm_update Bt={Bt} I={I_} N={N_} {name}: max_abs_err "
+                  f"{err:.3g}, in place bitwise equal")
+            continue
+        out = torch.empty_like(args[0])
+        ms = graph_ms(lambda: ssu.ssm_update_cuda(*args, h_out=out))
+        plain_ms = graph_ms(lambda: ssu.ssm_update_plain(*args))
+        eager_ms = time_ms(lambda: ssu.ssm_update_cuda(*args, h_out=out),
+                           20)
+        es = 2 if dtype == torch.bfloat16 else 4
+        nbytes = ssm_bytes(Bt, I, N, es)
+        flops = Bt * I * (7 * N + 3)      # exp counted as one operation
+        bound_ms, bound_by = bound(flops, nbytes, card,
+                                   FP32_PEAKS[card_kind(card)])
+        print(f"ssm_update Bt={Bt} I={I} N={N} {name}: max_abs_err "
+              f"{err:.3g}, in place bitwise equal; kernel {ms * 1e3:.2f} us "
+              f"(CUDA graph of 100 launches; one eager call "
+              f"{eager_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.3f} us ({bound_by}; "
+              f"{nbytes / 1e6:.2f} MB)")
+        if row is None:
+            row = {"name": "ssm_update", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/ssm_update.cu",
+                   "replaces": "src/repro/kernels/ssm_update.py:38",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None,
+                   "library_note": "no single PyTorch call computes the "
+                                   "Mamba1 state update"}
+    # the prefill scan: 64 tokens, B and C read as column views of the
+    # layer's x_proj output (dt_rank 256 columns before them); one launch
+    # per token gives the bits of 64 separate updates
+    S, R = 64, 256
+    h, dt, x, A, _, _, D = ssm_case(1, I, N, torch.bfloat16, gen, S)
+    proj = torch.randn(1, S, R + 2 * N, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    Bm, Cm = proj[..., R:R + N], proj[..., R + N:]
+    hs, hp = h.clone(), h.clone()
+    y = ssu.ssm_scan_cuda(hs, dt, x, A, Bm, Cm, D)
+    yp = ssu.ssm_scan_plain(hp, dt, x, A, Bm, Cm, D)
+    torch.cuda.synchronize()
+    e = max(check_close("ssm scan h", hs, hp, "fp32"),
+            check_close("ssm scan y", y, yp, "bf16"))
+    hk = h.clone()
+    for t in range(S):
+        _, yt = ssu.ssm_update_cuda(hk, dt[:, t], x[:, t], A, Bm[:, t],
+                                    Cm[:, t], D, h_out=hk)
+        if not torch_equal(yt, y[:, t]):
+            raise AssertionError("ssm scan differs from its token updates")
+    if not torch_equal(hk, hs):
+        raise AssertionError("ssm scan state differs from its updates")
+    print(f"ssm_update scan S={S} over strided B/C views bf16: max_abs_err "
+          f"{e:.3g}, bitwise equal to {S} single-token launches")
+    return row
+
+
 # --------------------------------------------------------------- main path
 def greedy(logits):
     import torch
@@ -642,8 +783,9 @@ ENGINE_QUANTUM = 4
 # restore, no cache): the logits that sampled each generated token
 # within PLAIN_REL relative L2 error of the plain ones at its position,
 # and the token within PLAIN_GAP standard deviations (of the plain logits
-# there) of the plain maximum. The two round in bf16 through 32 layers over products of other
-# shapes, so they agree only to bf16 noise, and a near tie may go either
+# there) of the plain maximum. The two round in bf16 through 32 layers
+# (64 for falcon-mamba-7b) over products of other shapes, so they agree
+# only to bf16 noise, and a near tie may go either
 # way; a wrong position, length or batch row moves the logits by the
 # order of their own spread.
 PLAIN_REL = 0.05
@@ -654,13 +796,16 @@ def engine_classes():
     """The engine and manager of the port, instrumented for this phase:
     session s0 is planned all-hidden, the rest under the PAPER_H800
     planner (recompute prefix + hidden); every pause or retire snapshots
-    the session's K/V [0, n) on the card, and every completed restore is
-    held against the last snapshot bitwise; every prefill and decode step
-    counts its kernel launches."""
+    the session's K/V [0, n) on the card (an ssm session's conv and ssm
+    states), and every completed restore is held against the last
+    snapshot bitwise; every prefill and decode step counts its kernel
+    launches: the flash and decode kernels once per layer (lm), the state
+    update once per layer and token (ssm)."""
     import torch
     from repro_torch.core.hcache import HCacheManager
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_update as ssu
     from repro_torch.serving import InferenceEngine, Phase
 
     class Manager(HCacheManager):
@@ -684,31 +829,39 @@ def engine_classes():
             prefill = self.adapter.prefill_chunk
             decode = self.kv.decode
 
+            ssm = self.model.kind == "ssm"
+
             def save_and_snapshot(session, cache, n_tokens, **kw):
                 self.snapshots[session] = (
-                    cache["k"][:, 0, :n_tokens].clone(),
-                    cache["v"][:, 0, :n_tokens].clone())
+                    (cache["conv"].clone(), cache["ssm"].clone()) if ssm
+                    else (cache["k"][:, 0, :n_tokens].clone(),
+                          cache["v"][:, 0, :n_tokens].clone()))
                 return save(session, cache, n_tokens, **kw)
 
-            def counted_prefill(*args, **kw):
-                before = fa.launches
-                out = prefill(*args, **kw)
-                if fa.launches - before != L:
-                    raise AssertionError("a prefill did not run the flash "
-                                         "kernel once per layer")
+            def prefill_launches():
+                return ssu.launches if ssm else fa.launches
+
+            def decode_launches():
+                return (ssu.launches if ssm else dec.paged_launches
+                        if self.kv.name == "paged" else dec.launches)
+
+            def counted_prefill(params, seq, chunk, *args, **kw):
+                before = prefill_launches()
+                out = prefill(params, seq, chunk, *args, **kw)
+                if prefill_launches() - before != L * (len(chunk) if ssm
+                                                       else 1):
+                    raise AssertionError("a prefill did not run its kernel "
+                                         "once per layer (and token, ssm)")
                 self.last_logits = out["logits"][0, -1:]
                 self.prefills += 1
                 return out
 
             def counted_decode(*args, **kw):
-                paged = self.kv.name == "paged"
-                before = dec.paged_launches if paged else dec.launches
+                before = decode_launches()
                 out = decode(*args, **kw)
-                after = dec.paged_launches if paged else dec.launches
-                if after - before != L:
+                if decode_launches() - before != L:
                     raise AssertionError(f"a {self.kv.name} decode step did "
-                                         "not run its decode kernel once "
-                                         "per layer")
+                                         "not run its kernel once per layer")
                 self.last_logits = out[0][:, -1]
                 self.decodes += 1
                 return out
@@ -762,6 +915,15 @@ def engine_classes():
     return Manager, Engine
 
 
+def plain_logits(model, params, toks):
+    """Logits at every position of one B=1 forward over ``toks``."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    if model.kind == "ssm":
+        return ssm.ssm_forward(params, toks, model.h)["logits"]
+    return tfm.lm_forward(params, toks, model.h)["logits"]
+
+
 def check_against_plain(model, params, requests, plain):
     """Hold an engine run against a plain computation on the same
     weights. ``requests[(rnd, sid)] = (prompt, generated, the logits
@@ -774,7 +936,6 @@ def check_against_plain(model, params, requests, plain):
     returns the worst relative error (of first tokens, cold and restored,
     and of decoded ones) and the worst gap."""
     import torch
-    from repro_torch.models import transformer as tfm
     history = {}
     worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0}
     for key in sorted(requests):                 # round 0 before round 1
@@ -784,7 +945,7 @@ def check_against_plain(model, params, requests, plain):
         history[sid] = stream
         if key not in plain:
             toks = torch.tensor(stream, device=model.device)[None]
-            logits = tfm.lm_forward(params, toks, model.h)["logits"]
+            logits = plain_logits(model, params, toks)
             plain[key] = logits[0, len(stream) - len(gen):].float()
             del logits
         ref = plain[key]                         # row i sampled gen[i]
@@ -899,6 +1060,151 @@ def check_engine(con, pag):
     print("engine: tokens identical on both backends for all 12 requests")
 
 
+# --------------------------------------------------------------- ssm path
+SSM_ARCH = "falcon-mamba-7b"
+
+
+def build_ssm_model():
+    """falcon-mamba-7b at full width and depth, bf16, random weights from
+    SEED, warmed by one short prefill and decode step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.module import count_params
+
+    cfg = get_arch(SSM_ARCH)
+    model = Model(cfg, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    out = model.prefill(params, {"tokens": torch.arange(
+        64, device=model.device)[None]})
+    cache = {"conv": out["states"][0], "ssm": out["states"][1],
+             "lengths": torch.tensor([64], dtype=torch.int32,
+                                     device=model.device)}
+    model.decode_step(params, cache, greedy(out["logits"]))
+    m = model.h.mamba
+    n_params = count_params(params)
+    print(f"{SSM_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, inner "
+          f"{m.d_inner}, state {m.d_state}, dt_rank {m.dt_rank}, vocab "
+          f"{cfg.vocab_size}, {n_params / 1e9:.2f} B params bf16 (a_log "
+          f"fp32); init and warm-up {_sync_s(t0):.1f} s on {model.device}")
+    return model, params
+
+
+def run_ssm_lifecycle(model, params):
+    """3 sessions through the HCache manager: prefill -> save -> decode
+    (saving hidden states) -> pause dump -> evict -> restore; the restored
+    states bitwise equal to the live ones, then greedy decoding from them
+    against the never-evicted states (MATCH)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.storage import ChunkStore, make_array
+
+    mgr = HCacheManager(model, ChunkStore(make_array("ssd", 4),
+                                          chunk_tokens=64))
+    rng = np.random.default_rng(SEED)
+    dev = model.device
+    try:
+        for s, n0 in enumerate(PROMPTS):
+            session = f"m{s}"
+            toks = torch.from_numpy(
+                rng.integers(0, model.cfg.vocab_size, n0)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.prefill(params, {"tokens": toks[None]})
+            tok = greedy(out["logits"])
+            ttft_ms = _sync_s(t0) * 1e3
+            mgr.save_prefill(session, toks.cpu().numpy(), out)
+            live = {"conv": out["states"][0], "ssm": out["states"][1],
+                    "lengths": torch.tensor([n0], dtype=torch.int32,
+                                            device=dev)}
+            del out
+            t1 = time.perf_counter()
+            inputs, live, tok = decode(model, params, live, tok,
+                                       DECODE_TOKENS, save=(mgr, session))
+            decode_ms = _sync_s(t1) * 1e3 / DECODE_TOKENS
+            n_total = n0 + DECODE_TOKENS
+            mgr.save_session_pause(session, live, n_total,
+                                   tokens_tail=inputs)
+            ref = {name: t.clone() for name, t in live.items()}
+            del live                            # evict the device state
+            res = mgr.restore(params, session)
+            for name in ("conv", "ssm"):
+                if not torch_equal(res.cache[name], ref[name]):
+                    raise AssertionError(f"{session}: restored {name} state "
+                                         "differs from the live one")
+            seq_r, _, _ = decode(model, params, res.cache, tok,
+                                 DECODE_TOKENS)
+            seq_g, _, _ = decode(model, params, ref, tok, DECODE_TOKENS)
+            verdict = "MATCH" if seq_r == seq_g else "MISMATCH"
+            print(f"{SSM_ARCH} {session}: {n0} prompt tokens; TTFT (prefill)"
+                  f" {ttft_ms:.1f} ms; decode {decode_ms:.2f} ms/token; "
+                  f"restore {res.wall_time * 1e3:.1f} ms (methods "
+                  f"{sorted(set(res.schedule.methods))}, virtual "
+                  f"{res.timeline.makespan * 1e3:.3f} ms); conv and ssm "
+                  f"states bitwise equal; {verdict}")
+            if verdict != "MATCH":
+                raise AssertionError(f"{session}: {seq_r} != {seq_g}")
+    finally:
+        mgr.close()
+
+
+def run_ssm_engine(model, params):
+    """6 single-round sessions over 4 slots of the contiguous backend; then
+    every retired session's restore against the states the engine held at
+    retire, bitwise. Returns what ``check_against_plain`` needs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.serving import Request
+    from repro_torch.storage import ChunkStore, make_array
+    _, Engine = engine_classes()
+    mgr = HCacheManager(model, ChunkStore(make_array("ssd", 4),
+                                          chunk_tokens=64))
+    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+                 max_seq=ENGINE_MAX_SEQ, backend="contiguous")
+    rng = np.random.default_rng(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs = [eng.submit(Request(f"s{s}", rng.integers(
+        0, model.cfg.vocab_size, n).astype(np.int32),
+        max_new_tokens=DECODE_TOKENS))
+        for s, n in enumerate(ENGINE_PROMPTS)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics
+    walls = dict(eng.walls)
+    walls["other"] = wall - sum(walls.values())
+    for seq in seqs:
+        sid = seq.request.session_id
+        res = mgr.restore(params, sid)
+        held = eng.snapshots[sid]
+        if not (torch_equal(res.cache["conv"], held[0])
+                and torch_equal(res.cache["ssm"], held[1])):
+            raise AssertionError(f"{SSM_ARCH} engine: the restore of {sid} "
+                                 "differs from its states at retire")
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    print(f"{SSM_ARCH} engine contiguous: {wall:.1f} s for 6 requests; TTFT "
+          f"mean {mean(m.ttft_wall):.0f} ms (max "
+          f"{1e3 * max(m.ttft_wall, default=0):.0f}); {eng.prefills} "
+          f"prefills (whole prompts); decode "
+          f"{1e3 * walls['decode'] / max(m.decode_steps, 1):.1f} ms per step "
+          f"over {m.decode_steps} steps; peak concurrency "
+          f"{m.concurrent_peak}; 6 restores bitwise equal to the states at "
+          f"retire")
+    print(f"{SSM_ARCH} engine wall by phase (synchronised): " + ", ".join(
+        f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
+    if m.concurrent_peak != ENGINE_BATCH or m.decode_steps <= 0:
+        raise AssertionError(f"{SSM_ARCH} engine: the batch never filled")
+    requests = {(0, s.request.session_id): (
+        s.request.prompt, list(s.generated), eng.token_logits[id(s)])
+        for s in seqs}
+    eng.close()
+    return requests
+
+
 def main() -> None:
     import gc
 
@@ -913,6 +1219,7 @@ def main() -> None:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.kernels import ssm_update as ssu
 
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -926,16 +1233,19 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [check_restore(card, gen), check_decode(card, gen),
-               check_paged_decode(card, gen), check_flash(card, gen)]
+               check_paged_decode(card, gen), check_flash(card, gen),
+               check_ssm_update(card, gen)]
 
     def reset():
         rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
+        ssu.launches = 0
 
     def read():
         return {"restore_kv_grouped": rkv.launches,
                 "decode_attention": dec.launches,
                 "decode_attention_paged": dec.paged_launches,
-                "flash_attention": fa.launches}
+                "flash_attention": fa.launches,
+                "ssm_update": ssu.launches}
 
     model, params = build_model()
     counts = {}
@@ -976,6 +1286,21 @@ def main() -> None:
         gc.collect()                 # free this backend's cache first
         torch.cuda.empty_cache()
     check_engine(runs["contiguous"], runs["paged"])
+    del model, params, runs, plain   # free llama2-7b before falcon-mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_ssm_model()
+    drive("ssm lifecycle", lambda: run_ssm_lifecycle(model, params),
+          ("ssm_update",))
+    requests = drive("ssm engine contiguous",
+                     lambda: run_ssm_engine(model, params), ("ssm_update",))
+    t1 = time.perf_counter()
+    worst = check_against_plain(model, params, requests, {})
+    print(f"{SSM_ARCH} engine against the plain forward (6 requests, "
+          f"{time.perf_counter() - t1:.1f} s): logits relative error max "
+          f"{worst['cold']:.5f} at first tokens, {worst['decode']:.5f} at "
+          f"decoded tokens (limit {PLAIN_REL}); generated tokens at most "
+          f"{worst['gap']:.4f} std below the plain best (limit {PLAIN_GAP})")
     for k in kernels:
         k["launches"] = counts[k["name"]]
     print(card)

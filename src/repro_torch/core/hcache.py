@@ -1,4 +1,5 @@
-"""HCacheManager — the paper's system glued together (``lm`` family).
+"""HCacheManager — the paper's system glued together (``lm`` and ``ssm``
+families).
 
   * plan: the per-layer restoration schedule (bubble-free scheduler),
     priced under the paper's Hopper profile by default;
@@ -9,9 +10,15 @@
   * restore: rebuild the session's K/V cache from the store through the
     ``RestorationExecutor``.
 
-Stored hidden states keep the model's dtype bit for bit: fp32 as float32,
-bf16 as its raw 2-byte words (numpy has no bfloat16), so a save/restore
-cycle is lossless at 2 bytes per element on the card.
+An attention-free (``ssm``) stack has no per-token state: the planner
+gives its layers the ``kv`` method, whose per-layer pieces are skipped,
+and the session's whole recurrent state (conv and ssm of every layer) is
+stored as two blobs, at prefill and at every pause or retire, and
+restored by the graph's ``blob`` task.
+
+Stored hidden states and states keep their dtype bit for bit: fp32 as
+float32, bf16 as its raw 2-byte words (numpy has no bfloat16), so a
+save/restore cycle is lossless at 2 bytes per element on the card.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.config.arch import BlockKind
 from repro_torch.config.hardware import PAPER_H800, HardwareProfile
 from repro_torch.core.pipeline import Timeline
 from repro_torch.core.restoration import (CacheAssembler, RestorationExecutor,
@@ -34,7 +42,8 @@ from repro_torch.storage.two_stage import SnapshotTask, TwoStageSaver
 
 @dataclasses.dataclass
 class RestoreResult:
-    cache: dict                      # dict(k, v, lengths), B = 1
+    cache: dict                      # dict(k, v, lengths), or for ssm
+    #                                  dict(conv, ssm, lengths); B = 1
     schedule: Schedule
     timeline: Timeline               # virtual restoration timing
     wall_time: float                 # seconds, synchronised with the device
@@ -66,7 +75,10 @@ class HCacheManager:
         self.saver.close()
 
     def param_pack(self, params):
-        """Restoration weights for ``params``, built once and reused."""
+        """Restoration weights for ``params``, built once and reused; None
+        for an attention-free stack."""
+        if self.model.kind == "ssm":
+            return None
         if self._pack is None or self._pack_params is not params:
             self._pack = RestoreParamPack(self.model, params)
             self._pack_params = params
@@ -109,7 +121,10 @@ class HCacheManager:
         self.store.put_blob(session, "tok", 0, toks if start == 0 else
                             np.concatenate([self._tokens(session)[:start],
                                             toks]))
+        kinds = self.cfg.block_kinds()
         for li, method in enumerate(methods):
+            if kinds[li] != BlockKind.ATTENTION:
+                continue        # recurrent layers: the state blobs below
             if method == "hidden":
                 self.store.append_tokens(
                     session, "h", li, start,
@@ -120,6 +135,8 @@ class HCacheManager:
                                          to_host(k.reshape(k.shape[0], -1)))
                 self.store.append_tokens(session, "kvv", li, start,
                                          to_host(v.reshape(v.shape[0], -1)))
+        if prefill_out.get("states") is not None:
+            self._save_states(session, *prefill_out["states"])
         # the history as it was computed, for the recompute replay
         segments = (list(prev.get("segments", [[0, start, "prefill"]]))
                     if prev else [])
@@ -145,8 +162,9 @@ class HCacheManager:
                            *, tokens_tail, batch_width: int = 1,
                            batch_row: int = 0) -> None:
         """After decoding: drain the saver, append the decoded tokens and
-        the K/V of ``kv``-method layers from the live cache (row 0), and
-        mark the store restorable at ``n_tokens``. The decode segment is
+        the K/V of ``kv``-method layers from the live cache (row 0), dump
+        the recurrent states of an ``ssm`` cache whole, and mark the store
+        restorable at ``n_tokens``. The decode segment is
         recorded with the batch it ran in (``batch_width`` rows, the
         session at ``batch_row``) when that is wider than one, so the
         recompute replay runs the same shapes."""
@@ -159,13 +177,16 @@ class HCacheManager:
         self.store.put_blob(session, "tok", 0, np.concatenate(
             [self._tokens(session)[:prev_n], tail.astype(np.int64)]))
         adapter = self.model.adapter
+        kinds = self.cfg.block_kinds()
         for li, method in enumerate(manifest["methods"]):
-            if method != "kv":
+            if method != "kv" or kinds[li] != BlockKind.ATTENTION:
                 continue
             for stream, name in zip(("kvk", "kvv"), adapter.kv_names):
                 x = cache[name][adapter.kv_row(li)][0, prev_n:n_tokens]
                 self.store.append_tokens(session, stream, li, prev_n,
                                          to_host(x.reshape(x.shape[0], -1)))
+        if "ssm" in cache:
+            self._save_states(session, cache["conv"], cache["ssm"])
         self.store.flush(session)
         if n_tokens > prev_n:
             seg = [prev_n, int(n_tokens) - prev_n, "decode"]
@@ -175,6 +196,13 @@ class HCacheManager:
                 seg)
         manifest["n_tokens"] = int(n_tokens)
         self.store.put_manifest(session, manifest)
+
+    def _save_states(self, session: str, conv: torch.Tensor,
+                     ssm: torch.Tensor) -> None:
+        """The recurrent states of every layer, (L, 1, W-1, I) and (L, 1,
+        I, N), as two whole blobs."""
+        self.store.put_blob(session, "state_conv", 0, to_host(conv))
+        self.store.put_blob(session, "state_ssm", 0, to_host(ssm))
 
     # -------------------------------------------------------------- restore
     def _tokens(self, session: str) -> np.ndarray:
@@ -191,8 +219,9 @@ class HCacheManager:
 
     def restore(self, params, session: str, *,
                 capacity: Optional[int] = None) -> RestoreResult:
-        """Rebuild the session's K/V cache (B = 1) from the store, in a
-        buffer of at least ``capacity`` positions."""
+        """Rebuild the session's cache (B = 1) from the store: K/V in a
+        buffer of at least ``capacity`` positions, or an ssm session's
+        states."""
         self.saver.drain()
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)

@@ -1,9 +1,13 @@
-"""Pipelined restoration executor for the ``lm`` family (paper §4.1).
+"""Pipelined restoration executor (paper §4.1) for the ``lm`` and ``ssm``
+families.
 
 A ``Schedule`` compiles into an ordered task graph (``compile_tasks``) of
 per-layer steps: chunk-store reads of hidden states (``io_h``) and of raw
-K/V (``io_kv``), grouped hidden→K/V projections (``project``) and
-recompute-prefix layers (``recompute``). The same graph serves:
+K/V (``io_kv``), whole-object reads (``blob``: an ``ssm`` session's
+recurrent states), grouped hidden→K/V projections (``project``) and
+recompute-prefix layers (``recompute``). Per-layer tasks of a layer that
+is not an attention layer do nothing: such a layer is restored by the
+state blob. The same graph serves:
 
   * ``replay``              — virtual two-stream replay of a task order
                               under a hardware profile → ``Timeline``;
@@ -294,20 +298,27 @@ class RestoreSink:
         for g, row in enumerate(rows):
             self.put_kv(row, k[g], v[g], start)
 
+    def put_states(self, conv, ssm) -> None:
+        """An ssm session's recurrent states, (L, 1, W-1, I) and (L, 1,
+        I, N)."""
+        raise NotImplementedError
+
     def finish(self, n_tokens: int) -> None:
         raise NotImplementedError
 
 
 class CacheAssembler(RestoreSink):
-    """Builds a B=1 decode cache dict(k, v (L,1,capacity,Kv,hd), lengths).
-    Pieces are written straight into a buffer of ``capacity`` positions
-    (at least the restored length), so decoding can continue in it."""
+    """Builds a B=1 decode cache: dict(k, v (L,1,capacity,Kv,hd), lengths)
+    for lm, whose pieces are written straight into a buffer of
+    ``capacity`` positions (at least the restored length), so decoding
+    can continue in it; dict(conv, ssm, lengths) for ssm."""
 
     def __init__(self, model, capacity: Optional[int] = None):
         self.model = model
         self.capacity = capacity
         self.k: Optional[torch.Tensor] = None
         self.v: Optional[torch.Tensor] = None
+        self.states: Optional[tuple] = None
         self.cache: Optional[dict] = None
 
     def _buffers(self, n: int):
@@ -326,11 +337,18 @@ class CacheAssembler(RestoreSink):
         kb[row, :, start:start + n] = k
         vb[row, :, start:start + n] = v
 
+    def put_states(self, conv, ssm):
+        self.states = (conv, ssm)
+
     def finish(self, n_tokens):
+        lengths = torch.tensor([n_tokens], dtype=torch.int32,
+                               device=self.model.device)
+        if self.model.kind == "ssm":
+            conv, ssm = self.states
+            self.cache = {"conv": conv, "ssm": ssm, "lengths": lengths}
+            return
         kb, vb = self._buffers(n_tokens)
-        self.cache = {"k": kb, "v": vb,
-                      "lengths": torch.tensor([n_tokens], dtype=torch.int32,
-                                              device=kb.device)}
+        self.cache = {"k": kb, "v": vb, "lengths": lengths}
 
 
 # ---------------------------------------------------------- param packing
@@ -430,7 +448,9 @@ class RestorationExecutor:
         n_hidden = sum(1 for m in self.methods if m == "hidden")
         self._g_pad = min(self.group_size, max(n_hidden, 1))
         self.dispatch_overhead = mgr.hw.dispatch_overhead
-        self.tasks = compile_tasks(self.methods, group_size=self.group_size)
+        self.tasks = compile_tasks(
+            self.methods, n_blobs=self.model.adapter.n_state_blobs,
+            group_size=self.group_size)
         self.costs = layer_costs(mgr.cfg, self.n_eff, mgr.dtype_bytes)
         self.topology = mgr.store.shard_topology()
         self.times, layer_links = link_priced_times(
@@ -564,12 +584,16 @@ class RestorationExecutor:
         self.executed.append(idx)
 
     def _exec_io_h(self, t: Task) -> None:
+        if t.layer not in self._row_of:
+            return          # recurrent layers restore through the blob
         # the read completes when the projection consumes it
         self._hio[t.layer] = self.mgr.store.submit_layer_read(
             self.session, "h", t.layer, self.n_tokens,
             start_token=self.start_token)
 
     def _exec_io_kv(self, t: Task) -> None:
+        if t.layer not in self._row_of:
+            return          # recurrent layers restore through the blob
         store, sess, n = self.mgr.store, self.session, self.n_tokens
         d = self.start_token
         self._kvio.append((
@@ -590,7 +614,9 @@ class RestorationExecutor:
 
     def _exec_project(self, t: Task) -> None:
         model, pack, n = self.model, self.pack, self.n_eff
-        members = list(t.members)
+        members = [li for li in t.members if li in self._row_of]
+        if not members:
+            return          # recurrent layers restore through the blob
         S = s_bucket(n)
         G = max(self._g_pad, len(members))
         reads = [self._hio.pop(li).wait() for li in members]
@@ -616,6 +642,15 @@ class RestorationExecutor:
         g_real = len(members)
         self._emit("put_kv_group", tuple(rows), k[:g_real, None, :n],
                    v[:g_real, None, :n], self.start_token)
+
+    def _exec_blob(self, t: Task) -> None:
+        """An ssm session's recurrent states, bit for bit as stored."""
+        store, sess, model = self.mgr.store, self.session, self.model
+        conv = to_device(store.get_blob(sess, "state_conv", 0), model.dtype,
+                         model.device)
+        ssm = to_device(store.get_blob(sess, "state_ssm", 0), torch.float32,
+                        model.device)
+        self._emit("put_states", conv, ssm)
 
     def _exec_recompute(self, t: Task) -> None:
         """The recompute prefix is rebuilt once, at its first task, by

@@ -9,9 +9,9 @@ with PyTorch's headers confined to ``csrc/binding.cpp``; where ``ninja``
 (which ``load`` needs) is missing, ``nvcc`` compiles the kernel sources
 into a shared library with a plain C interface, loaded with ``ctypes``.
 Either way the returned object exposes ``restore_kv_grouped``,
-``decode_attention``, ``decode_attention_paged`` and ``flash_attention``
-taking device addresses and sizes as Python numbers, and raises when a
-launch fails.
+``decode_attention``, ``decode_attention_paged``, ``flash_attention`` and
+``ssm_update`` taking device addresses and sizes as Python numbers, and
+raises when a launch fails.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("restore_kv.cu", "decode_attention.cu",
-                  "flash_attention.cu")
+                  "flash_attention.cu", "ssm_update.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-lineinfo"] + ARCH_FLAGS
 
@@ -42,6 +42,7 @@ _ARGTYPES = {
     + [_F, _F, _I, _I, _VP],
     "hc_flash_attention": [_VP] * 6 + [_I] * 6 + [_LL] * 9
     + [_F, _F, _I, _I, _I, _VP],
+    "hc_ssm_update": [_VP] * 9 + [_I] * 3 + [_LL] * 5 + [_I, _VP],
 }
 
 
@@ -73,6 +74,9 @@ class _CtypesKernels:
 
     def flash_attention(self, *args) -> None:
         self._call("hc_flash_attention", *args)
+
+    def ssm_update(self, *args) -> None:
+        self._call("hc_ssm_update", *args)
 
 
 def _build_with_nvcc() -> _CtypesKernels:

@@ -33,6 +33,13 @@ extern "C" int hc_flash_attention(
     long long vsh, float scale, float softcap, int causal, int window,
     int dtype, void* stream);
 
+extern "C" int hc_ssm_update(const void* h, void* h_out, const void* dt,
+                             const void* x, const void* A, const void* Bm,
+                             const void* Cm, const void* D, void* y, int Bt,
+                             int I, int N, long long dt_sb, long long x_sb,
+                             long long b_sb, long long c_sb, long long y_sb,
+                             int dtype, void* stream);
+
 namespace {
 
 void* ptr(int64_t p) { return reinterpret_cast<void*>(p); }
@@ -100,6 +107,16 @@ void flash_attention(int64_t q, int64_t k, int64_t v, int64_t q_offset,
         "flash_attention");
 }
 
+void ssm_update(int64_t h, int64_t h_out, int64_t dt, int64_t x, int64_t A,
+                int64_t Bm, int64_t Cm, int64_t D, int64_t y, int Bt, int I,
+                int N, int64_t dt_sb, int64_t x_sb, int64_t b_sb,
+                int64_t c_sb, int64_t y_sb, int dtype, int64_t stream) {
+  check(hc_ssm_update(ptr(h), ptr(h_out), ptr(dt), ptr(x), ptr(A), ptr(Bm),
+                      ptr(Cm), ptr(D), ptr(y), Bt, I, N, dt_sb, x_sb, b_sb,
+                      c_sb, y_sb, dtype, ptr(stream)),
+        "ssm_update");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -107,4 +124,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention);
   m.def("decode_attention_paged", &decode_attention_paged);
   m.def("flash_attention", &flash_attention);
+  m.def("ssm_update", &ssm_update);
 }

@@ -6,6 +6,7 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import restore_kv as _rkv
+from repro_torch.kernels import ssm_update as _ssm
 
 
 def restore_kv_grouped(hidden, wk, wv, bk, bv, rows, cos, sin, *,
@@ -40,3 +41,17 @@ def flash_attention(q, k, v, q_offset, kv_len, *, causal=True, softcap=None,
           else _fa.flash_attention_plain)
     return fn(q, k, v, q_offset, kv_len, causal=causal, softcap=softcap,
               window=window)
+
+
+def ssm_update(h, dt, x, A, B, C, d_skip, *, h_out=None):
+    """See ``kernels/ssm_update.py``."""
+    fn = (_ssm.ssm_update_cuda if h.device.type == "cuda"
+          else _ssm.ssm_update_plain)
+    return fn(h, dt, x, A, B, C, d_skip, h_out=h_out)
+
+
+def ssm_scan(h, dt, x, A, B, C, d_skip):
+    """See ``kernels/ssm_update.py``."""
+    fn = (_ssm.ssm_scan_cuda if h.device.type == "cuda"
+          else _ssm.ssm_scan_plain)
+    return fn(h, dt, x, A, B, C, d_skip)

@@ -5,11 +5,16 @@ conversation trace.
         --sessions 4 --rounds 2                     # smoke config, fp32
     PYTHONPATH=src python -m repro_torch.launch.serve --backend paged \
         --full                                      # llama2-7b, bf16, GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        falcon-mamba-7b --rounds 1 --full           # ssm family, GPU
 
 It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
 CPU); with no GPU present and no ``--device`` it fails instead of falling
 back to the CPU. Weights are random, from seed 0. Flags of parts that are
 not ported yet are refused with a message that names the missing part.
+An ``ssm`` model (falcon-mamba-7b) runs on the contiguous backend for one
+round per session: its prefill starts from zero state, so a second round
+is refused.
 """
 from __future__ import annotations
 
@@ -133,6 +138,10 @@ def main(argv=None) -> None:
     if not args.full:
         cfg = reduced_for_smoke(cfg)
     model = Model(cfg, dtype=dtype, device=device)
+    if args.rounds > 1 and not model.adapter.supports_resume:
+        p.error(f"--rounds {args.rounds}: a {model.kind!r} model serves "
+                "each session one round (its prefill cannot resume on "
+                "restored state); pass --rounds 1")
     params = model.init(0)
     if args.hosts > 1:
         from repro_torch.config.hardware import NIC_BW

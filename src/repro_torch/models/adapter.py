@@ -1,8 +1,9 @@
-"""LMAdapter — the seam between the ``lm`` model and the HCache manager
-and serving engine: how a prefill, a prefill chunk and a decode step are
-invoked, how a prefill's output lands in a ``CacheView``, and which
-pieces of a prefill output are persisted. The other families' adapters
-are not ported yet.
+"""Family adapters — the seam between a model family and the HCache
+manager and serving engine: how a prefill, a prefill chunk and a decode
+step are invoked, how a prefill's output lands in a ``CacheView``, and
+which pieces of a prefill output are persisted. ``LMAdapter`` serves the
+dense ``lm`` family, ``SSMAdapter`` the attention-free ``ssm`` family
+(falcon-mamba); the hybrid, MoE and enc-dec adapters are not ported yet.
 
 The adapter does not import ``repro_torch.serving``: the serving seam
 methods are duck-typed over the engine's ``SequenceState`` and the
@@ -12,8 +13,9 @@ Capability flags (as the JAX package's ``FamilyAdapter`` has them):
 ``chunkable`` (the prompt may be split into SplitFuse chunks),
 ``supports_resume`` (a paused session resumes by prefilling over its
 restored history), ``supports_paged`` (the block-table backend applies),
-``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V)
-and ``kv_row`` (a layer's row in that stack).
+``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V),
+``kv_row`` (a layer's row in that stack) and ``n_state_blobs`` (whole
+recurrent-state blobs in the restore graph).
 """
 from __future__ import annotations
 
@@ -21,16 +23,46 @@ import numpy as np
 import torch
 
 
-class LMAdapter:
+class FamilyAdapter:
+    kind = "?"
+    chunkable = False
+    supports_resume = False
+    supports_paged = False
+    supports_recompute = False
+    kv_names = None
+    n_state_blobs = 0
+
+    def __init__(self, model):
+        self.model = model
+
+    def _tokens(self, chunk) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(chunk, np.int64))[None].to(
+            self.model.device)
+
+    def decode_hidden(self, hidden):
+        """The (L, B, 1, D) hidden stack a decode step persists."""
+        return hidden
+
+    def decode_step_paged(self, params, cache, tokens):
+        raise NotImplementedError(
+            f"paged decode requires an lm-family model; "
+            f"{self.model.cfg.name} is {self.kind!r}")
+
+    def restore_kv_from_hidden(self, params, hidden, *, positions):
+        raise ValueError(f"{self.model.cfg.name}: attention-free arch; use "
+                         "restore_ssm_states (ssm-rescan)")
+
+    def restore_ssm_states(self, params, hidden):
+        raise ValueError(f"{self.model.cfg.name}: no SSM states")
+
+
+class LMAdapter(FamilyAdapter):
     kind = "lm"
     chunkable = True
     supports_resume = True
     supports_paged = True
     supports_recompute = True
     kv_names = ("k", "v")
-
-    def __init__(self, model):
-        self.model = model
 
     def init(self, generator: torch.Generator) -> dict:
         from repro_torch.models import transformer as tfm
@@ -62,9 +94,7 @@ class LMAdapter:
         """One prefill chunk of a resident sequence: ``chunk`` a 1-D token
         array, ``hist`` the tokens already in its ``CacheView``."""
         hist_kv = seq.view.gather_hist(hist) if hist else None
-        tokens = torch.from_numpy(np.asarray(chunk, np.int64))[None].to(
-            self.model.device)
-        return self.prefill(params, {"tokens": tokens},
+        return self.prefill(params, {"tokens": self._tokens(chunk)},
                             capture_hidden=capture_hidden, hist_kv=hist_kv,
                             hist_len=hist if hist_kv is not None else None)
 
@@ -73,10 +103,6 @@ class LMAdapter:
         through the view; the caller owns ``view.set_length``."""
         k, v = out["kv"]
         view.write_kv(k, v, hist)
-
-    def decode_hidden(self, hidden):
-        """The (L, B, 1, D) hidden stack a decode step persists."""
-        return hidden
 
     # ------------------------------------------------ serving: save naming
     def kv_row(self, li: int) -> int:
@@ -92,3 +118,45 @@ class LMAdapter:
         """Layer ``li``'s (k, v), each (S, Kv, hd), from a B=1 prefill."""
         row = self.kv_row(li)
         return out["kv"][0][row][0], out["kv"][1][row][0]
+
+
+class SSMAdapter(FamilyAdapter):
+    """Mamba1 stacks: the prefill runs the whole prompt from zero state
+    (``ssm_forward`` takes no initial state, so the prompt is not
+    chunkable and a session cannot resume on top of restored state), and
+    the recurrent states are restored as one blob."""
+
+    kind = "ssm"
+    n_state_blobs = 1
+
+    def init(self, generator: torch.Generator) -> dict:
+        from repro_torch.models import ssm
+        return ssm.init_ssm_lm(generator, self.model.h, self.model.device)
+
+    def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
+                hist_len=None):
+        from repro_torch.models import ssm
+        return ssm.ssm_forward(params, batch["tokens"], self.model.h,
+                               capture_hidden=capture_hidden,
+                               emit_state=True, final_logits_only=True)
+
+    def decode_step_full(self, params, cache, tokens):
+        from repro_torch.models import ssm
+        return ssm.ssm_decode_step(params, cache, tokens, self.model.h)
+
+    def restore_ssm_states(self, params, hidden):
+        from repro_torch.models import ssm
+        return ssm.ssm_restore_states(params, hidden, self.model.h)
+
+    def prefill_chunk(self, params, seq, chunk, hist, *, capture_hidden):
+        return self.prefill(params, {"tokens": self._tokens(chunk)},
+                            capture_hidden=capture_hidden)
+
+    def absorb_prefill(self, view, out, n, hist) -> None:
+        """Write the prefill's final states into the view's slot."""
+        conv, ssm = out["states"]
+        view.write_states({"conv": conv, "ssm": ssm})
+
+    def prefill_kv(self, out: dict, li: int):
+        raise ValueError(f"{self.model.cfg.name}: attention-free arch has "
+                         "no K/V to persist")

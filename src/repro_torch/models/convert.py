@@ -3,7 +3,9 @@
 ``from_jax_params`` takes the JAX package's own ``split(model.init(...))``
 value tree as numpy arrays (or anything ``np.asarray`` takes) and returns
 the port's parameter dict: same tree, layer stacks kept stacked, the table
-with its padded vocabulary. Missing keys raise."""
+with its padded vocabulary. Both the dense ``lm`` tree and the ``ssm``
+(Mamba1) tree are taken; ``a_log`` stays fp32 whatever the model dtype,
+as the JAX package initialises it. Missing keys raise."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,17 +31,47 @@ def _take(tree, path, shape, *, device, dtype):
 
 def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
                     dtype=torch.float32) -> dict:
-    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    hd = cfg.head_dim_
-    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    L, D = cfg.n_layers, cfg.d_model
     vp = padded_vocab(cfg.vocab_size)
 
-    def take(path, shape):
-        return _take(np_tree, path, shape, device=device, dtype=dtype)
+    def take(path, shape, dt=dtype):
+        return _take(np_tree, path, shape, device=device, dtype=dt)
+
+    def norm(path, lead):
+        out = {"scale": take(path + ("scale",), lead + (D,))}
+        if cfg.norm == "layernorm":
+            out["bias"] = take(path + ("bias",), lead + (D,))
+        return out
 
     embed = {"table": take(("embed", "table"), (vp, D))}
     if not cfg.tie_embeddings:
         embed["unembed"] = take(("embed", "unembed"), (D, vp))
+    if cfg.family == "ssm":
+        blocks = {"ln": norm(("blocks", "ln"), (L,)),
+                  "m": _mamba1(take, cfg)}
+    else:
+        blocks = _dense_blocks(take, norm, cfg)
+    return {"embed": embed, "blocks": blocks,
+            "final_norm": norm(("final_norm",), ())}
+
+
+def _mamba1(take, cfg: ArchConfig) -> dict:
+    L, D = cfg.n_layers, cfg.d_model
+    I, N, W = cfg.ssm_expand * D, cfg.ssm_state, cfg.ssm_conv
+    R = max(D // 16, 1)
+    shapes = {"in_proj": (L, D, 2 * I), "conv_w": (L, I, W),
+              "conv_b": (L, I), "x_proj": (L, I, R + 2 * N),
+              "dt_proj": (L, R, I), "dt_bias": (L, I), "d_skip": (L, I),
+              "out_proj": (L, I, D)}
+    m = {k: take(("blocks", "m", k), s) for k, s in shapes.items()}
+    m["a_log"] = take(("blocks", "m", "a_log"), (L, I, N), torch.float32)
+    return m
+
+
+def _dense_blocks(take, norm, cfg: ArchConfig) -> dict:
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hd = cfg.head_dim_
+    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn_shapes = {"wq": (L, D, qd), "wk": (L, D, kvd), "wv": (L, D, kvd),
                    "wo": (L, qd, D)}
     if cfg.qkv_bias:
@@ -49,17 +81,9 @@ def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
         mlp_shapes["w_gate"] = (L, D, F)
     norms = ["ln1", "ln2"] + (["post_ln1", "post_ln2"]
                               if cfg.post_attn_norm else [])
-
-    def norm(path, lead):
-        out = {"scale": take(path + ("scale",), lead + (D,))}
-        if cfg.norm == "layernorm":
-            out["bias"] = take(path + ("bias",), lead + (D,))
-        return out
-
     blocks = {n: norm(("blocks", n), (L,)) for n in norms}
     blocks["attn"] = {k: take(("blocks", "attn", k), s)
                       for k, s in attn_shapes.items()}
     blocks["mlp"] = {k: take(("blocks", "mlp", k), s)
                      for k, s in mlp_shapes.items()}
-    return {"embed": embed, "blocks": blocks,
-            "final_norm": norm(("final_norm",), ())}
+    return blocks

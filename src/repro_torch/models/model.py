@@ -1,14 +1,18 @@
-"""Model facade for the ``lm`` family (the main path of this port).
+"""Model facade for the dense ``lm`` family (the main path of this port)
+and the attention-free ``ssm`` family (falcon-mamba).
 
 ``Model`` resolves the device and hyper-parameters and delegates compute
-to its ``LMAdapter`` (models/adapter.py):
+to its family adapter (models/adapter.py):
 
     init(seed)                          -> parameter dict on the device
-    prefill(params, batch, ...)         -> logits + K/V (+ hidden states)
+    prefill(params, batch, ...)         -> logits + K/V or final recurrent
+                                           states (+ hidden states)
     decode_step(params, cache, tokens)  -> (logits, cache)
     decode_step_full(...)               -> (logits, cache, hidden states)
     decode_step_paged(...)              -> the same over a paged KV pool
-    restore_kv_from_hidden(...)         -> the paper's restoration op
+                                           (lm only)
+    restore_kv_from_hidden(...)         -> the paper's restoration op (lm)
+    restore_ssm_states(...)             -> ssm-rescan (ssm)
     init_cache / init_paged_cache       -> zeroed serving caches
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; with no
@@ -23,7 +27,8 @@ import torch
 
 from repro_torch.config.arch import ArchConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.adapter import LMAdapter
+from repro_torch.models.adapter import LMAdapter, SSMAdapter
+from repro_torch.models.ssm import SSMHyper
 
 LM_FAMILIES = ("dense",)
 
@@ -42,15 +47,20 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 class Model:
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device, None] = None):
-        if cfg.family not in LM_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
+        if cfg.family in LM_FAMILIES:
+            self.h = tfm.LMHyper(cfg=cfg, dtype=dtype)
+            self.kind = "lm"
+            self.adapter = LMAdapter(self)
+        elif cfg.family == "ssm":
+            self.h = SSMHyper(cfg=cfg, dtype=dtype)
+            self.kind = "ssm"
+            self.adapter = SSMAdapter(self)
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet")
         self.device = resolve_device(device)
-        self.h = tfm.LMHyper(cfg=cfg, dtype=dtype)
-        self.kind = "lm"
-        self.adapter = LMAdapter(self)
 
     def init(self, seed: int = 0) -> dict:
         """Random parameters from a ``torch.Generator`` on the model's
@@ -83,15 +93,28 @@ class Model:
         return self.adapter.restore_kv_from_hidden(params, hidden,
                                                    positions=positions)
 
+    def restore_ssm_states(self, params, hidden):
+        """ssm-rescan: per-layer final states from stacked hidden states."""
+        return self.adapter.restore_ssm_states(params, hidden)
+
     def init_cache(self, batch: int, ctx_len: int) -> dict:
-        """Zeroed contiguous decode cache: k/v (L, batch, ctx_len, Kv, hd),
-        lengths (batch,) int32."""
+        """Zeroed contiguous decode cache with lengths (batch,) int32: lm
+        k/v (L, batch, ctx_len, Kv, hd); ssm conv (L, batch, W-1, I) in
+        the model dtype and ssm (L, batch, I, N) fp32 (no token axis)."""
         c = self.cfg
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        if self.kind == "ssm":
+            m = self.h.mamba
+            return {"conv": torch.zeros((c.n_layers, batch, m.d_conv - 1,
+                                         m.d_inner), dtype=self.dtype,
+                                        device=self.device),
+                    "ssm": torch.zeros((c.n_layers, batch, m.d_inner,
+                                        m.d_state), dtype=torch.float32,
+                                       device=self.device),
+                    "lengths": lengths}
         kv = torch.zeros((c.n_layers, batch, ctx_len, c.n_kv_heads,
                           c.head_dim_), dtype=self.dtype, device=self.device)
-        return {"k": kv, "v": torch.zeros_like(kv),
-                "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                       device=self.device)}
+        return {"k": kv, "v": torch.zeros_like(kv), "lengths": lengths}
 
     def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
                          max_blocks_per_seq: int) -> dict:

@@ -47,6 +47,13 @@ HCache itself.
 Not ported yet, and refused at construction with the ROADMAP item that
 brings them: prefix sharing and session forks, the host-storage budget
 manager (``capacity=``) and tensor parallelism (``tp > 1``).
+
+A family whose adapter cannot resume (``supports_resume`` false: the
+``ssm`` family, whose prefill starts from zero state) serves each
+session for one round: a request for a session that already has stored
+state is refused, since its prefill would overwrite the restored state
+(the JAX package serves such a round from zero state, silently dropping
+the history).
 """
 from __future__ import annotations
 
@@ -204,6 +211,7 @@ class InferenceEngine:
 
     # ----------------------------------------------------------- submission
     def submit(self, request: Request) -> SequenceState:
+        self._refuse_unresumable(request.session_id)
         seq = SequenceState(request=request)
         if request.arrival_time == 0.0:
             seq.request.arrival_time = time.perf_counter()
@@ -252,11 +260,22 @@ class InferenceEngine:
                 break
         self._prefetch_queued()
 
+    def _refuse_unresumable(self, sid: str) -> None:
+        if (not self.adapter.supports_resume
+                and self.mgr.store.get_manifest(sid) is not None):
+            raise NotImplementedError(
+                f"session {sid!r} has stored state, and a "
+                f"{self.adapter.kind!r} model cannot prefill on top of "
+                "restored state (its prefill starts from zero state; the "
+                "JAX package's second round drops the history, ROADMAP "
+                "queue 3)")
+
     def _place(self, seq: SequenceState, slot: int) -> bool:
         """Bind a (possibly resuming) sequence to a free batch slot.
         False iff the backend could not reserve capacity (the sequence is
         requeued and the slot stays free)."""
         sid = seq.request.session_id
+        self._refuse_unresumable(sid)
         if not self.kv.reserve(slot, self._tokens_needed(seq)):
             self.metrics.alloc_stalls += 1
             self.queue.appendleft(seq)
@@ -475,11 +494,11 @@ class InferenceEngine:
         for s in self.slots:
             if s is not None and s.phase == Phase.DECODE and s.generated:
                 tokens[s.slot, 0] = s.generated[-1]
-        lg, hidden = self.kv.decode(self.params, tokens)
-        # inactive slots advanced their length too — undo
         mask = np.zeros((self.max_batch,), bool)
         for s in active:
             mask[s.slot] = True
+        lg, hidden = self.kv.decode(self.params, tokens, active=mask)
+        # inactive slots advanced their length too — undo
         lengths = self.kv.get_lengths()
         lengths[~mask] -= 1
         self.kv.set_lengths(lengths)

@@ -4,7 +4,9 @@ The serving engine never touches cache buffers directly. All state lives
 in a ``KVCacheBackend``:
 
   * ``ContiguousBackend`` — every batch slot owns ``max_seq`` contiguous
-    positions of a stacked ``(L, B, Smax, Kv, hd)`` buffer;
+    positions of a stacked ``(L, B, Smax, Kv, hd)`` buffer; for an ``ssm``
+    model, a row of the recurrent-state buffers ``conv (L, B, W-1, I)``
+    and ``ssm (L, B, I, N)`` instead;
   * ``PagedBackend``      — block tables over a physical page pool
     ``(L, num_blocks, block_size, Kv, hd)`` plus a ``BlockAllocator``
     free list. A slot reserves only the pages its session can use, so
@@ -15,6 +17,7 @@ Consumers all go through a slot-bound ``CacheView`` handle:
     view.write_layer(row, k, v, start)        one restored layer
     view.write_layer_group(rows, k, v, start) a restoration group
     view.write_kv(k, v, start)                stacked prefill K/V
+    view.write_states(piece)                  ssm conv/ssm states
     view.gather_hist(hist)                    history K/V for a prefill
     view.snapshot()                           B=1 dict for a pause dump
     view.set_length(n)                        live-length bookkeeping
@@ -152,6 +155,12 @@ class CacheView:
         """Stacked prefill K/V (L, 1, n, Kv, hd) at token offset start."""
         raise NotImplementedError
 
+    def write_states(self, piece: dict) -> None:
+        """Whole recurrent states of an ssm model into this view's slot:
+        ``conv`` (L, 1, W-1, I) and ``ssm`` (L, 1, I, N)."""
+        raise NotImplementedError(
+            f"the {type(self).__name__} holds no recurrent states")
+
     def gather_hist(self, hist: int):
         """History K/V for a prefill, a stacked (L, 1, hist, Kv, hd)
         pair."""
@@ -185,6 +194,9 @@ class ViewSink(RestoreSink):
     def put_kv_group(self, rows, k, v, start=0):
         self.view.write_layer_group(rows, k, v, start)
 
+    def put_states(self, conv, ssm):
+        self.view.write_states({"conv": conv, "ssm": ssm})
+
     def finish(self, n_tokens):
         self.view.set_length(n_tokens)
 
@@ -212,9 +224,12 @@ class KVCacheBackend:
     def free_slot(self, slot: int) -> None:
         raise NotImplementedError
 
-    def decode(self, params, tokens: np.ndarray):
+    def decode(self, params, tokens: np.ndarray, active=None):
         """One batched decode step over tokens (max_batch, 1); advances
-        every slot's length by one. Returns (logits, per-layer hidden
+        every slot's length by one. ``active`` (max_batch,) bool marks the
+        slots whose session takes this step; the others keep their
+        recurrent state (a K/V write of theirs lands past their live
+        length, where it is never read). Returns (logits, per-layer hidden
         states)."""
         raise NotImplementedError
 
@@ -260,6 +275,10 @@ class _ContiguousView(CacheView):
         self.b = backend
         self.slot = slot
 
+    def write_states(self, piece):
+        for key in ("conv", "ssm"):
+            self.b.state[key][:, self.slot] = piece[key][:, 0]
+
     def write_layer(self, row, k, v, start=0):
         n = k.shape[1]
         self.b.k[row, self.slot, start:start + n] = k[0]
@@ -276,7 +295,7 @@ class _ContiguousView(CacheView):
 
     def snapshot(self):
         i = self.slot
-        return {"k": self.b.k[:, i:i + 1], "v": self.b.v[:, i:i + 1]}
+        return {name: t[:, i:i + 1] for name, t in self.b.bufs.items()}
 
     def set_length(self, n):
         self.b.set_length(self.slot, n)
@@ -287,7 +306,9 @@ class _ContiguousView(CacheView):
 
 class ContiguousBackend(KVCacheBackend):
     """``max_seq`` contiguous positions per slot; a reservation always
-    costs ``max_seq`` capacity, whatever the session's true length."""
+    costs ``max_seq`` capacity, whatever the session's true length. An
+    ``ssm`` model's slot holds its recurrent states (``state``) instead of
+    K/V; a decode step leaves the states of inactive slots as they were."""
 
     name = "contiguous"
 
@@ -296,7 +317,11 @@ class ContiguousBackend(KVCacheBackend):
         self.max_batch = max_batch
         self.max_seq = max_seq
         cache = model.init_cache(max_batch, max_seq)
-        self.k, self.v = cache["k"], cache["v"]
+        self.bufs = {name: t for name, t in cache.items()
+                     if name != "lengths"}
+        self.k, self.v = cache.get("k"), cache.get("v")
+        self.state = {key: cache[key] for key in ("conv", "ssm")
+                      if key in cache}
         self.lengths_np = np.zeros((max_batch,), np.int64)
         self._reserved = [0] * max_batch
 
@@ -315,11 +340,15 @@ class ContiguousBackend(KVCacheBackend):
     def free_slot(self, slot):
         self._reserved[slot] = 0
 
-    def decode(self, params, tokens):
+    def decode(self, params, tokens, active=None):
         tok, lengths = self._upload(tokens, self.lengths_np)
-        cache = {"k": self.k, "v": self.v,
-                 "lengths": lengths.to(torch.int32)}
+        cache = dict(self.bufs, lengths=lengths.to(torch.int32))
+        idle = ([] if active is None or not self.state
+                else np.nonzero(~np.asarray(active, bool))[0].tolist())
+        kept = {key: t[:, idle] for key, t in self.state.items() if idle}
         lg, _, hidden = self.model.decode_step_full(params, cache, tok)
+        for key, t in kept.items():
+            self.state[key][:, idle] = t
         self.lengths_np += 1
         return lg, hidden
 
@@ -482,7 +511,7 @@ class PagedBackend(KVCacheBackend):
         self.table_np[slot, :] = self.num_blocks
         self.lengths_np[slot] = 0
 
-    def decode(self, params, tokens):
+    def decode(self, params, tokens, active=None):
         rows, slots = paged_write_index(self.table_np, self.lengths_np,
                                         self.num_blocks, self.block_size)
         tok, lengths, table, rows_t, slots_t = self._upload(

@@ -8,13 +8,17 @@ the hidden-state method on every layer, then profiles (1) one restore of
 it, (2) 8 decode steps from the restored cache, (3) an engine-sized
 prefill chunk, 128 tokens over 1900 tokens of history, and (4) 8 decode
 steps of the paged backend at the engine's batch of 4 slots holding
-~2000 tokens each. For each window it prints the wall time, the device
+~2000 tokens each; then it frees llama2-7b, builds falcon-mamba-7b the
+same way and profiles (5) 8 decode steps of the contiguous backend at 4
+slots, each holding the states of a 512-token prefill. For each window it
+prints the wall time, the device
 time summed over kernels and copies, the device's idle share (1 - device
 time / wall), and the kernels with the most device time. Fails when no
 CUDA device is present.
 """
 from __future__ import annotations
 
+import gc
 import subprocess
 import time
 
@@ -25,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_arch
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.models import Model
-from repro_torch.serving import PagedBackend
+from repro_torch.serving import ContiguousBackend, PagedBackend
 from repro_torch.storage import ChunkStore, make_array
 
 N_TOKENS = 1024
@@ -33,6 +37,7 @@ DECODE_STEPS = 8
 TOP = 8
 CHUNK, HIST = 128, 1900              # an engine prefill chunk over history
 SLOTS, SLOT_TOKENS = 4, (2300, 1537, 777, 2049)   # paged decode batch
+SSM_PROMPT = 512                     # falcon-mamba: states of this prefill
 
 
 def report(name: str, prof, wall_s: float) -> None:
@@ -104,6 +109,10 @@ def main() -> None:
         profile_engine_windows(model, params)
     finally:
         mgr.close()
+    del model, params, mgr           # free llama2-7b before falcon-mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_ssm_decode()
 
 
 def profile_engine_windows(model, params) -> None:
@@ -137,6 +146,34 @@ def profile_engine_windows(model, params) -> None:
     _, prof, wall = profiled(paged_decode)
     report(f"{DECODE_STEPS} paged decode steps, {SLOTS} slots at "
            f"{SLOT_TOKENS} tokens", prof, wall)
+
+
+def profile_ssm_decode() -> None:
+    """falcon-mamba-7b decode at the engine's batch of 4 slots."""
+    model = Model(get_arch("falcon-mamba-7b"), dtype=torch.bfloat16)
+    params = model.init(0)
+    kv = ContiguousBackend(model, SLOTS, 2560)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         SSM_PROMPT)).to(model.device)
+    out = model.prefill(params, {"tokens": toks[None]})
+    conv, ssm = out["states"]
+    for slot in range(SLOTS):
+        kv.reserve(slot, SSM_PROMPT + 2 * DECODE_STEPS)
+        kv.view(slot).write_states({"conv": conv, "ssm": ssm})
+        kv.set_length(slot, SSM_PROMPT)
+    del out
+    tokens = rng.integers(0, model.cfg.vocab_size, (SLOTS, 1))
+
+    def decode():
+        for _ in range(DECODE_STEPS):
+            lg, _ = kv.decode(params, tokens)
+            torch.argmax(lg[:, -1], -1).cpu()
+
+    decode()                                        # warm
+    _, prof, wall = profiled(decode)
+    report(f"{DECODE_STEPS} falcon-mamba-7b decode steps, {SLOTS} slots",
+           prof, wall)
 
 
 if __name__ == "__main__":
