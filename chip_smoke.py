@@ -11,7 +11,12 @@ Needs one CUDA GPU and the repository checkout around this file. It
      paths' shapes (plus extra cases: other head sizes, windows, softcaps,
      fp32), checks that paged decode gives contiguous decode's bits and
      that prefill attention is deterministic, and times kernel, plain
-     version and a PyTorch yardstick with CUDA events;
+     version and a PyTorch yardstick with CUDA events; the restoration
+     kernel at the six shapes of its three regimes (restore G=8 S=1024 and
+     2048, prefill G=1 S=2000 and 128, decode G=1 S=4 and 1, launches
+     cycling over a 32-layer stack), with the same rows launched alone at
+     S = 1, 4, 128, 300 and 1024 bitwise equal to the G=8 S=1024 launch
+     (hd = 128, and hd = 96 with bias and hd = 80);
   3. drives the lifecycle path: llama2-7b at full width and depth in
      bf16, random weights from a seed, 3 sessions x 2 rounds of
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
@@ -38,8 +43,8 @@ Needs one CUDA GPU and the repository checkout around this file. It
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire);
   6. checks that each path launched its kernels (counts reset before and
-     read after each path), then prints the kernels' JSON line, the card,
-     and the device line last.
+     read after each path; the restoration kernel's also by regime), then
+     prints the kernels' JSON line, the card, and the device line last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -145,7 +150,7 @@ def check_close(what: str, got, want, dtype_name: str) -> float:
 
 
 # ----------------------------------------------------------- kernel checks
-def restore_case(G, S, D, KV, hd, A, rows, bias, dtype, gen):
+def restore_case(G, S, D, KV, hd, A, rows, bias, dtype, gen, stacks=None):
     import torch
     from repro_torch.models.layers.rope import rope_table
     dev = "cuda"
@@ -155,28 +160,43 @@ def restore_case(G, S, D, KV, hd, A, rows, bias, dtype, gen):
                 * scale).to(dtype)
 
     hidden = rnd(G, S, D)
-    wk, wv = rnd(A, D, KV, scale=D ** -0.5), rnd(A, D, KV, scale=D ** -0.5)
-    bk, bv = (rnd(A, KV), rnd(A, KV)) if bias else (None, None)
+    if stacks is None:
+        stacks = (rnd(A, D, KV, scale=D ** -0.5),
+                  rnd(A, D, KV, scale=D ** -0.5),
+                  *((rnd(A, KV), rnd(A, KV)) if bias else (None, None)))
     cos, sin = rope_table(S, hd, 10000.0, dev)
-    args = (hidden, wk, wv, bk, bv,
+    args = (hidden, *stacks,
             torch.tensor(rows, dtype=torch.int32, device=dev),
             cos[:S].contiguous(), sin[:S].contiguous())
     return args
 
 
-def check_row_invariance(rkv, args, full, hd):
-    """The same rows launched at other tile offsets and group positions
-    give bitwise-equal K/V: what makes restored K/V equal prefill's."""
+# (offset, length) windows of one group row launched alone, cut at the
+# row's end (None: to the end): S = 1, 4 and 128 run the bytes-bound tile
+# plan, the whole row the G = 1 operations plan, the others at odd offsets
+INVARIANCE_WINDOWS = ((5, 1), (77, 4), (333, 128), (5, 300), (0, None))
+
+
+def check_row_invariance(rkv, args, full, hd, use_rope=True):
+    """The same rows launched alone, at other lengths, tile offsets, tile
+    plans and group positions, give bitwise-equal K/V: what makes
+    restored K/V (G = 8, S = bucket) equal prefill's (G = 1, S = chunk)
+    and decode's (G = 1, S = batch)."""
     hidden, wk, wv, bk, bv, rows, cos, sin = args
-    a, b = 5, 5 + min(300, hidden.shape[1] - 5)
-    part = rkv.restore_kv_grouped_cuda(
-        hidden[1:2, a:b].contiguous(), wk, wv, bk, bv,
-        rows[1:2].contiguous(), cos[a:b].contiguous(), sin[a:b].contiguous(),
-        head_dim=hd)
-    for got, want in zip(part, full):
-        if not torch_equal(got, want[1:2, a:b]):
-            raise AssertionError("restore kernel output depends on the "
-                                 "row's position in the launch")
+    S = hidden.shape[1]
+    for a, n in INVARIANCE_WINDOWS:
+        b = S if n is None else min(a + n, S)
+        if a >= b:
+            continue
+        part = rkv.restore_kv_grouped_cuda(
+            hidden[1:2, a:b].contiguous(), wk, wv, bk, bv,
+            rows[1:2].contiguous(), cos[a:b].contiguous(),
+            sin[a:b].contiguous(), head_dim=hd, use_rope=use_rope)
+        for got, want in zip(part, full):
+            if not torch_equal(got, want[1:2, a:b]):
+                raise AssertionError(
+                    f"restore kernel output depends on the row's position "
+                    f"in the launch (hd={hd}, rows {a}..{b} alone)")
 
 
 def torch_equal(x, y) -> bool:
@@ -184,35 +204,110 @@ def torch_equal(x, y) -> bool:
     return bool(torch.equal(x, y))
 
 
+# the six shapes of the three regimes on llama2-7b: restoration (G = 8,
+# S = bucket), prefill (G = 1, S = the lifecycle's 2000-token prompt and
+# the engine's 128-token chunk) and decode (G = 1, S = the batch)
+RESTORE_SHAPES = ((8, 1024), (8, 2048), (1, 2000), (1, 128), (1, 4), (1, 1))
+
+
+def restore_regime(G: int, S: int) -> str:
+    """The caller a launch shape comes from on chip_smoke's paths: the
+    executor projects groups of 8 layers, prefill and decode one layer
+    at S = tokens (decode: S = the batch, at most 4 slots)."""
+    return "restore" if G > 1 else "decode" if S <= 4 else "prefill"
+
+
 def check_restore(card: str, gen):
+    import itertools
+
     import torch
     from repro_torch.kernels import restore_kv as rkv
     kw = dict(head_dim=128, use_rope=True)
-    # main path: one 8-layer group of llama2-7b at S = 1024
-    G, S, D, KV = 8, 1024, 4096, 4096
-    args = restore_case(G, S, D, KV, 128, 32, list(range(8, 16)), False,
-                        torch.bfloat16, gen)
-    k, v = rkv.restore_kv_grouped_cuda(*args, **kw)
-    torch.cuda.synchronize()
-    pk, pv = rkv.restore_kv_grouped_plain(*args, **kw)
-    err = max(check_close("restore K (main)", k, pk, "bf16"),
-              check_close("restore V (main)", v, pv, "bf16"))
-    check_row_invariance(rkv, args, (k, v), 128)
-    ms = time_ms(lambda: rkv.restore_kv_grouped_cuda(*args, **kw), 20)
-    plain_ms = time_ms(lambda: rkv.restore_kv_grouped_plain(*args, **kw),
-                       3, warmup=0)
-    hidden, wk, wv, _, _, rows = args[:6]
-    w_cat = torch.cat([wk[rows.long()], wv[rows.long()]], -1)
-    lib_ms = time_ms(lambda: torch.matmul(hidden, w_cat), 20)
-    flops = 2 * G * S * D * 2 * KV
-    nbytes = 2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV) \
-        + 2 * 4 * S * 64
-    bound_ms, bound_by = bound(flops, nbytes, card)
-    print(f"restore_kv_grouped G={G} S={S} D={D} KV={KV} hd=128 bf16: "
-          f"max_abs_err {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f}"
-          f" ms (median of 3), torch.matmul K|V yardstick {lib_ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.0f} GFLOP, "
-          f"{nbytes / 1e6:.0f} MB)")
+    D, KV, A = 4096, 4096, 32
+    shapes, stacks, main = [], None, None
+    for G, S in RESTORE_SHAPES:
+        args = restore_case(G, S, D, KV, 128, A, list(range(8, 8 + G)),
+                            False, torch.bfloat16, gen, stacks)
+        stacks = args[1:5]
+        k, v = rkv.restore_kv_grouped_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        large = G * S >= 2000
+        reps = 1 if large else 3
+        box = {}
+
+        def plain():
+            box["out"] = rkv.restore_kv_grouped_plain(*args, **kw)
+
+        plain_ms = time_ms(plain, reps, warmup=0)
+        pk, pv = box.pop("out")
+        err = max(check_close(f"restore K G={G} S={S}", k, pk, "bf16"),
+                  check_close(f"restore V G={G} S={S}", v, pv, "bf16"))
+        del pk, pv
+        if (G, S) == RESTORE_SHAPES[0]:
+            main = (args, (k, v))
+        # weights cold in L2, as decode finds them: cycle the launches over
+        # all 32 layers of the stack (67 MB of Wk|Wv per layer)
+        hidden, wk, wv = args[:3]
+        row_sets = [torch.arange(l, l + G, dtype=torch.int32, device="cuda")
+                    for l in range(0, A, G)]
+        cyc = itertools.cycle(row_sets)
+        w_cat = torch.cat([wk, wv], -1)
+        lib_cyc = itertools.cycle(range(0, A, G))
+
+        def kern():
+            rkv.restore_kv_grouped_cuda(hidden, wk, wv, None, None,
+                                        next(cyc), args[6], args[7], **kw)
+
+        def lib():
+            l = next(lib_cyc)
+            torch.matmul(hidden, w_cat[l:l + G])
+
+        timer = (lambda f: time_ms(f, 20)) if large else graph_ms
+        ms, lib_ms = timer(kern), timer(lib)
+        del w_cat
+        flops = 2 * G * S * D * 2 * KV
+        nbytes = 2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV) \
+            + 2 * 4 * S * 64
+        bound_ms, bound_by = bound(flops, nbytes, card)
+        plan = rkv.tile_plan(G, S, KV, 128)
+        print(f"restore_kv_grouped G={G} S={S} D={D} KV={KV} hd=128 bf16 "
+              f"({restore_regime(G, S)}; plan {plan.args}, grid {plan.grid})"
+              f": max_abs_err {err:.3g}; kernel {ms:.4f} ms "
+              f"({'CUDA events' if large else 'CUDA graph of 100'}, layers "
+              f"cycled), plain {plain_ms:.1f} ms ({reps} rep), torch.matmul "
+              f"K|V yardstick {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
+        shapes.append({"G": G, "S": S, "regime": restore_regime(G, S),
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": lib_ms})
+        if (G, S) != RESTORE_SHAPES[0]:
+            del k, v
+    args, full = main
+    check_row_invariance(rkv, args, full, 128)
+    print("restore_kv_grouped hd=128: rows launched alone at S = 1, 4, 128, "
+          "300 and 1024 (odd offsets, both tile plans) bitwise equal to the "
+          "G=8 S=1024 launch")
+    del main, args, full, stacks
+    # the odd head sizes across tile plans, with bias: G = 8, S = 1024 runs
+    # the operations plan, the windows the bytes plan
+    for hd, bias in ((96, True), (80, False)):
+        a = restore_case(8, 1024, 1024, 8 * hd, hd, 8,
+                         [2, 0, 3, 7, 1, 6, 5, 4], bias, torch.bfloat16, gen)
+        for rope in (True, False):
+            k2, v2 = rkv.restore_kv_grouped_cuda(*a, head_dim=hd,
+                                                 use_rope=rope)
+            torch.cuda.synchronize()
+            pk2, pv2 = rkv.restore_kv_grouped_plain(*a, head_dim=hd,
+                                                    use_rope=rope)
+            e = max(check_close(f"restore K hd={hd} rope={rope}", k2, pk2,
+                                "bf16"),
+                    check_close(f"restore V hd={hd} rope={rope}", v2, pv2,
+                                "bf16"))
+            check_row_invariance(rkv, a, (k2, v2), hd, use_rope=rope)
+            print(f"restore_kv_grouped G=8 S=1024 D=1024 hd={hd} bias={bias} "
+                  f"rope={rope} bf16: max_abs_err {e:.3g}; rows alone at "
+                  f"S = 1, 4, 128, 300, 1024 bitwise equal")
     # extra cases: hd=96 with bias and S off the tile, hd=80, fp32
     for hd, bias, dtype, name in ((96, True, torch.bfloat16, "bf16"),
                                   (96, True, torch.float32, "fp32"),
@@ -227,11 +322,15 @@ def check_restore(card: str, gen):
         check_row_invariance(rkv, a, (k2, v2), hd)
         print(f"restore_kv_grouped G=3 S=300 D=1024 hd={hd} bias={bias} "
               f"{name}: max_abs_err {e:.3g}")
+    torch.cuda.empty_cache()     # give the stacks' memory back
+    m = shapes[0]
     return {"name": "restore_kv_grouped", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/restore_kv.cu",
             "replaces": "src/repro/kernels/restore_kv.py:138",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shapes": shapes}
 
 
 def decode_case(B, Kv, G, Smax, hd, lens, dtype, gen):
@@ -1239,6 +1338,7 @@ def main() -> None:
     def reset():
         rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
         ssu.launches = 0
+        rkv.shapes.clear()
 
     def read():
         return {"restore_kv_grouped": rkv.launches,
@@ -1248,7 +1348,7 @@ def main() -> None:
                 "ssm_update": ssu.launches}
 
     model, params = build_model()
-    counts = {}
+    counts, regimes = {}, {}
 
     def drive(name, fn, needs):
         reset()
@@ -1262,6 +1362,9 @@ def main() -> None:
                 raise AssertionError(f"{k} never ran on the {name} path")
         for k, n in got.items():
             counts[k] = counts.get(k, 0) + n
+        for (G, S), n in rkv.shapes.items():
+            r = restore_regime(G, S)
+            regimes[r] = regimes.get(r, 0) + n
         return out
 
     drive("lifecycle", lambda: run_main_path(model, params),
@@ -1303,6 +1406,8 @@ def main() -> None:
           f"{worst['gap']:.4f} std below the plain best (limit {PLAIN_GAP})")
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    kernels[0]["launches_by_regime"] = regimes
+    print(f"restore_kv_grouped launches by regime over the paths: {regimes}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

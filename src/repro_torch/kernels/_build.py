@@ -35,7 +35,7 @@ build_seconds = 0.0
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
-    "hc_restore_kv_grouped": [_VP] * 10 + [_I] * 7 + [_VP],
+    "hc_restore_kv_grouped": [_VP] * 10 + [_I] * 12 + [_VP],
     "hc_decode_attention": [_VP] * 5 + [_I] * 5 + [_LL] * 6
     + [_F, _F, _I, _I, _VP],
     "hc_decode_attention_paged": [_VP] * 6 + [_I] * 7 + [_LL] * 6

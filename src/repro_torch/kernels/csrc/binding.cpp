@@ -8,8 +8,9 @@
 extern "C" int hc_restore_kv_grouped(
     const void* hidden, const void* wk, const void* wv, const void* bk,
     const void* bv, const void* rows, const void* cos_t, const void* sin_t,
-    void* k_out, void* v_out, int G, int S, int D, int KV, int head_dim,
-    int use_rope, int dtype, void* stream);
+    void* k_out, void* v_out, int G, int S, int D, int KV, int A,
+    int head_dim, int use_rope, int dtype, int plan_wg, int plan_pairs,
+    int plan_both, int plan_stages, void* stream);
 
 extern "C" int hc_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
@@ -53,12 +54,14 @@ void check(int rc, const char* name) {
 void restore_kv_grouped(int64_t hidden, int64_t wk, int64_t wv, int64_t bk,
                         int64_t bv, int64_t rows, int64_t cos_t,
                         int64_t sin_t, int64_t k_out, int64_t v_out, int G,
-                        int S, int D, int KV, int head_dim, int use_rope,
-                        int dtype, int64_t stream) {
+                        int S, int D, int KV, int A, int head_dim,
+                        int use_rope, int dtype, int plan_wg, int plan_pairs,
+                        int plan_both, int plan_stages, int64_t stream) {
   check(hc_restore_kv_grouped(ptr(hidden), ptr(wk), ptr(wv), ptr(bk),
                               ptr(bv), ptr(rows), ptr(cos_t), ptr(sin_t),
-                              ptr(k_out), ptr(v_out), G, S, D, KV, head_dim,
-                              use_rope, dtype, ptr(stream)),
+                              ptr(k_out), ptr(v_out), G, S, D, KV, A,
+                              head_dim, use_rope, dtype, plan_wg, plan_pairs,
+                              plan_both, plan_stages, ptr(stream)),
         "restore_kv_grouped");
 }
 
