@@ -8,21 +8,29 @@ Needs one CUDA GPU and the repository checkout around this file. It
   1. prints the toolchain and the card, and builds the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (into ``build/kernels``);
   2. holds each kernel against its plain PyTorch version at the main
-     paths' shapes (plus extra cases: other head sizes, windows, softcaps,
-     fp32), checks that paged decode gives contiguous decode's bits and
-     that prefill attention is deterministic, and times kernel, plain
-     version and a PyTorch yardstick with CUDA events; the restoration
-     kernel at the six shapes of its three regimes (restore G=8 S=1024 and
-     2048, prefill G=1 S=2000 and 128, decode G=1 S=4 and 1, launches
-     cycling over a 32-layer stack), with the same rows launched alone at
-     S = 1, 4, 128, 300 and 1024 bitwise equal to the G=8 S=1024 launch
-     (hd = 128, and hd = 96 with bias and hd = 80);
-  3. drives the lifecycle path: llama2-7b at full width and depth in
+     paths' shapes and at every head size the port serves (hd 16, 64, 80,
+     96, 128 and 256; windows, softcaps, fp32), checks that paged decode
+     gives contiguous decode's bits at each head size and that prefill
+     attention is deterministic and ignores keys past kv_len (NaN
+     included), and times kernel, plain version and a PyTorch yardstick
+     with CUDA events; prefill attention at the four main-path shapes
+     (self-prefills of 1024 and 2000 tokens, 256 over 2016 of history,
+     128 over 1900) and at each head size; the restoration kernel at the
+     six shapes of its three regimes (restore G=8 S=1024 and 2048, prefill
+     G=1 S=2000 and 128, decode G=1 S=4 and 1, launches cycling over a
+     32-layer stack), with the same rows launched alone at S = 1, 4, 128,
+     300 and 1024 bitwise equal to the G=8 S=1024 launch (hd = 128, 96
+     with bias, 80, 16 with bias, 256, and one kv head of 16);
+  3. serves the smoke configs (``reduced_for_smoke``: 4 layers, hd 16)
+     through ``launch/serve.py`` on the card in bf16, without ``--full``:
+     llama2-7b on the contiguous and the paged backend (4 sessions x 2
+     rounds) and falcon-mamba-7b (4 sessions, 1 round);
+  4. drives the lifecycle path: llama2-7b at full width and depth in
      bf16, random weights from a seed, 3 sessions x 2 rounds of
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
      checking restored K/V, greedy decoding (MATCH) and round 1's first
      token against a cache that was never evicted;
-  4. drives the serving engine on the contiguous and then the paged KV
+  5. drives the serving engine on the contiguous and then the paged KV
      backend: 6 sessions x 2 rounds over 4 slots with SplitFuse prefill
      chunks and mid-stream preemption, checking that both backends give
      the same tokens, that every restore rebuilds the K/V a session held
@@ -33,7 +41,7 @@ Needs one CUDA GPU and the repository checkout around this file. It
      over the session's whole token stream): the logits that sampled each
      of its tokens, and each token as the plain logits' best up to bf16
      noise;
-  5. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
+  6. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
      width and depth in bf16 (random weights from a seed) through the
      lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
      evict -> restore, the restored conv and ssm states bitwise equal to
@@ -42,9 +50,10 @@ Needs one CUDA GPU and the repository checkout around this file. It
      single-round sessions over 4 slots: every request against one
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire);
-  6. checks that each path launched its kernels (counts reset before and
-     read after each path; the restoration kernel's also by regime), then
-     prints the kernels' JSON line, the card, and the device line last.
+  7. checks that each path launched its kernels (counts reset before and
+     read after each path; the restoration kernel's also by regime, the
+     prefill kernel's by shape), then prints the kernels' JSON line, the
+     card, and the device line last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -289,11 +298,25 @@ def check_restore(card: str, gen):
           "300 and 1024 (odd offsets, both tile plans) bitwise equal to the "
           "G=8 S=1024 launch")
     del main, args, full, stacks
-    # the odd head sizes across tile plans, with bias: G = 8, S = 1024 runs
-    # the operations plan, the windows the bytes plan
-    for hd, bias in ((96, True), (80, False)):
-        a = restore_case(8, 1024, 1024, 8 * hd, hd, 8,
+    # the other head sizes across tile plans, with bias: G = 8, S = 1024
+    # runs the operations plan, the windows the bytes plan; KV = 16 is one
+    # kv head of 16, whose 32-column boxes run past the tensor
+    by_hd = {}
+    for hd, KV_, bias in ((96, 8 * 96, True), (80, 8 * 80, False),
+                          (16, 8 * 16, True), (256, 8 * 256, False),
+                          (16, 16, False)):
+        a = restore_case(8, 1024, 1024, KV_, hd, 8,
                          [2, 0, 3, 7, 1, 6, 5, 4], bias, torch.bfloat16, gen)
+        t = graph_ms(lambda: rkv.restore_kv_grouped_cuda(*a, head_dim=hd))
+        b_ms, b_by = bound(2 * 8 * 1024 * 1024 * 2 * KV_,
+                           2 * (8 * 1024 * 1024 + 2 * 8 * 1024 * KV_
+                                + 2 * 8 * 1024 * KV_), card)
+        by_hd[f"{hd}/KV{KV_}"] = {"ms": t, "bound_ms": b_ms,
+                                  "bound_by": b_by}
+        print(f"restore_kv_grouped G=8 S=1024 D=1024 KV={KV_} hd={hd} bf16 "
+              f"(plan {rkv.tile_plan(8, 1024, KV_, hd).args}): kernel "
+              f"{t:.4f} ms (CUDA graph of 100), bound {b_ms:.4f} ms "
+              f"({b_by})")
         for rope in (True, False):
             k2, v2 = rkv.restore_kv_grouped_cuda(*a, head_dim=hd,
                                                  use_rope=rope)
@@ -305,13 +328,16 @@ def check_restore(card: str, gen):
                     check_close(f"restore V hd={hd} rope={rope}", v2, pv2,
                                 "bf16"))
             check_row_invariance(rkv, a, (k2, v2), hd, use_rope=rope)
-            print(f"restore_kv_grouped G=8 S=1024 D=1024 hd={hd} bias={bias} "
-                  f"rope={rope} bf16: max_abs_err {e:.3g}; rows alone at "
-                  f"S = 1, 4, 128, 300, 1024 bitwise equal")
-    # extra cases: hd=96 with bias and S off the tile, hd=80, fp32
+            print(f"restore_kv_grouped G=8 S=1024 D=1024 KV={KV_} hd={hd} "
+                  f"bias={bias} rope={rope} bf16: max_abs_err {e:.3g}; rows "
+                  f"alone at S = 1, 4, 128, 300, 1024 bitwise equal")
+    # extra cases: hd=96 with bias and S off the tile, fp32 at every other
+    # head size
     for hd, bias, dtype, name in ((96, True, torch.bfloat16, "bf16"),
                                   (96, True, torch.float32, "fp32"),
-                                  (80, False, torch.float32, "fp32")):
+                                  (80, False, torch.float32, "fp32"),
+                                  (16, True, torch.float32, "fp32"),
+                                  (256, False, torch.float32, "fp32")):
         a = restore_case(3, 300, 1024, 8 * hd, hd, 4, [2, 0, 3], bias,
                          dtype, gen)
         k2, v2 = rkv.restore_kv_grouped_cuda(a[0], *a[1:], head_dim=hd)
@@ -330,7 +356,8 @@ def check_restore(card: str, gen):
             "max_abs_err": max(x["max_abs_err"] for x in shapes),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "shapes": shapes}
+            "library_ms": m["library_ms"], "shapes": shapes,
+            "by_head_dim": by_hd}
 
 
 def decode_case(B, Kv, G, Smax, hd, lens, dtype, gen):
@@ -384,11 +411,39 @@ def check_decode(card: str, gen):
                         name)
         print(f"decode_attention G=4 Smax=1000 window=256 softcap=50 "
               f"{name}: max_abs_err {e:.3g}")
+    # the other head sizes: held against the plain version in both dtypes,
+    # and timed in bf16 (4 rows of 8 kv heads with 2 query heads each)
+    by_hd = {}
+    for hd_ in (16, 80, 256):
+        for dtype, name in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "fp32")):
+            q2, k2, v2, l2 = decode_case(2, 4, 4, 1000, hd_, [1000, 333],
+                                         dtype, gen)
+            kw = dict(softcap=50.0, window=256)
+            o2 = dec.decode_attention_cuda(q2, k2, v2, l2, **kw)
+            torch.cuda.synchronize()
+            e = check_close(f"decode hd={hd_} {name}", o2,
+                            dec.decode_attention_plain(q2, k2, v2, l2, **kw),
+                            name)
+            print(f"decode_attention hd={hd_} G=4 window=256 softcap=50 "
+                  f"{name}: max_abs_err {e:.3g}")
+        lens_ = [2000, 1500, 700, 1900]
+        q2, k2, v2, l2 = decode_case(4, 8, 2, 2048, hd_, lens_,
+                                     torch.bfloat16, gen)
+        t = graph_ms(lambda: dec.decode_attention_cuda(q2, k2, v2, l2))
+        live_ = sum(lens_) * 8
+        b_ms, b_by = bound(4 * 2 * hd_ * live_,
+                           2 * (2 * 64 * hd_ + 2 * live_ * hd_) + 128, card)
+        by_hd[hd_] = {"ms": t, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"decode_attention B=4 Kv=8 G=2 hd={hd_} lens={lens_} bf16: "
+              f"kernel {t:.4f} ms (CUDA graph of 100), bound {b_ms:.4f} ms "
+              f"({b_by})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:145",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "by_head_dim": by_hd}
 
 
 def paged_case(lens, Kv, G, hd, bs, MB, dtype, gen):
@@ -463,6 +518,36 @@ def check_paged_decode(card: str, gen):
                                  "contiguous decode")
         print(f"decode_attention_paged G=4 bs=16 window=256 softcap=50 "
               f"{name}: max_abs_err {e:.3g}, bitwise equal to contiguous")
+    # the other head sizes, each bitwise equal to contiguous decode
+    by_hd = {}
+    for hd_ in (16, 80, 256):
+        for dtype, name in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "fp32")):
+            a = paged_case([1000, 333], 4, 4, hd_, 16, 64, dtype, gen)
+            kw = dict(softcap=50.0, window=256)
+            o2 = dec.decode_attention_paged_cuda(*a[:5], **kw)
+            torch.cuda.synchronize()
+            e = check_close(f"paged decode hd={hd_} {name}", o2,
+                            dec.decode_attention_paged_plain(*a[:5], **kw),
+                            name)
+            if not torch_equal(o2, dec.decode_attention_cuda(
+                    a[0], a[5], a[6], a[4], **kw)):
+                raise AssertionError(f"paged decode hd={hd_} {name} "
+                                     "differs from contiguous decode")
+            print(f"decode_attention_paged hd={hd_} G=4 bs=16 window=256 "
+                  f"softcap=50 {name}: max_abs_err {e:.3g}, bitwise equal "
+                  f"to contiguous")
+        lens_ = [2000, 1500, 700, 1900]
+        a = paged_case(lens_, 8, 2, hd_, 16, 128, torch.bfloat16, gen)
+        t = graph_ms(lambda: dec.decode_attention_paged_cuda(*a[:5]))
+        live_ = sum(lens_) * 8
+        b_ms, b_by = bound(4 * 2 * hd_ * live_,
+                           2 * (2 * 64 * hd_ + 2 * live_ * hd_) + 128
+                           + 4 * sum(-(-n // 16) for n in lens_), card)
+        by_hd[hd_] = {"ms": t, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"decode_attention_paged B=4 Kv=8 G=2 hd={hd_} bs=16 "
+              f"lens={lens_} bf16: kernel {t:.4f} ms (CUDA graph of 100), "
+              f"bound {b_ms:.4f} ms ({b_by})")
     return {"name": "decode_attention_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:89",
@@ -470,7 +555,8 @@ def check_paged_decode(card: str, gen):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "yardstick": {"what": "decode_attention (kernel #3) on the "
                                   "gathered contiguous cache",
-                          "ms": contiguous_ms}}
+                          "ms": contiguous_ms},
+            "by_head_dim": by_hd}
 
 
 def flash_band(offsets, kv_lens, Sq, window=None):
@@ -495,16 +581,48 @@ def flash_case(B, Sq, Skv, H, Kv, hd, dtype, gen):
     return q, k, v
 
 
+# the main path's prefills (history, new tokens): the lifecycle's round-0
+# self-prefills at 1024 and 2000 tokens and round 1's 256 over restored
+# history, an engine chunk of 128 over history, and a one-token segment
+# over history as the engine's recompute replay runs decode steps
+FLASH_SHAPES = ((0, 1024), (2016, 256), (1900, 128), (0, 2000), (2000, 1))
+HEAD_DIMS = (16, 64, 80, 96, 128, 256)
+
+
+def sdpa_ms(F, q, k, v, hist):
+    """SDPA over the same causal band, K/V heads expanded beforehand;
+    device time per call from a CUDA graph of 100."""
+    import torch
+    Sq, Skv, H = q.shape[1], k.shape[1], q.shape[2]
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    if hist == 0 and Sq == Skv:
+        return graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True))
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            <= hist + torch.arange(Sq, device="cuda")[:, None])
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
+
+
+def flash_cost(card, B, Sq, Skv, H, Kv, hd, hist):
+    """(bound ms, bound_by, flops, bytes) of a causal prefill of Sq new
+    tokens over hist of history: q read and out written once, K and V of
+    the Skv keys read once, 4 hd operations per visible (query, key)."""
+    flops = 4 * hd * H * B * flash_band([hist], [Skv], Sq)
+    nbytes = 2 * B * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8 * B
+    return (*bound(flops, nbytes, card), flops, nbytes)
+
+
 def check_flash(card: str, gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     H = Kv = 32
     hd = 128
-    row = None
-    # the main path's prefills: round 0 self-prefill, round 1 over restored
-    # history, an engine chunk over history
-    for hist, Sq in ((0, 1024), (2016, 256), (1900, 128)):
+    shapes = []
+    for hist, Sq in FLASH_SHAPES:
         Skv = hist + Sq
         q, k, v = flash_case(1, Sq, Skv, H, Kv, hd, torch.bfloat16, gen)
         off = torch.tensor([hist], dtype=torch.int32, device="cuda")
@@ -515,56 +633,89 @@ def check_flash(card: str, gen):
                           fa.flash_attention_plain(q, k, v, off, kl), "bf16")
         if not torch_equal(out, fa.flash_attention_cuda(q, k, v, off, kl)):
             raise AssertionError("flash attention is not deterministic")
-        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl), 20)
+        ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl))
+        eager_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, off,
+                                                           kl), 20)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, off,
                                                             kl), 5)
-        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if hist == 0:
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), 20)
-        else:
-            mask = (torch.arange(Skv, device="cuda")[None, :]
-                    <= hist + torch.arange(Sq, device="cuda")[:, None])
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask), 20)
-        flops = 4 * hd * H * flash_band([hist], [Skv], Sq)
-        nbytes = 2 * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8
-        bound_ms, bound_by = bound(flops, nbytes, card)
+        lib_ms = sdpa_ms(F, q, k, v, hist)
+        bound_ms, bound_by, flops, nbytes = flash_cost(card, 1, Sq, Skv, H,
+                                                       Kv, hd, hist)
+        plan = fa.flash_plan(1, Sq, Skv, H, Kv, hd)
         print(f"flash_attention Sq={Sq} on {hist} of history H=Kv={H} "
-              f"hd={hd} bf16: max_abs_err {err:.3g}, deterministic; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA yardstick "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP in the causal band, "
-              f"{nbytes / 1e6:.1f} MB)")
-        if row is None:
-            row = {"name": "flash_attention", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/"
-                             "flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention.py:83",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": lib_ms}
-    # extra cases: GQA, window and softcap, per-batch offsets, hd=64
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        q, k, v = flash_case(2, 200, 520, 8, 2, 64, dtype, gen)
-        off = torch.tensor([300, 250], dtype=torch.int32, device="cuda")
-        kl = torch.tensor([500, 450], dtype=torch.int32, device="cuda")
-        kw = dict(softcap=30.0, window=128)
-        o2 = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
-        torch.cuda.synchronize()
-        e = check_close(f"flash window softcap {name}", o2,
-                        fa.flash_attention_plain(q, k, v, off, kl, **kw),
-                        name)
-        o3 = fa.flash_attention_cuda(q, k, v, off, kl, causal=False)
-        torch.cuda.synchronize()
-        e = max(e, check_close(f"flash non-causal {name}", o3,
-                               fa.flash_attention_plain(q, k, v, off, kl,
-                                                        causal=False), name))
-        print(f"flash_attention B=2 Sq=200 H=8 Kv=2 hd=64 offsets 300/250 "
-              f"window=128 softcap=30, and non-causal, {name}: "
-              f"max_abs_err {e:.3g}")
-    return row
-
+              f"hd={hd} bf16 (plan {plan.args}, grid {plan.grid}): "
+              f"max_abs_err {err:.3g}, deterministic; kernel {ms:.4f} ms "
+              f"(CUDA graph of 100; one eager call {eager_ms:.4f} ms by "
+              f"CUDA events), plain {plain_ms:.3f} ms, SDPA yardstick "
+              f"{lib_ms:.4f} ms (graph), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} "
+              f"GFLOP in the causal band, {nbytes / 1e6:.1f} MB), "
+              f"{bound_ms / ms:.0%} of the bound")
+        shapes.append({"hist": hist, "Sq": Sq, "Skv": Skv,
+                       "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms,
+                       "splits": plan.splits})
+    # every head size, in bf16 and fp32: GQA groups of 4 (two heads per
+    # block), 3 (a block with one head of its own) and 1, per-batch
+    # offsets, keys past kv_len, a window and a softcap, and non-causal
+    for hd_, H_, Kv_ in [(d, 8, 2) for d in HEAD_DIMS] + [(128, 6, 2),
+                                                         (80, 4, 4)]:
+        for dtype, name in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "fp32")):
+            q, k, v = flash_case(2, 200, 520, H_, Kv_, hd_, dtype, gen)
+            off = torch.tensor([300, 250], dtype=torch.int32, device="cuda")
+            kl = torch.tensor([500, 450], dtype=torch.int32, device="cuda")
+            kw = dict(softcap=30.0, window=128)
+            o2 = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
+            torch.cuda.synchronize()
+            e = check_close(f"flash hd={hd_} window softcap {name}", o2,
+                            fa.flash_attention_plain(q, k, v, off, kl, **kw),
+                            name)
+            o3 = fa.flash_attention_cuda(q, k, v, off, kl, causal=False)
+            torch.cuda.synchronize()
+            e = max(e, check_close(
+                f"flash hd={hd_} non-causal {name}", o3,
+                fa.flash_attention_plain(q, k, v, off, kl, causal=False),
+                name))
+            # keys past kv_len may hold anything, NaN included
+            for t in (k, v):
+                t[0, 500:], t[1, 450:] = float("nan"), float("nan")
+            o4 = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
+            if not (torch_equal(o4, o2) and torch_equal(
+                    o4, fa.flash_attention_cuda(q, k, v, off, kl, **kw))):
+                raise AssertionError(f"flash hd={hd_} {name}: keys past "
+                                     "kv_len changed the output, or a "
+                                     "rerun did")
+            print(f"flash_attention B=2 Sq=200 Skv=520 H={H_} Kv={Kv_} "
+                  f"hd={hd_} offsets 300/250 kv_len 500/450 window=128 "
+                  f"softcap=30, and non-causal, {name}: max_abs_err "
+                  f"{e:.3g}; NaN past kv_len ignored, deterministic")
+    # the kernel's time at each head size: a 1024-token causal
+    # self-prefill of 16 heads over 8 kv heads (gemma2-9b's grouping)
+    by_hd = {}
+    for hd_ in HEAD_DIMS:
+        q, k, v = flash_case(1, 1024, 1024, 16, 8, hd_, torch.bfloat16, gen)
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kl = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
+        ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl))
+        lib_ms = sdpa_ms(F, q, k, v, 0)
+        bound_ms, bound_by, _, _ = flash_cost(card, 1, 1024, 1024, 16, 8,
+                                              hd_, 0)
+        by_hd[hd_] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        print(f"flash_attention 1024-token self-prefill H=16 Kv=8 hd={hd_} "
+              f"bf16: kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms (CUDA graphs "
+              f"of 100), bound {bound_ms:.4f} ms ({bound_by})")
+    m = shapes[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83",
+            "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shapes": shapes,
+            "by_head_dim": by_hd}
 
 
 def ssm_case(Bt, I, N, dtype, gen, S=None):
@@ -1304,7 +1455,31 @@ def run_ssm_engine(model, params):
     return requests
 
 
+# the smoke configs (reduced_for_smoke: 4 layers, hd 16) through
+# launch/serve.py's path on the card, bf16, without --full:
+# (name, arguments, kernels that must run)
+SMOKE_SERVES = (
+    ("serve llama2-7b smoke contiguous", ["--sessions", "4", "--rounds", "2"],
+     ("restore_kv_grouped", "decode_attention", "flash_attention")),
+    ("serve llama2-7b smoke paged", ["--sessions", "4", "--rounds", "2",
+                                     "--backend", "paged"],
+     ("restore_kv_grouped", "decode_attention_paged", "flash_attention")),
+    ("serve falcon-mamba-7b smoke", ["--arch", "falcon-mamba-7b",
+                                     "--rounds", "1"], ("ssm_update",)),
+)
+
+
+def flash_shape_classes(counter):
+    """Launches by (new tokens, self-prefill or over history)."""
+    out = {}
+    for (B, Sq, Skv), n in sorted(counter.items()):
+        key = f"B={B} Sq={Sq} " + ("self" if Sq == Skv else "over history")
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def main() -> None:
+    import collections
     import gc
 
     import torch
@@ -1339,6 +1514,7 @@ def main() -> None:
         rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
         ssu.launches = 0
         rkv.shapes.clear()
+        fa.shapes.clear()
 
     def read():
         return {"restore_kv_grouped": rkv.launches,
@@ -1347,8 +1523,8 @@ def main() -> None:
                 "flash_attention": fa.launches,
                 "ssm_update": ssu.launches}
 
-    model, params = build_model()
     counts, regimes = {}, {}
+    flash_shapes = collections.Counter()
 
     def drive(name, fn, needs):
         reset()
@@ -1365,8 +1541,15 @@ def main() -> None:
         for (G, S), n in rkv.shapes.items():
             r = restore_regime(G, S)
             regimes[r] = regimes.get(r, 0) + n
+        flash_shapes.update(fa.shapes)
         return out
 
+    from repro_torch.launch import serve
+    for name, argv, needs in SMOKE_SERVES:
+        drive(name, lambda a=argv: serve.main(a), needs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_model()
     drive("lifecycle", lambda: run_main_path(model, params),
           ("restore_kv_grouped", "decode_attention", "flash_attention"))
     runs, plain = {}, {}
@@ -1408,6 +1591,14 @@ def main() -> None:
         k["launches"] = counts[k["name"]]
     kernels[0]["launches_by_regime"] = regimes
     print(f"restore_kv_grouped launches by regime over the paths: {regimes}")
+    for s in kernels[3]["shapes"]:
+        s["launches"] = flash_shapes[1, s["Sq"], s["Skv"]]
+    kernels[3]["launches_by_class"] = flash_shape_classes(flash_shapes)
+    print("flash_attention launches at the timed shapes: " + ", ".join(
+        f"{s['Sq']} over {s['hist']}: {s['launches']}"
+        for s in kernels[3]["shapes"]))
+    print("flash_attention launches by shape class over the paths: "
+          f"{kernels[3]['launches_by_class']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,11 +28,13 @@ extern "C" int hc_decode_attention_paged(
 
 extern "C" int hc_flash_attention(
     const void* q, const void* k, const void* v, const void* q_offset,
-    const void* kv_len, void* out, int B, int Sq, int Skv, int H, int Kv,
-    int hd, long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, float scale, float softcap, int causal, int window,
-    int dtype, void* stream);
+    const void* kv_len, void* out, void* part_o, void* part_ml, int B,
+    int Sq, int Skv, int H, int Kv, int hd, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, float softcap,
+    int causal, int window, int dtype, int plan_hdp, int plan_bn,
+    int plan_stages, int plan_hpb, int plan_q_tiles, int plan_head_blocks,
+    int plan_splits, int plan_split_keys, void* stream);
 
 extern "C" int hc_ssm_update(const void* h, void* h_out, const void* dt,
                              const void* x, const void* A, const void* Bm,
@@ -95,18 +97,23 @@ void decode_attention_paged(int64_t q, int64_t k_pool, int64_t v_pool,
 }
 
 void flash_attention(int64_t q, int64_t k, int64_t v, int64_t q_offset,
-                     int64_t kv_len, int64_t out, int B, int Sq, int Skv,
-                     int H, int Kv, int hd, int64_t qsb, int64_t qss,
-                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-                     int64_t vsb, int64_t vss, int64_t vsh, double scale,
-                     double softcap, int causal, int window, int dtype,
-                     int64_t stream) {
+                     int64_t kv_len, int64_t out, int64_t part_o,
+                     int64_t part_ml, int B, int Sq, int Skv, int H, int Kv,
+                     int hd, int64_t qsb, int64_t qss, int64_t qsh,
+                     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
+                     int64_t vss, int64_t vsh, double scale, double softcap,
+                     int causal, int window, int dtype, int plan_hdp,
+                     int plan_bn, int plan_stages, int plan_hpb,
+                     int plan_q_tiles, int plan_head_blocks, int plan_splits,
+                     int plan_split_keys, int64_t stream) {
   check(hc_flash_attention(ptr(q), ptr(k), ptr(v), ptr(q_offset),
-                           ptr(kv_len), ptr(out), B, Sq, Skv, H, Kv, hd, qsb,
-                           qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                           static_cast<float>(scale),
+                           ptr(kv_len), ptr(out), ptr(part_o), ptr(part_ml),
+                           B, Sq, Skv, H, Kv, hd, qsb, qss, qsh, ksb, kss,
+                           ksh, vsb, vss, vsh, static_cast<float>(scale),
                            static_cast<float>(softcap), causal, window,
-                           dtype, ptr(stream)),
+                           dtype, plan_hdp, plan_bn, plan_stages, plan_hpb,
+                           plan_q_tiles, plan_head_blocks, plan_splits,
+                           plan_split_keys, ptr(stream)),
         "flash_attention");
 }
 

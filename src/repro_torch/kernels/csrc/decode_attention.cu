@@ -25,6 +25,12 @@
 // equal inputs give bitwise-equal outputs. Split-K across blocks
 // (flash-decoding) is later work.
 //
+// Head sizes: any multiple of 8 up to 256. The body is a template over
+// DPL, the head-dim columns a lane owns in P @ V: 4 for hd <= 128, 8 for
+// hd <= 256. The shared q and output rows are 32 * DPL wide. A row's
+// walk, softmax and merge order depend on hd alone, so paged still gives
+// contiguous's bits and a row's bits do not depend on the other rows.
+//
 // Paged: the kernel body is the same template, instantiated with another
 // address policy. Only where a key's row is read changes: the lane at
 // logical position p reads page table[b, p / bs] at offset p % bs (per
@@ -44,8 +50,7 @@ namespace {
 constexpr int TILE = 32;       // keys per tile == warp width
 constexpr int WARPS = 8;
 constexpr int MAX_G = 16;      // query rows per kv head
-constexpr int MAX_HD = 128;
-constexpr int DPL = 4;         // head-dim columns per lane in P @ V
+constexpr int MAX_HD = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ void load8(const float* p, float* o) {
@@ -75,6 +80,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   const float2 b = __bfloat1622float2(h[1]);
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
+// A lane's DPL columns of a V row.
+template <int DPL, typename T>
+__device__ __forceinline__ void load_cols(const T* p, float* o) {
+  if constexpr (DPL == 4) load4(p, o);
+  else load8(p, o);
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -120,7 +132,7 @@ struct PagedAddr {                // pools (NB, bs, Kv, hd) or (NB, bs, hd)
   }
 };
 
-template <typename T, typename Addr>
+template <typename T, typename Addr, int DPL>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
                         const Addr addr,             // the K/V rows
@@ -128,8 +140,9 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
                         T* __restrict__ out,         // (BKv, G, hd)
                         int G, int hd, int n_kv_heads, int smax,
                         float scale, float softcap, int window) {
-  __shared__ float qs[MAX_G][MAX_HD];
-  __shared__ float acc_s[MAX_G][MAX_HD];
+  constexpr int HD_CAP = 32 * DPL;
+  __shared__ float qs[MAX_G][HD_CAP];
+  __shared__ float acc_s[MAX_G][HD_CAP];
   __shared__ float m_s[WARPS][MAX_G];
   __shared__ float l_s[WARPS][MAX_G];
 
@@ -211,10 +224,12 @@ decode_attention_kernel(const T* __restrict__ q,     // (BKv, G, hd)
     }
     const int n_keys = min(TILE, len - t * TILE);
     for (int j = 0; j < n_keys; ++j) {
-      float vv[DPL] = {0.f, 0.f, 0.f, 0.f};
+      float vv[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) vv[i] = 0.f;
       const T* vj = reinterpret_cast<const T*>(__shfl_sync(
           0xffffffffu, reinterpret_cast<unsigned long long>(vr), j));
-      if (d0 < hd) load4(vj + d0, vv);
+      if (d0 < hd) load_cols<DPL>(vj + d0, vv);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
         if (g >= G) break;
@@ -270,7 +285,9 @@ template <typename T, typename Addr>
 void launch(const void* q, const Addr& addr, const int32_t* lens, void* out,
             int BKv, int G, int hd, int n_kv_heads, int smax, float scale,
             float softcap, int window, cudaStream_t st) {
-  decode_attention_kernel<T, Addr><<<BKv, WARPS * 32, 0, st>>>(
+  auto kernel = hd <= 128 ? decode_attention_kernel<T, Addr, 4>
+                          : decode_attention_kernel<T, Addr, 8>;
+  kernel<<<BKv, WARPS * 32, 0, st>>>(
       static_cast<const T*>(q), addr, lens, static_cast<T*>(out), G, hd,
       n_kv_heads, smax, scale, softcap, window);
 }

@@ -55,21 +55,32 @@
 // decode and restoration give bitwise-equal K/V for equal inputs;
 // chip_smoke.py checks this across plans on the card.
 //
+// Head sizes: hd in {16, 64, 80, 96, 128, 256}. A head holds
+// ceil(hd/4 / 16) column pairs (hd 256: 4; hd 16: one pair whose two
+// 32-column boxes carry 8 live columns each, the rest belonging to the
+// next head or lying past KV, where the TMA unit fills zeros: at KV = 16,
+// one kv head, the boxes run past the tensor). The epilogue stores only
+// a pair's live columns, so every hd runs the same instruction stream.
+//
 // fp32 runs a plain SIMT kernel (exact fp32 products, one thread per
 // 4 x HD/16 register tile); only small parity shapes use it.
 //
-// The TMA descriptors are encoded on the host with cuTensorMapEncodeTiled,
-// fetched through cudaGetDriverEntryPoint so the build needs no -lcuda;
-// descriptors are cached by (pointer, shape, box).
+// The TMA descriptors are encoded on the host with cuTensorMapEncodeTiled
+// (hopper.cuh), fetched through cudaGetDriverEntryPoint so the build needs
+// no -lcuda; descriptors are cached by (pointer, shape, box).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
+bool supported_hd(int hd) {
+  return hd == 16 || hd == 64 || hd == 80 || hd == 96 || hd == 128 ||
+         hd == 256;
+}
 
 constexpr int BM = 64;       // rows (tokens) per block
 constexpr int BK = 32;       // D chunk staged per iteration
@@ -93,7 +104,7 @@ restore_kv_grouped_simt(const float* __restrict__ hidden,   // (G, S, D)
                         int S, int D, int KV, int use_rope) {
   constexpr int TN = HD / TX;   // columns per thread
   constexpr int HALF = HD / 2;
-  __shared__ float smem[BM * BK + 2 * BK * HD];
+  extern __shared__ float smem[];  // simt_smem<HD>() bytes
   float* hs = smem;                 // (BM, BK)
   float* wks = smem + BM * BK;      // (BK, HD)
   float* wvs = wks + BK * HD;       // (BK, HD)
@@ -197,18 +208,28 @@ restore_kv_grouped_simt(const float* __restrict__ hidden,   // (G, S, D)
 }
 
 template <int HD>
-void launch_simt(const void* hidden, const void* wk, const void* wv,
+constexpr int simt_smem() {
+  return (BM * BK + 2 * BK * HD) * sizeof(float);
+}
+
+template <int HD>
+int launch_simt(const void* hidden, const void* wk, const void* wv,
                  const void* bk, const void* bv, const int32_t* rows,
                  const float* cos_t, const float* sin_t, void* k_out,
                  void* v_out, int G, int S, int D, int KV, int use_rope,
                  cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      restore_kv_grouped_simt<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem<HD>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + BM - 1) / BM, KV / HD, G);
-  restore_kv_grouped_simt<HD><<<grid, TX * TY, 0, stream>>>(
+  restore_kv_grouped_simt<HD><<<grid, TX * TY, simt_smem<HD>(), stream>>>(
       static_cast<const float*>(hidden), static_cast<const float*>(wk),
       static_cast<const float*>(wv), static_cast<const float*>(bk),
       static_cast<const float*>(bv), rows, cos_t, sin_t,
       static_cast<float*>(k_out), static_cast<float*>(v_out), S, D, KV,
       use_rope);
+  return 0;
 }
 
 int dispatch_hd(int hd, const void* hidden, const void* wk, const void* wv,
@@ -219,13 +240,14 @@ int dispatch_hd(int hd, const void* hidden, const void* wk, const void* wv,
   switch (hd) {
 #define HC_CASE(N)                                                       \
   case N:                                                                \
-    launch_simt<N>(hidden, wk, wv, bk, bv, rows, cos_t, sin_t, k_out,    \
-                   v_out, G, S, D, KV, use_rope, stream);                \
-    return 0;
+    return launch_simt<N>(hidden, wk, wv, bk, bv, rows, cos_t, sin_t,    \
+                          k_out, v_out, G, S, D, KV, use_rope, stream);
+    HC_CASE(16)
     HC_CASE(64)
     HC_CASE(80)
     HC_CASE(96)
     HC_CASE(128)
+    HC_CASE(256)
 #undef HC_CASE
     default:
       return -1;
@@ -250,102 +272,6 @@ struct Params {
   int n_pairs;               // column pairs per matrix
   int pairs_per_head;        // ceil(hd/2 / PIECE)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle mode (1 = 128 B, 2 = 64 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16)
-       | (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32)
-       | (mode << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (64 x 64, fp32) += A (64 x 16, K-major) @ B (16 x 64, N-major, read
-// transposed), both from shared memory. The one product instruction of
-// the bf16 kernel: every plan issues it, one per column pair.
-__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 
 // Pair slot q of block column y -> (matrix 0 = K / 1 = V, pair index).
 template <int NPB, bool BOTH>
@@ -465,9 +391,9 @@ restore_kv_grouped_tma(const __grid_constant__ CUtensorMap hmap,
       const uint64_t da = smem_desc(a0 + kk * 32, 16, 1024, 1);
 #pragma unroll
       for (int q = 0; q < NSLOT; ++q)
-        wgmma_m64n64k16(acc + 32 * q, da,
-                        smem_desc(b0 + 2 * q * B_TILE + kk * 1024, B_TILE,
-                                  512, 2));
+        wgmma_m64n64k16_ss<1>(
+            acc + 32 * q, da,
+            smem_desc(b0 + 2 * q * B_TILE + kk * 1024, B_TILE, 512, 2), 1);
     }
     wgmma_commit();
     fence_acc(acc);
@@ -535,79 +461,13 @@ restore_kv_grouped_tma(const __grid_constant__ CUtensorMap hmap,
   }
 }
 
-// ------------------------------------------------ host: tensor maps
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D bf16 map over (d0 innermost, d1, d2) with the given box.
-bool encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
-               uint64_t d2, uint32_t b0, uint32_t b1,
-               CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encoder();
-  if (!enc) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// encode_3d, cached by its arguments: a map holds only the address, the
-// shape and the box, so an equal key gives an equal map. Weight stacks hit
-// on every call; hidden buffers whenever the allocator hands an address
-// back, as it does step after step in decode.
-struct CachedMap {
-  const void* ptr;
-  uint64_t d0, d1, d2;
-  uint32_t b0, b1;
-  CUtensorMapSwizzle swizzle;
-  CUtensorMap map;
-};
-
-bool cached_map(CUtensorMap* out, const void* ptr, uint64_t d0, uint64_t d1,
-                uint64_t d2, uint32_t b0, uint32_t b1,
-                CUtensorMapSwizzle swizzle) {
-  constexpr int N = 32;
-  static std::mutex mu;
-  static CachedMap cache[N];
-  static int used = 0, next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const CachedMap& c = cache[i];
-    if (c.ptr == ptr && c.d0 == d0 && c.d1 == d1 && c.d2 == d2 &&
-        c.b0 == b0 && c.b1 == b1 && c.swizzle == swizzle) {
-      *out = c.map;
-      return true;
-    }
-  }
-  CachedMap c{ptr, d0, d1, d2, b0, b1, swizzle, {}};
-  if (!encode_3d(&c.map, ptr, d0, d1, d2, b0, b1, swizzle)) return false;
-  cache[used < N ? used++ : (next++ % N)] = c;
-  *out = c.map;
-  return true;
+// A contiguous 3-D bf16 map over (d0 innermost, d1, d2), cached.
+bool map_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+            uint64_t d2, uint32_t b0, uint32_t b1,
+            CUtensorMapSwizzle swizzle) {
+  const MapKey key{ptr, 3, {d0, d1, d2, 0}, {d0 * 2, d0 * d1 * 2, 0},
+                   {b0, b1, 1, 1}, swizzle};
+  return cached_map(map, key);
 }
 
 template <int MW, int NPB, bool BOTH, int STAGES>
@@ -622,12 +482,12 @@ int launch_tma(const void* hidden, const void* wk, const void* wv, Params p,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap hmap, kmap, vmap;
   // hidden (G, S, D) in 64 x 64 MW boxes; weights (A, D, KV) in 32 x 64
-  if (!cached_map(&hmap, hidden, p.D, p.S, G, STAGE_D, 64 * MW,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !cached_map(&kmap, wk, p.KV, p.D, A, PIECE, STAGE_D,
-                  CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !cached_map(&vmap, wv, p.KV, p.D, A, PIECE, STAGE_D,
-                  CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!map_3d(&hmap, hidden, p.D, p.S, G, STAGE_D, 64 * MW,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_3d(&kmap, wk, p.KV, p.D, A, PIECE, STAGE_D,
+              CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !map_3d(&vmap, wv, p.KV, p.D, A, PIECE, STAGE_D,
+              CU_TENSOR_MAP_SWIZZLE_64B))
     return -2;
   const int col_blocks = (BOTH ? p.n_pairs : 2 * p.n_pairs) / NPB;
   dim3 grid((p.S + 64 * MW - 1) / (64 * MW), col_blocks, G);
@@ -660,8 +520,7 @@ extern "C" int hc_restore_kv_grouped(
     rc = dispatch_hd(head_dim, hidden, wk, wv, bk, bv, r, c, s, k_out, v_out,
                      G, S, D, KV, use_rope, st);
   } else if (dtype == 1) {
-    if (head_dim != 64 && head_dim != 80 && head_dim != 96 && head_dim != 128)
-      return -1;
+    if (!supported_hd(head_dim)) return -1;
     const int pph = (head_dim / 2 + PIECE - 1) / PIECE;
     Params p{static_cast<const __nv_bfloat16*>(bk),
              static_cast<const __nv_bfloat16*>(bv), r, c, s,

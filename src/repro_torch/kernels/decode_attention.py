@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_GROUP = 16
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256     # any multiple of 8 up to this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches so far (contiguous, paged); chip_smoke.py resets and
@@ -79,8 +79,6 @@ def decode_attention_cuda(q, k, v, kv_len, *,
                           window: Optional[int] = None):
     """Launch the CUDA kernel; same contract as the plain version."""
     global launches
-    if q.device.type != "cuda":
-        raise ValueError("decode_attention_cuda needs CUDA tensors")
     dtype, dev = q.dtype, q.device
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported dtype {dtype}")
@@ -89,6 +87,8 @@ def decode_attention_cuda(q, k, v, kv_len, *,
     BKv, G, hd = q.shape
     if not 1 <= G <= MAX_GROUP or not 8 <= hd <= MAX_HEAD_DIM or hd % 8:
         raise ValueError(f"unsupported G={G} or hd={hd}")
+    if dev.type != "cuda":
+        raise ValueError("decode_attention_cuda needs CUDA tensors")
     strides = []
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or t.dtype != dtype:
@@ -161,8 +161,6 @@ def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, kv_len, *,
     """Launch the CUDA kernel on the pool; same contract as the plain
     version."""
     global paged_launches
-    if q.device.type != "cuda":
-        raise ValueError("decode_attention_paged_cuda needs CUDA tensors")
     dtype, dev = q.dtype, q.device
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported dtype {dtype}")
@@ -171,6 +169,8 @@ def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, kv_len, *,
     BKv, G, hd = q.shape
     if not 1 <= G <= MAX_GROUP or not 8 <= hd <= MAX_HEAD_DIM or hd % 8:
         raise ValueError(f"unsupported G={G} or hd={hd}")
+    if dev.type != "cuda":
+        raise ValueError("decode_attention_paged_cuda needs CUDA tensors")
     if k_pool.dim() not in (3, 4) or k_pool.shape != v_pool.shape:
         raise ValueError("pools must be equal (NB, bs, hd) or "
                          "(NB, bs, Kv, hd) tensors")

@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (64, 80, 96, 128)
+SUPPORTED_HEAD_DIMS = (16, 64, 80, 96, 128, 256)
 
 # kernel launches so far, in all and by (G, S); chip_smoke.py resets and
 # reads them

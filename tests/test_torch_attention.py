@@ -54,11 +54,11 @@ def _to_jax(a, dtype):
 
 
 # ------------------------------------------------------- #4: paged decode
-def _paged_inputs(G, bs, MB, seed):
+def _paged_inputs(G, bs, MB, seed, hd=32):
     """A permuted physical pool full of junk, with sentinel table entries
     past each row's live pages (as tests/test_kernels.py builds it)."""
     rng = np.random.default_rng(seed)
-    BKv, hd = 3, 32
+    BKv = 3
     S = MB * bs
     q = rng.normal(size=(BKv, G, hd))
     k = rng.normal(size=(BKv, S, hd))
@@ -82,7 +82,12 @@ def _paged_inputs(G, bs, MB, seed):
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("G,bs,MB", [(1, 16, 4), (4, 8, 8), (7, 32, 3)])
 def test_paged_decode_plain_matches_jax(G, bs, MB, dtype):
-    q, k, v, k_pool, v_pool, table, kl = _paged_inputs(G, bs, MB, G + bs)
+    _check_paged_decode(G, bs, MB, dtype)
+
+
+def _check_paged_decode(G, bs, MB, dtype, hd=32):
+    q, k, v, k_pool, v_pool, table, kl = _paged_inputs(
+        G, bs, MB, G + bs + hd - 32, hd)
     t = lambda a: _to_torch(a, dtype)  # noqa: E731
     j = lambda a: _to_jax(a, dtype)  # noqa: E731
     got = ops.decode_attention_paged(
@@ -99,6 +104,13 @@ def test_paged_decode_plain_matches_jax(G, bs, MB, dtype):
         _assert_within_one_bf16_ulp(got, oracle)
         np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
                                    atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 80, 256])
+def test_paged_decode_plain_matches_jax_at_head_sizes(hd, dtype):
+    """The head sizes of the smoke configs, zamba2 and gemma2."""
+    _check_paged_decode(4, 16, 4, dtype, hd)
 
 
 @pytest.mark.parametrize("window,softcap", [(None, None), (10, 30.0)])
@@ -131,7 +143,8 @@ def test_paged_decode_plain_equals_contiguous_bitwise(window, softcap):
 
 # ----------------------------------------------------- #5: flash attention
 @pytest.mark.parametrize("Sq,Skv,hd,group", [(64, 64, 16, 1), (64, 64, 32, 2),
-                                             (32, 96, 16, 4)])
+                                             (32, 96, 16, 4), (64, 160, 80, 2),
+                                             (32, 192, 256, 1)])
 @pytest.mark.parametrize("kwargs", [dict(causal=True), dict(causal=False),
                                     dict(causal=True, window=24),
                                     dict(causal=True, softcap=30.0)])
@@ -167,8 +180,26 @@ def test_flash_plain_matches_jnp_with_offset(hist, Sq, window, softcap,
     """A prefill over restored history: queries at hist + [0, Sq), keys
     [0, hist + Sq) live in a longer buffer, batch rows with different
     offsets; what the JAX model's ``flash_attention_jnp`` computes."""
-    rng = np.random.default_rng(hist + Sq + group)
-    B, Kv, hd = 2, 2, 16
+    _check_flash_vs_jnp(hist, Sq, window, softcap, group, dtype, 16)
+
+
+@pytest.mark.parametrize("hist,Sq,window,softcap,group", [
+    (150, 12, None, 30.0, 2), (140, 20, 48, None, 1)])
+@pytest.mark.parametrize("hd", [16, 80, 256])
+def test_flash_plain_matches_jnp_at_head_sizes(hd, hist, Sq, window,
+                                               softcap, group):
+    """The head sizes of the smoke configs, zamba2 and gemma2, over more
+    keys than one key tile, in fp32. (The bf16 one-ulp criterion above
+    holds while both sides' fp32 results agree far below a bf16 ulp; at
+    hd 256 some outputs cancel to near zero, where the two sides' bf16 P
+    roundings already differ by more than one ulp of the output while
+    both stay ~1e-5 from the fp32 result.)"""
+    _check_flash_vs_jnp(hist, Sq, window, softcap, group, "fp32", hd)
+
+
+def _check_flash_vs_jnp(hist, Sq, window, softcap, group, dtype, hd):
+    rng = np.random.default_rng(hist + Sq + group + hd - 16)
+    B, Kv = 2, 2
     H = Kv * group
     Skv = hist + Sq + 5                          # junk past kv_len
     q = rng.normal(size=(B, Sq, H, hd))
@@ -183,7 +214,7 @@ def test_flash_plain_matches_jnp_with_offset(hist, Sq, window, softcap,
     # the same key chunks, so that in bf16 both round P against the same
     # running maxima
     h = JaxAttnHyper(n_heads=H, n_kv_heads=Kv, head_dim=hd, padded_heads=H,
-                     attn_softcap=softcap, chunk=tfa.TILE)
+                     attn_softcap=softcap, chunk=tfa.key_tile(hd))
     want = flash_attention_jnp(
         _to_jax(q, dtype), _to_jax(k, dtype), _to_jax(v, dtype), h,
         q_positions=jnp.asarray(offs[:, None] + np.arange(Sq)[None]),

@@ -45,7 +45,7 @@ def _restore_inputs(G, hd, bias, seed):
     return hidden, wk, wv, bk, bv, rows, cos, sin
 
 
-@pytest.mark.parametrize("hd", [16, 80, 96])
+@pytest.mark.parametrize("hd", [16, 80, 96, 256])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("G", [1, 3])
 def test_restore_kv_grouped_plain_matches_jax(G, bias, hd):
@@ -63,9 +63,9 @@ def test_restore_kv_grouped_plain_matches_jax(G, bias, hd):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def _decode_inputs(G, seed, Smax=64):
+def _decode_inputs(G, seed, Smax=64, hd=16):
     rng = np.random.default_rng(seed)
-    BKv, hd = 6, 16
+    BKv = 6
     q = rng.standard_normal((BKv, G, hd)).astype(np.float32)
     k = rng.standard_normal((BKv, Smax, hd)).astype(np.float32)
     v = rng.standard_normal((BKv, Smax, hd)).astype(np.float32)
@@ -77,7 +77,21 @@ def _decode_inputs(G, seed, Smax=64):
     (1, None, None), (4, None, None), (4, 8, None), (1, None, 30.0),
     (4, 12, 20.0)])
 def test_decode_attention_plain_matches_jax(G, window, softcap):
-    q, k, v, kv_len = _decode_inputs(G, G + (window or 0))
+    _check_decode(G, window, softcap, 16)
+
+
+@pytest.mark.parametrize("G,window,softcap", [(1, None, None),
+                                               (4, 12, 20.0)])
+@pytest.mark.parametrize("hd", [80, 256])
+def test_decode_attention_plain_matches_jax_at_head_sizes(hd, G, window,
+                                                          softcap):
+    """The head sizes of zamba2 and gemma2 (the smoke configs' 16 is the
+    test above's)."""
+    _check_decode(G, window, softcap, hd)
+
+
+def _check_decode(G, window, softcap, hd):
+    q, k, v, kv_len = _decode_inputs(G, G + (window or 0) + hd - 16, hd=hd)
     got = ops.decode_attention(*(torch.from_numpy(a) for a in
                                  (q, k, v, kv_len)),
                                softcap=softcap, window=window)
@@ -124,3 +138,73 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         trkv.restore_kv_grouped_cuda(*args, head_dim=16)
     with pytest.raises(ValueError):
         tdec.decode_attention_cuda(q, k, v, kv_len)
+
+
+# ---------------------------------------------------------- head sizes
+def _configs():
+    """(name, head size) of every attention config of the reference
+    registry and of each port-registered config's smoke reduction."""
+    from repro.configs import REGISTRY as JAX_REGISTRY
+    from repro_torch.config.arch import reduced_for_smoke
+    from repro_torch.configs import REGISTRY
+    out = [(f"ref:{n}", c.head_dim_) for n, c in sorted(JAX_REGISTRY.items())
+           if c.n_heads]
+    out += [(f"smoke:{n}", reduced_for_smoke(c).head_dim_)
+            for n, c in sorted(REGISTRY.items()) if c.n_heads]
+    return out
+
+
+def _decode_takes(hd):
+    return 8 <= hd <= tdec.MAX_HEAD_DIM and hd % 8 == 0
+
+
+@pytest.mark.parametrize("name,hd", _configs())
+def test_kernels_take_every_registered_head_size(name, hd):
+    """Each kernel with a head dimension takes the head size of every
+    model the reference registers and of every smoke config the port
+    serves: restoration (#1), decode and paged decode (#3, #4), prefill
+    attention (#5)."""
+    from repro_torch.kernels import flash_attention as tfa
+    assert hd in trkv.SUPPORTED_HEAD_DIMS, name
+    assert _decode_takes(hd), name
+    assert hd in tfa.HEAD_DIMS, name
+
+
+def test_head_size_sets_match_across_kernels():
+    """Restoration and prefill take one set, which decode's bound covers."""
+    from repro_torch.kernels import flash_attention as tfa
+    assert set(trkv.SUPPORTED_HEAD_DIMS) == set(tfa.HEAD_DIMS) \
+        == {16, 64, 80, 96, 128, 256}
+    assert all(_decode_takes(hd) for hd in tfa.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("hd", [12, 112, 264])
+def test_wrappers_refuse_unsupported_head_sizes(hd, monkeypatch):
+    """A head size outside a kernel's set raises before any build or
+    launch; there is no fallback to the plain version. (Decode takes any
+    multiple of 8 up to 256, so 112 is refused only by the others.)"""
+    from repro_torch.kernels import flash_attention as tfa
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail(
+        "the kernels were built for a call that must raise"))
+    x = torch.zeros(1, 4, 2, hd)
+    lens = (torch.zeros(1, dtype=torch.int32),
+            torch.full((1,), 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        tfa.flash_attention_cuda(x, x, x, *lens)
+    hidden, wk, wv, _, _, rows, _, _ = _restore_inputs(1, 16, False, 0)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="head_dim"):
+        trkv.validate_operands(t(hidden), t(wk), t(wv), None, None, t(rows),
+                               torch.zeros(32, hd // 2),
+                               torch.zeros(32, hd // 2), head_dim=hd)
+    if _decode_takes(hd):
+        return
+    q = torch.zeros(2, 1, hd)
+    kv = torch.zeros(2, 8, hd)
+    n = torch.full((2,), 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        tdec.decode_attention_cuda(q, kv, kv, n)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        tdec.decode_attention_paged_cuda(
+            q, kv.reshape(2, 8, hd), kv.reshape(2, 8, hd),
+            torch.zeros(2, 1, dtype=torch.int32), n)

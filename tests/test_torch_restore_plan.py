@@ -20,8 +20,10 @@ from repro_torch.kernels import restore_kv as rkv
 
 SEQS = (1, 4, 16, 128, 300, 1024, 2048)
 GROUPS = (1, 8)
-# llama2-7b, llama2-13b, opt-30b, and the odd head sizes
-WIDTHS = ((4096, 128), (5120, 128), (7168, 128), (768, 96), (640, 80))
+# llama2-7b, llama2-13b, opt-30b, the odd head sizes, gemma2-9b (8 kv
+# heads of 256), and the smoke configs (4 kv heads of 16, or one)
+WIDTHS = ((4096, 128), (5120, 128), (7168, 128), (768, 96), (640, 80),
+          (2048, 256), (64, 16), (16, 16))
 ALL = [(S, G, KV, hd) for S in SEQS for G in GROUPS for KV, hd in WIDTHS]
 IDS = [f"S{S}-G{G}-KV{KV}-hd{hd}" for S, G, KV, hd in ALL]
 
@@ -223,7 +225,9 @@ WALKS = [(kind, hd, bias, rope, S, G)
                                       (96, True, True, 5, 1),
                                       (80, True, False, 130, 1),
                                       (80, False, True, 3, 2),
-                                      (64, True, True, 64, 1))]
+                                      (64, True, True, 64, 1),
+                                      (16, True, True, 70, 2),
+                                      (256, False, True, 3, 1))]
 
 
 @pytest.mark.parametrize("kind,hd,bias,rope,S,G", WALKS)
