@@ -13,7 +13,17 @@ Needs one CUDA GPU and the repository checkout around this file. It
      gives contiguous decode's bits at each head size and that prefill
      attention is deterministic and ignores keys past kv_len (NaN
      included), and times kernel, plain version and a PyTorch yardstick
-     with CUDA events; prefill attention at the four main-path shapes
+     with CUDA events; the split-K decode kernels (#3 and #4) at every
+     edge of their split plan (a row shorter than one split, one exactly
+     two splits long, 4096 keys, a window starting inside a split,
+     kv_len = 0 giving zeros; hd 16-256, G 1-16, bf16 and fp32), paged
+     bitwise equal to contiguous there, and each row's bits the same
+     alone, in a batch beside other lengths, in a larger cache with NaN
+     past kv_len and through the pool (G 1 and 7); both decode kernels
+     and SDPA timed by CUDA graph at ``tools/bench_decode.py``'s shapes
+     (the main shapes, the lifecycle's B=1 step, qwen2-7b's G=7 grouping,
+     hd 16/80/256), cycling over input copies larger than the L2;
+     prefill attention at the four main-path shapes
      (self-prefills of 1024 and 2000 tokens, 256 over 2016 of history,
      128 over 1900) and at each head size; the restoration kernel at the
      six shapes of its three regimes (restore G=8 S=1024 and 2048, prefill
@@ -371,7 +381,180 @@ def decode_case(B, Kv, G, Smax, hd, lens, dtype, gen):
     return q, k, v, kv_len
 
 
+def paged_case(lens, Kv, G, hd, bs, MB, dtype, gen):
+    """A permuted page pool (NB, bs, Kv, hd) with pages of junk besides
+    the rows' live pages, sentinel table entries (NB) past each row's
+    pages, and the same rows as a contiguous (B, MB·bs, Kv, hd) cache."""
+    import torch
+    dev = "cuda"
+    B = len(lens)
+    pages = [-(-n // bs) for n in lens]
+    NB = sum(pages) + 7
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))
+    k_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
+    table = torch.full((B, MB), NB, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(pages):
+        table[b, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    table = table.to(dev)
+    q = torch.randn(B * Kv, G, hd, generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32,
+                          device=dev).repeat_interleave(Kv)
+    idx = table.clamp(max=NB - 1).long()
+    k = k_pool[idx].reshape(B, MB * bs, Kv, hd)
+    v = v_pool[idx].reshape(B, MB * bs, Kv, hd)
+    return q, k_pool, v_pool, table, kv_len, k, v
+
+
+def decode_cost(card, B, Kv, G, hd, lens, paged=False):
+    """(bound ms, bound_by, bytes) of one bf16 decode launch: q read and
+    the output written once, each row's live K and V read once, kv_len,
+    and for the pool one table entry per live 16-token page; 4 hd
+    operations per (query row, live key)."""
+    live = sum(lens) * Kv
+    nbytes = 2 * (2 * B * Kv * G * hd + 2 * live * hd) + 4 * B * Kv
+    if paged:
+        nbytes += 4 * sum(-(-n // 16) for n in lens)
+    return (*bound(4 * G * hd * live, nbytes, card), nbytes)
+
+
+# (hd, G) of the split checks: every G bucket of the kernel (1, 2, 4, 8,
+# 16), the smoke configs' hd 16, zamba2's 80, llama2's 128, gemma2's 256
+DECODE_SPLIT_CASES = ((16, 4), (64, 16), (80, 4), (96, 2), (128, 1),
+                      (128, 7), (256, 4))
+
+
+def check_decode_splits():
+    """Kernels #3 and #4 against the plain version at every plan edge:
+    a row shorter than one split, one exactly two splits long, a row of
+    4096 keys, one of 3 splits and 17 keys, and one with kv_len = 0
+    (zeros); without, then with a window that starts inside a split and a
+    softcap; bf16 and fp32. Paged gives contiguous's bits at each."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for hd, G in DECODE_SPLIT_CASES:
+        for dtype, name in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "fp32")):
+            S = dec.SPLIT_KEYS
+            lens = [S // 2 + 3, 2 * S, 4096, 0, 3 * S + 17]
+            a = paged_case(lens, 2, G, hd, 16, 4096 // 16 + 4, dtype, gen)
+            q, kv_len, k, v = a[0], a[4], a[5], a[6]
+            for kw in ({}, {"window": S + S // 3, "softcap": 50.0}):
+                what = f"decode hd={hd} G={G} split {S} {name} {kw}"
+                o3 = dec.decode_attention_cuda(q, k, v, kv_len, **kw)
+                o4 = dec.decode_attention_paged_cuda(*a[:5], **kw)
+                torch.cuda.synchronize()
+                worst = max(worst, check_close(
+                    what, o3, dec.decode_attention_plain(q, k, v, kv_len,
+                                                         **kw), name))
+                if not torch_equal(o4, o3):
+                    raise AssertionError(f"{what}: paged decode differs "
+                                         "from contiguous decode")
+                if bool((o3[6:8] != 0).any()):
+                    raise AssertionError(f"{what}: a kv_len = 0 row is "
+                                         "not zero")
+            print(f"decode_attention(_paged) hd={hd} G={G} {name}, splits "
+                  f"of {S} keys, lens {lens}, and window {S + S // 3} "
+                  f"softcap 50: within tolerance, paged bitwise equal to "
+                  f"contiguous, zeros at kv_len 0")
+    return worst
+
+
+def check_decode_rows():
+    """Row invariance, bitwise: each row decoded alone (B=1, a cache of
+    exactly its length) gives the bits it gives in a batch beside rows of
+    other lengths, in a cache with a larger Smax whose positions past
+    kv_len hold NaN, and through the page pool (G 1 and 7, hd 128)."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    Kv, hd = 2, 128
+    lens = [5, 256, 519, 1030, 4096]
+    for G in (1, 7):
+        for dtype, name in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "fp32")):
+            q, kp, vp, table, kv_len, k, v = paged_case(
+                lens, Kv, G, hd, 16, 4096 // 16 + 1, dtype, gen)
+            big_k = torch.full((len(lens), 8192, Kv, hd), float("nan"),
+                               dtype=dtype, device="cuda")
+            big_v = big_k.clone()
+            for b, n in enumerate(lens):
+                big_k[b, :n], big_v[b, :n] = k[b, :n], v[b, :n]
+            for kw in ({}, {"window": 300, "softcap": 30.0}):
+                batch = dec.decode_attention_cuda(q, k, v, kv_len, **kw)
+                big = dec.decode_attention_cuda(q, big_k, big_v, kv_len,
+                                                **kw)
+                paged = dec.decode_attention_paged_cuda(q, kp, vp, table,
+                                                        kv_len, **kw)
+                for b, n in enumerate(lens):
+                    r = slice(b * Kv, (b + 1) * Kv)
+                    alone = dec.decode_attention_cuda(
+                        q[r], k[b:b + 1, :n], v[b:b + 1, :n], kv_len[r],
+                        **kw)
+                    for what, got in (("in a batch", batch[r]),
+                                      ("in a larger cache", big[r]),
+                                      ("through the pool", paged[r])):
+                        if not torch_equal(got, alone):
+                            raise AssertionError(
+                                f"decode G={G} {name} {kw}: the row of "
+                                f"{n} keys {what} differs from the row "
+                                "alone")
+            print(f"decode_attention G={G} {name} rows {lens}: alone, in a "
+                  f"batch, in an 8192-slot cache with NaN past kv_len and "
+                  f"through the pool, bitwise equal (with and without "
+                  f"window 300 softcap 30)")
+
+
+def time_decode_shapes(card):
+    """Graph device times of kernels #3 and #4 and of SDPA (the contiguous
+    cache, a mask past each row's length) at ``bench_decode``'s shapes,
+    each cycling over copies of its inputs that span twice the L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.tools import bench_decode as bd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, (B, Kv, G, hd, lens, smax) in bd.SHAPES.items():
+        cases = bd.shape_cases(name, gen)
+        ms3 = graph_ms(bd.cycled(cases, bd.contiguous(dec)))
+        ms4 = graph_ms(bd.cycled(cases, bd.paged(dec)))
+        ar = torch.arange(smax, device="cuda")
+        sdpa_in = [(q.reshape(B, Kv * G, 1, hd), k.transpose(1, 2),
+                    v.transpose(1, 2),
+                    (ar[None, :] < n[::Kv, None])[:, None, None, :])
+                   for q, k, v, _, _, _, n in cases]
+        try:
+            lib_ms = graph_ms(bd.cycled(sdpa_in, lambda q, k, v, m: (
+                F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                               enable_gqa=G > 1))))
+        except TypeError:            # a PyTorch without enable_gqa
+            lib_ms = None
+        b3, by3, nb3 = decode_cost(card, B, Kv, G, hd, lens)
+        b4, by4, _ = decode_cost(card, B, Kv, G, hd, lens, paged=True)
+        out[name] = {"B": B, "Kv": Kv, "G": G, "hd": hd, "lens": list(lens),
+                     "Smax": smax, "ms": ms3, "paged_ms": ms4,
+                     "library_ms": lib_ms, "bound_ms": b3, "bound_by": by3,
+                     "paged_bound_ms": b4, "paged_bound_by": by4}
+        sd = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"decode {name} B={B} Kv={Kv} G={G} hd={hd} lens={list(lens)}"
+              f" Smax={smax} bf16 (CUDA graphs of 100 over {len(cases)} "
+              f"copies): #3 {ms3:.4f} ms, #4 {ms4:.4f} ms (16-token pages), "
+              f"SDPA {sd} ms; bound {b3:.4f} / {b4:.4f} ms ({by3}; "
+              f"{nb3 / 1e6:.1f} MB), #3 at {b3 / ms3:.0%} of it")
+        del cases, sdpa_in
+    return out
+
+
 def check_decode(card: str, gen):
+    """Kernel #3: the main shape, windows and softcaps, the other head
+    sizes (timed with L2-resident inputs), then the plan's edges (with
+    kernel #4), row invariance, and the graph timings of both kernels over
+    inputs larger than the L2 (returned for kernel #4's entry)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
@@ -397,9 +580,9 @@ def check_decode(card: str, gen):
     nbytes = 2 * (2 * B * Kv * G * hd + 2 * live * hd) + 4 * B * Kv
     bound_ms, bound_by = bound(flops, nbytes, card)
     print(f"decode_attention B={B} Kv={Kv} G={G} Smax={Smax} lens={lens} "
-          f"bf16: max_abs_err {err:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
+          f"bf16: max_abs_err {err:.3g}; one eager call {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms (eager), "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         q2, k2, v2, l2 = decode_case(2, 4, 4, 1000, 128, [1000, 333], dtype,
                                      gen)
@@ -436,44 +619,30 @@ def check_decode(card: str, gen):
                            2 * (2 * 64 * hd_ + 2 * live_ * hd_) + 128, card)
         by_hd[hd_] = {"ms": t, "bound_ms": b_ms, "bound_by": b_by}
         print(f"decode_attention B=4 Kv=8 G=2 hd={hd_} lens={lens_} bf16: "
-              f"kernel {t:.4f} ms (CUDA graph of 100), bound {b_ms:.4f} ms "
-              f"({b_by})")
+              f"kernel {t:.4f} ms (CUDA graph of 100, inputs L2-resident), "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    del q, k, v
+    err = max(err, check_decode_splits())
+    check_decode_rows()
+    shapes = time_decode_shapes(card)
+    m = shapes["main3"]
+    print(f"decode_attention main shape: kernel {m['ms']:.4f} ms (graph), "
+          f"SDPA {m['library_ms']} ms (graph), bound {m['bound_ms']:.4f} ms "
+          f"({m['bound_by']})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:145",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "by_head_dim": by_hd}
+            "max_abs_err": err, "ms": m["ms"], "eager_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_eager_ms": lib_ms, "by_head_dim": by_hd,
+            "shapes": shapes}, shapes
 
 
-def paged_case(lens, Kv, G, hd, bs, MB, dtype, gen):
-    """A permuted page pool (NB, bs, Kv, hd) with pages of junk besides
-    the rows' live pages, sentinel table entries (NB) past each row's
-    pages, and the same rows as a contiguous (B, MB·bs, Kv, hd) cache."""
-    import torch
-    dev = "cuda"
-    B = len(lens)
-    pages = [-(-n // bs) for n in lens]
-    NB = sum(pages) + 7
-    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))
-    k_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
-    v_pool = torch.randn(NB, bs, Kv, hd, generator=gen, device=dev).to(dtype)
-    table = torch.full((B, MB), NB, dtype=torch.int32)
-    at = 0
-    for b, n in enumerate(pages):
-        table[b, :n] = perm[at:at + n].to(torch.int32)
-        at += n
-    table = table.to(dev)
-    q = torch.randn(B * Kv, G, hd, generator=gen, device=dev).to(dtype)
-    kv_len = torch.tensor(lens, dtype=torch.int32,
-                          device=dev).repeat_interleave(Kv)
-    idx = table.clamp(max=NB - 1).long()
-    k = k_pool[idx].reshape(B, MB * bs, Kv, hd)
-    v = v_pool[idx].reshape(B, MB * bs, Kv, hd)
-    return q, k_pool, v_pool, table, kv_len, k, v
-
-
-def check_paged_decode(card: str, gen):
+def check_paged_decode(card: str, gen, shapes):
+    """Kernel #4: the paged engine's step, windows and softcaps, the other
+    head sizes, each bitwise equal to kernel #3 over the same logical
+    cache; its graph time from ``shapes`` (``time_decode_shapes``)."""
     import torch
     from repro_torch.kernels import decode_attention as dec
     # the engine's decode step on llama2-7b: 4 slots, pages of 16 tokens
@@ -502,9 +671,10 @@ def check_paged_decode(card: str, gen):
     bound_ms, bound_by = bound(flops, nbytes, card)
     print(f"decode_attention_paged B={B} Kv={Kv} G={G} hd={hd} bs={bs} "
           f"lens={lens} bf16: max_abs_err {err:.3g}, bitwise equal to "
-          f"contiguous; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"contiguous kernel on the gathered cache {contiguous_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
+          f"contiguous; one eager call {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, contiguous kernel on the gathered cache {contiguous_ms:.4f} "
+          f"ms (eager), bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB)")
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         a = paged_case([1000, 333], 4, 4, 128, 16, 64, dtype, gen)
         kw = dict(softcap=50.0, window=256)
@@ -546,16 +716,21 @@ def check_paged_decode(card: str, gen):
                            + 4 * sum(-(-n // 16) for n in lens_), card)
         by_hd[hd_] = {"ms": t, "bound_ms": b_ms, "bound_by": b_by}
         print(f"decode_attention_paged B=4 Kv=8 G=2 hd={hd_} bs=16 "
-              f"lens={lens_} bf16: kernel {t:.4f} ms (CUDA graph of 100), "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"lens={lens_} bf16: kernel {t:.4f} ms (CUDA graph of 100, "
+              f"inputs L2-resident), bound {b_ms:.4f} ms ({b_by})")
+    m = shapes["main4"]
+    print(f"decode_attention_paged main shape: kernel {m['paged_ms']:.4f} "
+          f"ms (graph), kernel #3 on the same rows {m['ms']:.4f} ms (graph), "
+          f"bound {m['paged_bound_ms']:.4f} ms ({m['paged_bound_by']})")
     return {"name": "decode_attention_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:89",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err, "ms": m["paged_ms"], "eager_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": m["paged_bound_ms"],
+            "bound_by": m["paged_bound_by"], "library_ms": None,
             "yardstick": {"what": "decode_attention (kernel #3) on the "
-                                  "gathered contiguous cache",
-                          "ms": contiguous_ms},
+                                  "same rows in a contiguous cache (graph)",
+                          "ms": m["ms"], "eager_gathered_ms": contiguous_ms},
             "by_head_dim": by_hd}
 
 
@@ -1506,9 +1681,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_restore(card, gen), check_decode(card, gen),
-               check_paged_decode(card, gen), check_flash(card, gen),
-               check_ssm_update(card, gen)]
+    restore = check_restore(card, gen)
+    decode, decode_shapes = check_decode(card, gen)
+    kernels = [restore, decode, check_paged_decode(card, gen, decode_shapes),
+               check_flash(card, gen), check_ssm_update(card, gen)]
 
     def reset():
         rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0

@@ -36,10 +36,10 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     "hc_restore_kv_grouped": [_VP] * 10 + [_I] * 12 + [_VP],
-    "hc_decode_attention": [_VP] * 5 + [_I] * 5 + [_LL] * 6
-    + [_F, _F, _I, _I, _VP],
-    "hc_decode_attention_paged": [_VP] * 6 + [_I] * 7 + [_LL] * 6
-    + [_F, _F, _I, _I, _VP],
+    "hc_decode_attention": [_VP] * 8 + [_I] * 5 + [_LL] * 6
+    + [_F, _F] + [_I] * 4 + [_VP],
+    "hc_decode_attention_paged": [_VP] * 9 + [_I] * 7 + [_LL] * 6
+    + [_F, _F] + [_I] * 4 + [_VP],
     "hc_flash_attention": [_VP] * 8 + [_I] * 6 + [_LL] * 9
     + [_F, _F] + [_I] * 11 + [_VP],
     "hc_ssm_update": [_VP] * 9 + [_I] * 3 + [_LL] * 5 + [_I, _VP],

@@ -14,17 +14,19 @@ extern "C" int hc_restore_kv_grouped(
 
 extern "C" int hc_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, int BKv, int G, int hd, int n_kv_heads, int smax, long long sb,
-    long long ss, long long sh, long long vsb, long long vss, long long vsh,
-    float scale, float softcap, int window, int dtype, void* stream);
+    void* out, void* ws_acc, void* ws_ml, void* tickets, int BKv, int G,
+    int hd, int n_kv_heads, int smax, long long sb, long long ss,
+    long long sh, long long vsb, long long vss, long long vsh, float scale,
+    float softcap, int window, int dtype, int splits, int split_keys,
+    void* stream);
 
 extern "C" int hc_decode_attention_paged(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* table, const void* kv_len, void* out, int BKv, int G,
-    int hd, int n_kv_heads, int nb, int bs, int mb, long long kblk,
-    long long koff, long long kh, long long vblk, long long voff,
-    long long vh, float scale, float softcap, int window, int dtype,
-    void* stream);
+    const void* table, const void* kv_len, void* out, void* ws_acc,
+    void* ws_ml, void* tickets, int BKv, int G, int hd, int n_kv_heads,
+    int nb, int bs, int mb, long long kblk, long long koff, long long kh,
+    long long vblk, long long voff, long long vh, float scale, float softcap,
+    int window, int dtype, int splits, int split_keys, void* stream);
 
 extern "C" int hc_flash_attention(
     const void* q, const void* k, const void* v, const void* q_offset,
@@ -68,31 +70,36 @@ void restore_kv_grouped(int64_t hidden, int64_t wk, int64_t wv, int64_t bk,
 }
 
 void decode_attention(int64_t q, int64_t k, int64_t v, int64_t kv_len,
-                      int64_t out, int BKv, int G, int hd, int n_kv_heads,
-                      int smax, int64_t sb, int64_t ss, int64_t sh,
-                      int64_t vsb, int64_t vss, int64_t vsh, double scale,
-                      double softcap, int window, int dtype,
-                      int64_t stream) {
+                      int64_t out, int64_t ws_acc, int64_t ws_ml,
+                      int64_t tickets, int BKv, int G, int hd,
+                      int n_kv_heads, int smax, int64_t sb, int64_t ss,
+                      int64_t sh, int64_t vsb, int64_t vss, int64_t vsh,
+                      double scale, double softcap, int window, int dtype,
+                      int splits, int split_keys, int64_t stream) {
   check(hc_decode_attention(ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out),
-                            BKv, G, hd, n_kv_heads, smax, sb, ss, sh, vsb,
-                            vss, vsh, static_cast<float>(scale),
+                            ptr(ws_acc), ptr(ws_ml), ptr(tickets), BKv, G,
+                            hd, n_kv_heads, smax, sb, ss, sh, vsb, vss, vsh,
+                            static_cast<float>(scale),
                             static_cast<float>(softcap), window, dtype,
-                            ptr(stream)),
+                            splits, split_keys, ptr(stream)),
         "decode_attention");
 }
 
 void decode_attention_paged(int64_t q, int64_t k_pool, int64_t v_pool,
                             int64_t table, int64_t kv_len, int64_t out,
+                            int64_t ws_acc, int64_t ws_ml, int64_t tickets,
                             int BKv, int G, int hd, int n_kv_heads, int nb,
                             int bs, int mb, int64_t kblk, int64_t koff,
                             int64_t kh, int64_t vblk, int64_t voff,
                             int64_t vh, double scale, double softcap,
-                            int window, int dtype, int64_t stream) {
+                            int window, int dtype, int splits,
+                            int split_keys, int64_t stream) {
   check(hc_decode_attention_paged(
             ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(kv_len),
-            ptr(out), BKv, G, hd, n_kv_heads, nb, bs, mb, kblk, koff, kh,
-            vblk, voff, vh, static_cast<float>(scale),
-            static_cast<float>(softcap), window, dtype, ptr(stream)),
+            ptr(out), ptr(ws_acc), ptr(ws_ml), ptr(tickets), BKv, G, hd,
+            n_kv_heads, nb, bs, mb, kblk, koff, kh, vblk, voff, vh,
+            static_cast<float>(scale), static_cast<float>(softcap), window,
+            dtype, splits, split_keys, ptr(stream)),
         "decode_attention_paged");
 }
 

@@ -16,16 +16,21 @@ row lives in page ``table[row, p // bs]`` at offset ``p % bs``; entries
 ``>= NB`` are unallocated sentinels, which are clamped on read and can
 only alias positions at or past ``kv_len``.
 
+A row with no live position (``kv_len <= 0``) gives zeros, as the Pallas
+kernels give (their zero accumulator divided by ``max(l, 1e-30)``).
+
 ``decode_attention_cuda`` and ``decode_attention_paged_cuda`` launch the
-hand-written kernel (``csrc/decode_attention.cu``; one kernel body, two
-address policies, so paged and contiguous give the same bits), which
-reads the cache or pool in place through its strides;
-``decode_attention_plain`` and ``decode_attention_paged_plain`` are the
-plain PyTorch versions. ``kernels.ops`` picks one by device.
+hand-written split-K kernel (``csrc/decode_attention.cu``; one kernel
+body, two address policies, so paged and contiguous give the same bits),
+which reads the cache or pool in place through its strides, on the plan
+``decode_plan`` makes from host shapes; ``decode_attention_plain`` and
+``decode_attention_paged_plain`` are the plain PyTorch versions.
+``kernels.ops`` picks one by device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -36,10 +41,74 @@ MAX_GROUP = 16
 MAX_HEAD_DIM = 256     # any multiple of 8 up to this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The split plan: every row's live range is cut at multiples of
+# SPLIT_KEYS, whatever the head size, batch or capacity; the kernel stages
+# 32-key tiles (TILE_KEYS), so a split is a whole number of tiles. Of 64,
+# 128 and 256, 128 was the best at the main path's shapes on an H100
+# (PERF.md, kernels #3/#4).
+SPLIT_KEYS = 128
+TILE_KEYS = 32
+
 # kernel launches so far (contiguous, paged); chip_smoke.py resets and
 # reads them
 launches = 0
 paged_launches = 0
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the kernel cuts one launch: each row's live keys at multiples of
+    ``split_keys`` (one block each); ``splits`` split slots per row in the
+    grid, enough for the capacity."""
+    split_keys: int
+    splits: int
+
+    def row_splits(self, kv_len: int,
+                   window: Optional[int] = None) -> List[Tuple[int, int]]:
+        """The [start, end) key ranges of one row's live splits."""
+        n = int(kv_len)
+        lo = max(n - window, 0) if window and window > 0 else 0
+        S = self.split_keys
+        return [(max(s * S, lo), min((s + 1) * S, n))
+                for s in range(lo // S, -(-n // S))] if n > lo else []
+
+
+def decode_plan(smax: int) -> DecodePlan:
+    """The kernel's plan for one launch over a cache of ``smax`` slots
+    (``MB·bs`` for a pool). The split boundaries are the same for every
+    launch, never depending on the batch, the other rows, the capacity or
+    the address policy, so a row gives the same bits in every launch that
+    holds it; ``smax`` only sets how many split slots the grid has."""
+    return DecodePlan(split_keys=SPLIT_KEYS,
+                      splits=max(-(-int(smax) // SPLIT_KEYS), 1))
+
+
+# per device: the kernel's merge tickets (one int32 per row), zeros
+# between launches, as every launch leaves them. Launches on one device
+# must not overlap in time (the port runs them on one stream).
+_tickets = {}
+
+
+def _scratch(plan: DecodePlan, BKv: int, G: int, hd: int, dev):
+    """The split workspace (fp32 partials, allocated per launch) and the
+    tickets; empty when the plan has one split per row."""
+    if plan.splits == 1:
+        return None, None, None
+    t = _tickets.get(dev.index)
+    if t is None or t.numel() < BKv:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention: run one launch of this "
+                               "width before capturing it in a graph")
+        t = _tickets[dev.index] = torch.zeros(max(BKv, 1024),
+                                              dtype=torch.int32, device=dev)
+    return (torch.empty(BKv * plan.splits * G * hd, dtype=torch.float32,
+                        device=dev),
+            torch.empty(BKv * plan.splits * G * 2, dtype=torch.float32,
+                        device=dev), t)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _as_rows(cache: torch.Tensor) -> torch.Tensor:
@@ -57,12 +126,15 @@ def decode_attention_plain(q, k, v, kv_len, *,
     Like the kernel, a row reads only its own live positions, so its result
     depends neither on the cache's spare capacity nor on the other rows'
     lengths: a session decoded beside others gives the bits it gives
-    alone."""
+    alone. A row with ``kv_len <= 0`` gives zeros."""
     k, v = _as_rows(k), _as_rows(v)
     out = torch.empty_like(q)
     scale = q.shape[-1] ** -0.5
     for r, n in enumerate(kv_len.tolist()):
-        n = min(max(int(n), 1), k.shape[1])
+        n = min(int(n), k.shape[1])
+        if n <= 0:                   # no live position: zeros
+            out[r] = 0
+            continue
         s = (q[r].float() @ k[r, :n].float().T) * scale        # (G, n)
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
@@ -120,12 +192,16 @@ def decode_attention_cuda(q, k, v, kv_len, *,
     out = torch.empty_like(q)
     if BKv == 0:
         return out
+    plan = decode_plan(smax)
+    ws_acc, ws_ml, tickets = _scratch(plan, BKv, G, hd, dev)
     lib = _build.library()
     lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), BKv, G, hd, n_kv, smax, sb, ss, sh, vsb, vss, vsh,
-        hd ** -0.5, float(softcap) if softcap is not None else 0.0,
+        out.data_ptr(), _ptr(ws_acc), _ptr(ws_ml), _ptr(tickets), BKv, G,
+        hd, n_kv, smax, sb, ss, sh, vsb, vss, vsh, hd ** -0.5,
+        float(softcap) if softcap is not None else 0.0,
         int(window) if window is not None else 0, _DTYPE_CODE[dtype],
+        plan.splits, plan.split_keys,
         torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out
@@ -146,7 +222,7 @@ def decode_attention_paged_plain(q, k_pool, v_pool, block_table, kv_len, *,
     into the logical layout, then the contiguous plain version, so the two
     give the same bits for the same logical cache."""
     bs = k_pool.shape[1]
-    live = max(int(kv_len.max()), 1) if kv_len.numel() else 1
+    live = max(int(kv_len.max()), 0) if kv_len.numel() else 0
     n_pages = min(-(-live // bs), block_table.shape[1])
     table = block_table.to(k_pool.device)
     return decode_attention_plain(
@@ -202,13 +278,17 @@ def decode_attention_paged_cuda(q, k_pool, v_pool, block_table, kv_len, *,
     MB = block_table.shape[1]
     if BKv == 0 or MB == 0:
         return out
+    plan = decode_plan(MB * bs)
+    ws_acc, ws_ml, tickets = _scratch(plan, BKv, G, hd, dev)
     lib = _build.library()
     lib.decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), BKv, G,
-        hd, n_kv, NB, bs, MB, *strides, hd ** -0.5,
+        block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        _ptr(ws_acc), _ptr(ws_ml), _ptr(tickets), BKv, G, hd, n_kv, NB, bs,
+        MB, *strides, hd ** -0.5,
         float(softcap) if softcap is not None else 0.0,
         int(window) if window is not None else 0, _DTYPE_CODE[dtype],
+        plan.splits, plan.split_keys,
         torch.cuda.current_stream(dev).cuda_stream)
     paged_launches += 1
     return out

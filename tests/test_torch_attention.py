@@ -113,6 +113,29 @@ def test_paged_decode_plain_matches_jax_at_head_sizes(hd, dtype):
     _check_paged_decode(4, 16, 4, dtype, hd)
 
 
+@pytest.mark.parametrize("lens", [(0, 5, 0), (0, 0, 0)])
+@pytest.mark.parametrize("G,bs", [(1, 16), (4, 8)])
+def test_paged_decode_plain_gives_zeros_at_kv_len_zero(G, bs, lens):
+    """Rows of lengths [0, 5, 0] and [0, 0, 0] (fp32, hd 16) over a pool
+    whose tables still map pages: a row with no live position gives
+    zeros, as the Pallas kernel in interpret mode gives, and the other
+    rows agree with it. The jnp oracle ``decode_attention_paged_ref`` is
+    not the oracle here: over a row with every position masked it
+    averages v over the gathered positions, which neither kernel
+    computes."""
+    q, _, _, k_pool, v_pool, table, _ = _paged_inputs(G, bs, 4, 60 + G,
+                                                      hd=16)
+    kl = np.array(lens, np.int32)
+    got = ops.decode_attention_paged(
+        *(_to_torch(a, "fp32") for a in (q, k_pool, v_pool)),
+        torch.from_numpy(table), torch.from_numpy(kl))
+    pallas = decode_attention_paged_pallas(
+        *(_to_jax(a, "fp32") for a in (q, k_pool, v_pool)),
+        jnp.asarray(table), jnp.asarray(kl), interpret=True)
+    assert not got[torch.from_numpy(kl == 0)].any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
 @pytest.mark.parametrize("window,softcap", [(None, None), (10, 30.0)])
 def test_paged_decode_plain_equals_contiguous_bitwise(window, softcap):
     """On the model's (NB, bs, Kv, hd) pool with a (B, MB) table, paged

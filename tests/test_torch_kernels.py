@@ -103,6 +103,28 @@ def _check_decode(G, window, softcap, hd):
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("G,window,softcap", [(1, None, None), (4, None, None),
+                                               (4, 12, 20.0)])
+def test_decode_attention_plain_gives_zeros_at_kv_len_zero(G, window,
+                                                           softcap):
+    """Rows of lengths [0, 5, 0, 64, 17, 1] (fp32, hd 16): a row with no
+    live position gives zeros, as the Pallas kernel in interpret mode
+    gives (its zero accumulator divided by max(l, 1e-30)), and the other
+    rows agree with it. The jnp oracle ``decode_attention_ref`` is not
+    the oracle here: over a row with every position masked it averages v
+    over Smax, which neither kernel computes."""
+    q, k, v, _ = _decode_inputs(G, 40 + G)
+    kv_len = np.array([0, 5, 0, 64, 17, 1], np.int32)
+    got = ops.decode_attention(*(torch.from_numpy(a) for a in
+                                 (q, k, v, kv_len)),
+                               softcap=softcap, window=window)
+    pallas = decode_attention_pallas(
+        *(jnp.asarray(a) for a in (q, k, v, kv_len)), softcap=softcap,
+        window=window, block_k=16, interpret=True)
+    assert not got[torch.from_numpy(kv_len == 0)].any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
 def test_decode_attention_reads_the_model_cache_layout():
     """A (B, Smax, Kv, hd) cache gives what its (B·Kv, Smax, hd) rows
     give: row b·Kv + h is batch b, kv head h."""
