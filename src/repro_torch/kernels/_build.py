@@ -42,7 +42,7 @@ _ARGTYPES = {
     + [_F, _F] + [_I] * 4 + [_VP],
     "hc_flash_attention": [_VP] * 8 + [_I] * 6 + [_LL] * 9
     + [_F, _F] + [_I] * 11 + [_VP],
-    "hc_ssm_update": [_VP] * 9 + [_I] * 3 + [_LL] * 5 + [_I, _VP],
+    "hc_ssm_update": [_VP] * 9 + [_I] * 4 + [_LL] * 10 + [_I] * 3 + [_VP],
 }
 
 

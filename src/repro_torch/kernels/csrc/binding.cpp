@@ -41,9 +41,11 @@ extern "C" int hc_flash_attention(
 extern "C" int hc_ssm_update(const void* h, void* h_out, const void* dt,
                              const void* x, const void* A, const void* Bm,
                              const void* Cm, const void* D, void* y, int Bt,
-                             int I, int N, long long dt_sb, long long x_sb,
-                             long long b_sb, long long c_sb, long long y_sb,
-                             int dtype, void* stream);
+                             int I, int N, int S, long long dt_sb,
+                             long long dt_ss, long long x_sb, long long x_ss,
+                             long long b_sb, long long b_ss, long long c_sb,
+                             long long c_ss, long long y_sb, long long y_ss,
+                             int dtype, int tokens, int stages, void* stream);
 
 namespace {
 
@@ -126,11 +128,14 @@ void flash_attention(int64_t q, int64_t k, int64_t v, int64_t q_offset,
 
 void ssm_update(int64_t h, int64_t h_out, int64_t dt, int64_t x, int64_t A,
                 int64_t Bm, int64_t Cm, int64_t D, int64_t y, int Bt, int I,
-                int N, int64_t dt_sb, int64_t x_sb, int64_t b_sb,
-                int64_t c_sb, int64_t y_sb, int dtype, int64_t stream) {
+                int N, int S, int64_t dt_sb, int64_t dt_ss, int64_t x_sb,
+                int64_t x_ss, int64_t b_sb, int64_t b_ss, int64_t c_sb,
+                int64_t c_ss, int64_t y_sb, int64_t y_ss, int dtype,
+                int tokens, int stages, int64_t stream) {
   check(hc_ssm_update(ptr(h), ptr(h_out), ptr(dt), ptr(x), ptr(A), ptr(Bm),
-                      ptr(Cm), ptr(D), ptr(y), Bt, I, N, dt_sb, x_sb, b_sb,
-                      c_sb, y_sb, dtype, ptr(stream)),
+                      ptr(Cm), ptr(D), ptr(y), Bt, I, N, S, dt_sb, dt_ss,
+                      x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, dtype,
+                      tokens, stages, ptr(stream)),
         "ssm_update");
 }
 

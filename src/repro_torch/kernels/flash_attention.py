@@ -158,10 +158,41 @@ def flash_attention_plain(q, k, v, q_offset, kv_len, *, causal: bool = True,
     package's ``flash_attention_jnp`` does over its chunks), and the
     splits' (max, sum, output) merged in split order. Masked logits are
     taken out by selection, as in the kernel."""
+    out, _ = _plain_walk(q, k, v, q_offset, kv_len, causal=causal,
+                         softcap=softcap, window=window)
+    return out.to(q.dtype)
+
+
+def flash_p_rounding_bound(q, k, v, q_offset, kv_len, *, causal: bool = True,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None):
+    """Per output element (fp32, q's shape), Σ_j ulp_bf16(p_j)·|v_j| / l
+    from the plain version's own p and l, carried through the same
+    rescalings: the most that two roundings of P to bf16 from fp32 values
+    that differ in their last bits (the kernel's ex2 and summation order
+    against the plain version's) can move an output. Zero where P is not
+    rounded (v in fp32)."""
+    _, bound = _plain_walk(q, k, v, q_offset, kv_len, causal=causal,
+                           softcap=softcap, window=window, with_bound=True)
+    return bound
+
+
+def _bf16_ulp(p: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values around each p >= 0 (0 at p = 0)."""
+    _, e = torch.frexp(p)                      # p = m·2^e, 0.5 <= m < 1
+    return torch.where(p > 0, torch.ldexp(torch.ones_like(p), e - 8),
+                       torch.zeros_like(p))
+
+
+def _plain_walk(q, k, v, q_offset, kv_len, *, causal, softcap, window,
+                with_bound: bool = False):
+    """The plain version's output in fp32 (B, Sq, H, hd), and with
+    ``with_bound`` the P-rounding bound of ``flash_p_rounding_bound``."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     g = H // Kv
     dev = q.device
+    rounds = with_bound and v.dtype != torch.float32
     qg = q.reshape(B, Sq, Kv, g, hd).float()
     qp = (q_offset.to(dev).long()[:, None]
           + torch.arange(Sq, device=dev)[None, :])[:, :, None]   # (B,Sq,1)
@@ -175,6 +206,7 @@ def flash_attention_plain(q, k, v, q_offset, kv_len, *, causal: bool = True,
         m = torch.full((B, Kv, g, Sq), float("-inf"), device=dev)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Kv, g, Sq, hd), dtype=torch.float32, device=dev)
+        bnd = torch.zeros_like(acc) if rounds else None
         for c0 in range(s0, min(s0 + span, Skv), C):
             kc, vc = k[:, c0:c0 + C], v[:, c0:c0 + C]
             n = kc.shape[1]
@@ -200,18 +232,28 @@ def flash_attention_plain(q, k, v, q_offset, kv_len, *, causal: bool = True,
             pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(v.dtype).float(),
                               vc.float())
             acc = acc * corr[..., None] + pv
+            if rounds:
+                bnd = bnd * corr[..., None] + torch.einsum(
+                    "bkgqc,bckh->bkgqh", _bf16_ulp(p), vc.float().abs())
             m = m_new
-        parts.append((m, l, acc))
+        parts.append((m, l, acc, bnd))
     m = torch.stack([x[0] for x in parts]).amax(dim=0)
     mu = torch.where(m == inf, 0.0, m)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(parts[0][2])
-    for m_s, l_s, acc_s in parts:                  # the kernel's merge order
+    bnd = torch.zeros_like(acc)
+    for m_s, l_s, acc_s, bnd_s in parts:           # the kernel's merge order
         w = torch.exp(m_s - mu)
         l = l + l_s * w
         acc = acc + acc_s * w[..., None]
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+        if rounds:
+            bnd = bnd + bnd_s * w[..., None]
+    l = torch.clamp(l, min=1e-30)[..., None]
+
+    def heads(t):
+        return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+    return heads(acc / l), (heads(bnd / l) if with_bound else None)
 
 
 def _strides(name: str, t: torch.Tensor, vec: int):

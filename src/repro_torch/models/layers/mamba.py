@@ -3,11 +3,12 @@
 The JAX package evaluates the selective scan as a chunked ``lax.scan``
 over materialised ``dA`` and ``dBx`` of shape (B, S, I, N). Here ``dt``,
 ``x``, ``B`` and ``C`` come from batched products over the whole sequence
-and the recurrence runs one token at a time through
-``kernels.ops.ssm_scan`` (the hand-written state-update kernel on the
-card), which keeps the (B, I, N) state in one buffer that the kernel
-updates in place: nothing of size S·I·N exists. Decode is the same call at
-S = 1 on the cache's state.
+and the recurrence runs through ``kernels.ops.ssm_scan``: on the card one
+launch of the hand-written scan kernel per layer call walks all S tokens
+with the (B, I, N) state held on chip and writes it back into its buffer
+in place, so nothing of size S·I·N exists (on the CPU the plain version
+steps token by token). Decode is the same call at S = 1 on the cache's
+state.
 
 The Mamba2 half of the JAX module (zamba2) belongs to the hybrid family
 and is not ported yet.

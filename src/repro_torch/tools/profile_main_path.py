@@ -1,6 +1,8 @@
 """Where the time goes on the port's main path, by ``torch.profiler``.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_main_path
+    python3 src/repro_torch/tools/profile_main_path.py [--src PATH] \
+        [--windows all|ssm]
 
 Needs one CUDA GPU. Builds llama2-7b at full width and depth in bf16
 (random weights, seed 0), prefills and saves one 1024-token session with
@@ -10,27 +12,28 @@ prefill chunk, 128 tokens over 1900 tokens of history, and (4) 8 decode
 steps of the paged backend at the engine's batch of 4 slots holding
 ~2000 tokens each; then it frees llama2-7b, builds falcon-mamba-7b the
 same way and profiles (5) 8 decode steps of the contiguous backend at 4
-slots, each holding the states of a 512-token prefill. For each window it
-prints the wall time, the device
-time summed over kernels and copies, the device's idle share (1 - device
-time / wall), and the kernels with the most device time. Fails when no
-CUDA device is present.
+slots, each holding the states of a 512-token prefill, and (6) the
+prefill of a 2000-token prompt (``ssm_forward``, the lifecycle's round 0).
+``--windows ssm`` runs (5) and (6) alone; ``--src`` profiles the
+``repro_torch`` of another ``src`` directory (``git archive`` of another
+commit unpacked under the gitignored ``build/``), so one chip call can
+hold two trees against each other. For each window it prints the wall
+time, the device time summed over kernels and copies, the device's idle
+share (1 - device time / wall), and the kernels with the most device
+time. Fails when no CUDA device is present.
 """
 from __future__ import annotations
 
+import argparse
 import gc
+import os
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
-
-from repro_torch.configs import get_arch
-from repro_torch.core.hcache import HCacheManager
-from repro_torch.models import Model
-from repro_torch.serving import ContiguousBackend, PagedBackend
-from repro_torch.storage import ChunkStore, make_array
 
 N_TOKENS = 1024
 DECODE_STEPS = 8
@@ -38,6 +41,7 @@ TOP = 8
 CHUNK, HIST = 128, 1900              # an engine prefill chunk over history
 SLOTS, SLOT_TOKENS = 4, (2300, 1537, 777, 2049)   # paged decode batch
 SSM_PROMPT = 512                     # falcon-mamba: states of this prefill
+SSM_PREFILL = 2000                   # falcon-mamba: the prefill window
 
 
 def report(name: str, prof, wall_s: float) -> None:
@@ -70,11 +74,29 @@ def profiled(fn):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=None)
+    ap.add_argument("--windows", choices=("all", "ssm"), default="all")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
+        print(f"profiling {args.src}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.windows == "all":
+        profile_llama()
+    profile_ssm()
+
+
+def profile_llama() -> None:
+    """Windows (1)-(4) on llama2-7b, which is freed afterwards."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.models import Model
+    from repro_torch.storage import ChunkStore, make_array
     model = Model(get_arch("llama2-7b"), dtype=torch.bfloat16)
     params = model.init(0)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -112,11 +134,11 @@ def main() -> None:
     del model, params, mgr           # free llama2-7b before falcon-mamba
     gc.collect()
     torch.cuda.empty_cache()
-    profile_ssm_decode()
 
 
 def profile_engine_windows(model, params) -> None:
     """A prefill chunk over history and paged decode steps at batch 4."""
+    from repro_torch.serving import PagedBackend
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
                                          HIST + CHUNK)).to(model.device)
@@ -148,8 +170,12 @@ def profile_engine_windows(model, params) -> None:
            f"{SLOT_TOKENS} tokens", prof, wall)
 
 
-def profile_ssm_decode() -> None:
-    """falcon-mamba-7b decode at the engine's batch of 4 slots."""
+def profile_ssm() -> None:
+    """falcon-mamba-7b decode at the engine's batch of 4 slots, and the
+    prefill of a 2000-token prompt."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serving import ContiguousBackend
     model = Model(get_arch("falcon-mamba-7b"), dtype=torch.bfloat16)
     params = model.init(0)
     kv = ContiguousBackend(model, SLOTS, 2560)
@@ -174,6 +200,17 @@ def profile_ssm_decode() -> None:
     _, prof, wall = profiled(decode)
     report(f"{DECODE_STEPS} falcon-mamba-7b decode steps, {SLOTS} slots",
            prof, wall)
+    del kv
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         SSM_PREFILL)).to(model.device)
+
+    def prefill():
+        lg = model.prefill(params, {"tokens": toks[None]})["logits"]
+        torch.argmax(lg[:, -1], -1).cpu()
+
+    prefill()                                       # warm
+    _, prof, wall = profiled(prefill)
+    report(f"falcon-mamba-7b prefill of {SSM_PREFILL} tokens", prof, wall)
 
 
 if __name__ == "__main__":

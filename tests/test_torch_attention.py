@@ -248,6 +248,65 @@ def _check_flash_vs_jnp(hist, Sq, window, softcap, group, dtype, hd):
         _assert_within_one_bf16_ulp(got.float().numpy(), want)
 
 
+# -------------------------------------------- #5: P-rounding bound
+def _dominant_row(seed, hd, Skv=96, top=0.14):
+    """bf16 q, k, v for one query over Skv keys whose last key carries a
+    softmax weight of about ``top`` (the rest random), as in the card
+    check's fragile draw: the query's scores are k[:, 0] exactly."""
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(1, Skv, 1, hd))
+    s = k[0, :-1, 0, 0]
+    rest = np.exp(s).sum()
+    k[0, -1, 0, 0] = np.log(top / (1 - top) * rest)
+    q = np.zeros((1, 1, 1, hd))
+    q[0, 0, 0, 0] = hd ** 0.5
+    v = rng.normal(size=(1, Skv, 1, hd))
+    off = torch.tensor([Skv - 1], dtype=torch.int32)
+    return (_to_torch(q, "bf16"), _to_torch(k, "bf16"), _to_torch(v, "bf16"),
+            off)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_p_rounding_bound_covers_bf16_p(hd, seed):
+    """The plain version with P rounded to bf16 and with P kept in fp32
+    (both outputs in fp32, the same scores, maxima and sums) differ by no
+    more than ``flash_p_rounding_bound`` at any element, on a row with one
+    dominant weight (~0.14, where a bf16 ulp of p is ~0.001)."""
+    q, k, v, off = _dominant_row(seed, hd)
+    Skv = k.shape[1]
+    kl = torch.tensor([Skv], dtype=torch.int32)
+    logits = (q.float()[0, 0, 0] @ k.float()[0, :, 0].T) * hd ** -0.5
+    assert 0.1 < float(torch.softmax(logits, -1).max()) < 0.2
+    walk = dict(causal=True, softcap=None, window=None)
+    rounded, _ = tfa._plain_walk(q, k, v, off, kl, **walk)
+    exact, _ = tfa._plain_walk(q, k, v.float(), off, kl, **walk)
+    bound = tfa.flash_p_rounding_bound(q, k, v, off, kl)
+    assert float(bound.min()) > 0
+    assert bool(((rounded - exact).abs() <= bound).all())
+    assert torch.equal(tfa.flash_attention_plain(q, k, v, off, kl),
+                       rounded.to(q.dtype))
+    # no rounding of P in fp32: the bound is zero there
+    zero = tfa.flash_p_rounding_bound(q.float(), k.float(), v.float(), off,
+                                      kl)
+    assert not bool(zero.any())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_p_rounding_bound_fails_a_dropped_key(hd, seed):
+    """An output that leaves out one live key (the dominant one, past
+    kv_len) lies outside the bound: the check still catches a fault."""
+    q, k, v, off = _dominant_row(seed, hd)
+    Skv = k.shape[1]
+    kl = torch.tensor([Skv], dtype=torch.int32)
+    want = tfa.flash_attention_plain(q, k, v, off, kl).float()
+    bound = tfa.flash_p_rounding_bound(q, k, v, off, kl)
+    dropped = tfa.flash_attention_plain(
+        q, k, v, off, torch.tensor([Skv - 1], dtype=torch.int32)).float()
+    assert bool(((dropped - want).abs() > bound).any())
+
+
 # ------------------------------------------------------------- dispatch
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """CPU tensors never build or launch a kernel; the CUDA wrappers
