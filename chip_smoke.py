@@ -49,7 +49,15 @@ Needs one CUDA GPU and the repository checkout around this file. It
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
      checking restored K/V, greedy decoding (MATCH) and round 1's first
      token against a cache that was never evicted;
-  5. drives the serving engine on the contiguous and then the paged KV
+  5. restores llama2-7b sessions of 1024, 1536 and 2000 tokens (every
+     layer by the hidden method) under the group plans 8, (1, 2, 4, 8,
+     17), "fetch" and "auto", twice each, first under the static profile
+     and then with a ``MeasuredProfile`` the restores feed, through the
+     streams path (pinned staging ring, copy stream, CUDA events): every
+     restored K/V bitwise equal to the K/V its prefill held; prints each
+     restore's wall, projection device time and host split and the
+     profile's fitted rates, and checks that ``save``/``load`` keeps them;
+  6. drives the serving engine on the contiguous and then the paged KV
      backend: 6 sessions x 2 rounds over 4 slots with SplitFuse prefill
      chunks and mid-stream preemption, checking that both backends give
      the same tokens, that every restore rebuilds the K/V a session held
@@ -59,8 +67,15 @@ Needs one CUDA GPU and the repository checkout around this file. It
      computation on the same weights (one unchunked, unbatched forward
      over the session's whole token stream): the logits that sampled each
      of its tokens, and each token as the plain logits' best up to bf16
-     noise;
-  6. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
+     noise. Each backend runs twice: once with a synchronisation around
+     every phase (the phase table) and once without (its wall and TTFTs
+     measure how far restores overlap decode), with the same tokens; then
+     the contiguous engine runs twice finishing every restore in the step
+     it starts (so that the schedule does not depend on the restore
+     plan), uncalibrated and calibrated (a ``MeasuredProfile``, group
+     plan "auto"): the same tokens, profile samples for every method the
+     calibrated restores ran, and its calibration gauges filled;
+  7. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
      width and depth in bf16 (random weights from a seed) through the
      lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
      evict -> restore, the restored conv and ssm states bitwise equal to
@@ -70,7 +85,7 @@ Needs one CUDA GPU and the repository checkout around this file. It
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire, every prefill
      and decode step one scan launch per layer);
-  7. checks that each path launched its kernels (counts reset before and
+  8. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the kernels' JSON line, the
      card, and the device line last.
@@ -1289,12 +1304,119 @@ def serve_session(model, params, mgr, session, n0, rng):
         n_hist = n_total
 
 
+# ------------------------------------------------------- restore plans
+RESTORE_PLANS = (8, (1, 2, 4, 8, 17), "fetch", "auto")
+RESTORE_REPS = 2
+
+
+def run_restore_plans(model, params):
+    """Sessions of PROMPTS tokens, every layer by the hidden method, each
+    restored RESTORE_REPS times under every group plan of RESTORE_PLANS,
+    first under the static profile and then with a ``MeasuredProfile``
+    that the restores feed: every restored K/V bitwise equal to the K/V
+    its prefill held before eviction. Returns the walls, splits and the
+    profile."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.core.profiler import MeasuredProfile
+    from repro_torch.storage import ChunkStore, make_array
+
+    store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
+    saver = HCacheManager(model, store, schedule_override="hidden")
+    rng = np.random.default_rng(SEED)
+    held = {}
+    for n in PROMPTS:
+        toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, n)).to(
+            model.device)
+        out = model.prefill(params, {"tokens": toks[None]},
+                            capture_hidden=True)
+        saver.save_prefill(f"r{n}", toks.cpu().numpy(), out)
+        held[n] = out["kv"]
+        del out
+    saver.close()
+    walls = {}
+    profile = MeasuredProfile()
+    for calibrated in (False, True):
+        mgr = HCacheManager(model, store, schedule_override="hidden",
+                            profile=profile if calibrated else None)
+        try:
+            for plan in RESTORE_PLANS:
+                mgr.restore_group_size = plan
+                mgr.invalidate_plans()
+                for n in PROMPTS:
+                    for rep in range(RESTORE_REPS):
+                        resolved = mgr.resolve_group_size(
+                            n, ("hidden",) * model.cfg.n_layers)
+                        res = mgr.restore(params, f"r{n}", capacity=n)
+                        for i, name in enumerate(("k", "v")):
+                            if not torch.equal(res.cache[name],
+                                               held[n][i]):
+                                raise AssertionError(
+                                    f"restore of {n} tokens under plan "
+                                    f"{plan} ({resolved}, calibrated "
+                                    f"{calibrated}): {name} differs from "
+                                    "the K/V held before eviction")
+                        walls[calibrated, str(plan), n, rep] = res
+                        print(f"restore plan {plan} -> {resolved}"
+                              f"{' calibrated' if calibrated else ''}, {n} "
+                              f"tokens, rep {rep}: wall "
+                              f"{res.wall_time * 1e3:.1f} ms, projection "
+                              f"device {res.project_wall * 1e3:.2f} ms "
+                              "(compute-stream idle share "
+                              f"{1 - res.project_wall / res.wall_time:.3f})"
+                              "; host split " + ", ".join(
+                                  f"{k} {v * 1e3:.1f}"
+                                  for k, v in res.host_split.items())
+                              + " ms; K/V bitwise equal")
+                        del res
+        finally:
+            mgr.close()
+    counts = profile.sample_counts()
+    if not (counts.get("io_h") and counts.get("project")):
+        raise AssertionError(f"the restores fed no io_h or project samples "
+                             f"into the profile: {counts}")
+    print("restore plans: the profile after "
+          f"{len(RESTORE_PLANS) * len(PROMPTS) * RESTORE_REPS} calibrated "
+          f"restores: epoch {profile.epoch}, samples {counts}, " + ", ".join(
+              f"{k} {profile.rate(k):.4g} s/unit (overhead "
+              f"{profile.overhead(k) * 1e6:.1f} us)" for k in counts))
+    print("restore plans: walls (ms) by tokens, plan 8 / (1,2,4,8,17) / "
+          "fetch / auto, uncalibrated, last rep: " + "; ".join(
+              f"{n}: " + " / ".join(
+                  f"{walls[False, str(p), n, RESTORE_REPS - 1].wall_time * 1e3:.1f}"
+                  for p in RESTORE_PLANS) for n in PROMPTS))
+    return profile
+
+
+def check_profile_round_trip(profile):
+    """``save`` and ``load`` give back the same rates and overheads."""
+    from repro_torch.core.profiler import MeasuredProfile
+    path = os.path.join(ROOT, "build", "hw_profile.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    profile.save(path)
+    back = MeasuredProfile.load(path)
+    for kind in profile.kinds:
+        if (back.rate(kind), back.overhead(kind)) != (profile.rate(kind),
+                                                      profile.overhead(kind)):
+            raise AssertionError(f"the saved profile's {kind} fit changed "
+                                 "on load")
+    if back.sample_counts() != profile.sample_counts():
+        raise AssertionError("the saved profile's samples changed on load")
+
+
 # ------------------------------------------------------------ engine path
 ENGINE_PROMPTS = (1024, 1536, 2000, 512, 768, 1024)   # round 0, per session
 ENGINE_BATCH = 4
 ENGINE_MAX_SEQ = 2560        # 2000 + 16 + 256 + 16 tokens fit, in pages
 ENGINE_CHUNK = 128
 ENGINE_QUANTUM = 4
+# restore tasks per engine step that finish any restore in the step it
+# starts: the engine's schedule (which step a session pauses at, and so
+# which of its tokens a decode step or a resume prefill computes) then
+# does not depend on the restore's group plan or methods, so a calibrated
+# run must give an uncalibrated run's tokens bitwise
+WHOLE_RESTORES = 10_000
 
 # The engine against a plain computation on the same weights (one B=1
 # forward over a session's whole token stream: no chunks, no batch, no
@@ -1336,8 +1458,9 @@ def engine_classes():
                 self.schedule_override = None
 
     class Engine(InferenceEngine):
-        def __init__(self, *args, **kw):
+        def __init__(self, *args, phased=True, **kw):
             super().__init__(*args, **kw)
+            self.phased = phased
             self.snapshots, self.checked = {}, []
             self.last_logits, self.token_logits = None, {}
             self.prefills = self.decodes = 0
@@ -1397,6 +1520,11 @@ def engine_classes():
             super()._emit_token(seq, tok)
 
         def _timed(self, what, fn, *args):
+            # a phased run synchronises around every phase, which also
+            # serialises restores with decode; an unphased run keeps no
+            # phase times and lets them overlap
+            if not self.phased:
+                return fn(*args)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn(*args)
@@ -1491,20 +1619,29 @@ def check_against_plain(model, params, requests, plain):
     return worst
 
 
-def run_engine(model, params, backend: str):
+def run_engine(model, params, backend: str, *, phased=True, profile=None,
+               group=8, restore_tasks=8):
     """6 sessions x 2 rounds through the continuous-batching engine on
     ``backend``; returns tokens, metrics, what was checked and, per
-    request, what ``check_against_plain`` needs."""
+    request, what ``check_against_plain`` needs. ``phased`` times each
+    phase between synchronisations; ``profile`` (a ``MeasuredProfile``)
+    and ``group`` are the manager's calibration and group plan;
+    ``restore_tasks`` the restore tasks each engine step runs."""
     import numpy as np
     import torch
     from repro_torch.serving import Request
     from repro_torch.storage import ChunkStore, make_array
     Manager, Engine = engine_classes()
     store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
-    mgr = Manager(model, store, restore_group_size=8)
+    mgr = Manager(model, store, restore_group_size=group,
+                  **({} if profile is None else {"profile": profile}))
     eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
                  max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
-                 preempt_quantum=ENGINE_QUANTUM, backend=backend)
+                 preempt_quantum=ENGINE_QUANTUM, backend=backend,
+                 restore_tasks_per_step=restore_tasks, phased=phased)
+    name = (f"engine {backend}" + ("" if phased else " unphased")
+            + (" whole restores" if restore_tasks == WHOLE_RESTORES else "")
+            + (f" calibrated ({group})" if profile is not None else ""))
     rng = np.random.default_rng(SEED)
     tokens, rows, requests = {}, [], {}
     torch.cuda.synchronize()
@@ -1533,11 +1670,12 @@ def run_engine(model, params, backend: str):
         else set()
     res = {"tokens": tokens, "metrics": m, "wall": wall,
            "checked": len(eng.checked), "methods": methods,
-           "prefills": eng.prefills, "decodes": eng.decodes}
+           "prefills": eng.prefills, "decodes": eng.decodes,
+           "profile": profile}
     mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
     walls = dict(eng.walls)
     walls["other"] = wall - sum(walls.values())
-    print(f"engine {backend}: {wall:.1f} s for 12 requests; TTFT cold mean "
+    print(f"{name}: {wall:.1f} s for 12 requests; TTFT cold mean "
           f"{mean(m.ttft_wall_cold):.0f} ms (max "
           f"{1e3 * max(m.ttft_wall_cold, default=0):.0f}), restored mean "
           f"{mean(m.ttft_wall_restored):.0f} ms (max "
@@ -1545,15 +1683,22 @@ def run_engine(model, params, backend: str):
           f"mean {1e3 * m.restore_wall_sum / max(len(m.restore_sim_all), 1):.0f}"
           f" ms over {len(m.restore_sim_all)} "
           f"restores ({m.restored_tokens} tokens); decode "
-          f"{1e3 * walls['decode'] / max(m.decode_steps, 1):.1f} ms per "
-          f"step over {m.decode_steps} steps; "
+          + (f"{1e3 * walls['decode'] / max(m.decode_steps, 1):.1f} ms per "
+             "step" if phased else "untimed")
+          + f" over {m.decode_steps} steps; "
           f"{eng.prefills} prefill chunks; preemptions {m.preemptions}; "
           f"peak reserved tokens {m.reserved_tokens_peak}; "
           f"{len(eng.checked)} restores bitwise equal to their snapshots "
           f"(methods {sorted(methods)})")
-    print(f"engine {backend} wall by phase (synchronised): " + ", ".join(
-        f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
-    print(f"engine {backend} requests: " + "; ".join(rows))
+    if phased:
+        print(f"{name} wall by phase (synchronised): " + ", ".join(
+            f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
+    if profile is not None:
+        print(f"{name} calibration: {m.makespan_err_n} restores, planned-"
+              f"vs-measured makespan error mean {m.makespan_err_mean:.1%}, "
+              f"bubble mean {m.restore_bubble_mean:.1%}; profiler samples "
+              f"{m.profiler_samples}")
+    print(f"{name} requests: " + "; ".join(rows))
     eng.close()
     res["requests"] = requests
     return res
@@ -1575,6 +1720,42 @@ def check_engine(con, pag):
             < con["metrics"].reserved_tokens_peak):
         raise AssertionError("paged reserved no less than contiguous")
     print("engine: tokens identical on both backends for all 12 requests")
+
+
+def check_same_tokens(name, run, ref, ref_name="phased"):
+    """A run of the engine gives the reference run's tokens."""
+    if run["tokens"] != ref["tokens"]:
+        bad = [k for k in ref["tokens"] if run["tokens"][k] != ref["tokens"][k]]
+        raise AssertionError(f"{name}: tokens differ from the {ref_name} "
+                             f"run's for {bad}")
+    if run["checked"] <= 0:
+        raise AssertionError(f"{name}: no restore was checked")
+    print(f"{name}: tokens identical to the {ref_name} run's for all 12 "
+          "requests")
+
+
+def check_calibration(run):
+    """The calibrated run fed its profile for every method its restores
+    ran, and the profile survives ``save``/``load``."""
+    profile = run["profile"]
+    counts = profile.sample_counts()
+    need = {"io_h", "project"} | ({"recompute"} if "recompute"
+                                  in run["methods"] else set()) | (
+        {"io_kv"} if "kv" in run["methods"] else set())
+    missing = sorted(k for k in need if not counts.get(k))
+    if missing:
+        raise AssertionError(f"calibrated engine: no {missing} samples in "
+                             f"the profile ({counts})")
+    m = run["metrics"]
+    if m.profiler_samples != counts or not m.makespan_err_n:
+        raise AssertionError("calibrated engine: the calibration gauges "
+                             "were not filled")
+    check_profile_round_trip(profile)
+    print("engine contiguous calibrated: profile epoch "
+          f"{profile.epoch}, samples {counts}; rates " + ", ".join(
+              f"{k} {profile.rate(k):.4g} s/unit (overhead "
+              f"{profile.overhead(k) * 1e6:.1f} us)" for k in counts)
+          + "; save/load gives the same fits")
 
 
 # --------------------------------------------------------------- ssm path
@@ -1756,6 +1937,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: {SRC}/repro_torch not found; run "
                          "from a checkout of the repository")
     sys.path.insert(0, SRC)
+    from repro_torch.core.profiler import MeasuredProfile
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -1820,27 +2002,61 @@ def main() -> None:
     model, params = build_model()
     drive("lifecycle", lambda: run_main_path(model, params),
           ("restore_kv_grouped", "decode_attention", "flash_attention"))
+    profile = drive("restore plans", lambda: run_restore_plans(model, params),
+                    ("restore_kv_grouped",))
+    check_profile_round_trip(profile)
+    gc.collect()
+    torch.cuda.empty_cache()
     runs, plain = {}, {}
-    for backend, decode_kernel in (("contiguous", "decode_attention"),
-                                   ("paged", "decode_attention_paged")):
-        runs[backend] = drive(
-            f"engine {backend}", lambda b=backend: run_engine(model, params, b),
-            ("restore_kv_grouped", decode_kernel, "flash_attention"))
+
+    def against_plain(name, run, plain):
         # outside the counted path: the plain forward launches kernels too
         t1 = time.perf_counter()
-        worst = check_against_plain(model, params,
-                                    runs[backend].pop("requests"), plain)
-        print(f"engine {backend} against the plain forward (12 requests, "
+        worst = check_against_plain(model, params, run.pop("requests"),
+                                    plain)
+        print(f"{name} against the plain forward (12 requests, "
               f"{time.perf_counter() - t1:.1f} s): logits relative error "
               f"max {worst['cold']:.5f} at cold first tokens, "
               f"{worst['restored']:.5f} at restored first tokens, "
               f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}); "
               f"generated tokens at most {worst['gap']:.4f} std below the "
               f"plain best (limit {PLAIN_GAP})")
-        gc.collect()                 # free this backend's cache first
+        gc.collect()                 # free this run's cache first
         torch.cuda.empty_cache()
+
+    for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                   ("paged", "decode_attention_paged")):
+        needs = ("restore_kv_grouped", decode_kernel, "flash_attention")
+        runs[backend] = drive(
+            f"engine {backend}", lambda b=backend: run_engine(model, params, b),
+            needs)
+        against_plain(f"engine {backend}", runs[backend], plain)
+        # the overlap's measure: no synchronisation around the phases
+        free = drive(f"engine {backend} unphased", lambda b=backend:
+                     run_engine(model, params, b, phased=False), needs)
+        check_same_tokens(f"engine {backend} unphased", free, runs[backend])
+        against_plain(f"engine {backend} unphased", free, plain)
+        del free
     check_engine(runs["contiguous"], runs["paged"])
-    del model, params, runs, plain   # free llama2-7b before falcon-mamba
+    # calibration: the same engine with a MeasuredProfile and "auto" group
+    # plans against an uncalibrated twin, both finishing every restore in
+    # the step it starts, so that the schedule is the same
+    needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
+    twin = drive("engine contiguous whole restores",
+                 lambda: run_engine(model, params, "contiguous",
+                                    restore_tasks=WHOLE_RESTORES), needs)
+    calibrated = drive(
+        "engine contiguous whole restores calibrated",
+        lambda: run_engine(model, params, "contiguous",
+                           profile=MeasuredProfile(), group="auto",
+                           restore_tasks=WHOLE_RESTORES), needs)
+    check_same_tokens("engine contiguous calibrated", calibrated, twin,
+                      "uncalibrated")
+    check_calibration(calibrated)
+    plain = {}                       # these streams may differ from above
+    against_plain("engine contiguous whole restores", twin, plain)
+    against_plain("engine contiguous calibrated", calibrated, plain)
+    del model, params, runs, plain, twin, calibrated   # free llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
     model, params = build_ssm_model()

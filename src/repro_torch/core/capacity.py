@@ -19,27 +19,37 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 from repro_torch.core.cost_model import layer_costs, link_priced_times
-from repro_torch.core.restoration import compile_tasks, replay, task_links
+from repro_torch.core.restoration import (compile_tasks,
+                                          measured_dispatch_overhead, replay,
+                                          task_links)
 
 
 # ----------------------------------------------------- restore-cost estimate
 def restore_makespan(mgr, n_tokens: int,
                      methods: Optional[Sequence[str]] = None) -> float:
-    """Estimated restoration makespan (seconds under ``mgr.hw``) for a
-    session of ``n_tokens``: the two-stream replay of the task graph the
-    executor would run, with its IO legs priced under the manager's
-    engine-reported restore multiplicity (``mgr.io_streams``), so
-    admission and eviction cost a restore under the bandwidth it would
-    contend for."""
+    """Estimated restoration makespan (seconds) for a session of
+    ``n_tokens``: the two-stream replay of the task graph the executor
+    would run, under the group plan it would resolve
+    (``mgr.resolve_group_size``), priced under the manager's
+    ``MeasuredProfile`` where it has samples (``mgr.hw`` elsewhere) and
+    with the IO legs stretched by the engine-reported restore
+    multiplicity (``mgr.io_streams``), so admission and eviction cost a
+    restore under the bandwidth it would contend for."""
     if n_tokens <= 0:
         return 0.0
     if methods is None:
         methods = mgr.plan(n_tokens).methods
     times, layer_links = link_priced_times(
         layer_costs(mgr.cfg, n_tokens, mgr.dtype_bytes), mgr.hw,
-        io_streams=mgr.io_streams, topology=mgr.store.shard_topology())
-    tasks = compile_tasks(tuple(methods), group_size=mgr.restore_group_size)
-    return replay(tasks, times, dispatch_overhead=mgr.hw.dispatch_overhead,
+        profile=mgr.profile, io_streams=mgr.io_streams,
+        topology=mgr.store.shard_topology())
+    tasks = compile_tasks(tuple(methods),
+                          n_blobs=mgr.model.adapter.n_state_blobs,
+                          group_size=mgr.resolve_group_size(n_tokens,
+                                                            methods))
+    return replay(tasks, times,
+                  dispatch_overhead=measured_dispatch_overhead(mgr.hw,
+                                                               mgr.profile),
                   links=task_links(tasks, layer_links)).makespan
 
 

@@ -2,7 +2,9 @@
 families).
 
   * plan: the per-layer restoration schedule (bubble-free scheduler),
-    priced under the paper's Hopper profile by default;
+    priced under the paper's Hopper profile by default, or under a
+    ``MeasuredProfile`` that the restores feed (``profile=``), and the
+    projection group plan of each restore (``resolve_group_size``);
   * save: prefill hidden states (and K/V of ``kv``-method layers) into the
     chunk store, decode hidden states through the two-stage saver, and
     the token stream plus a manifest, which also records the history's
@@ -24,17 +26,21 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
 from repro_torch.config.arch import BlockKind
 from repro_torch.config.hardware import PAPER_H800, HardwareProfile
+from repro_torch.core.cost_model import layer_costs, link_priced_times
 from repro_torch.core.pipeline import Timeline
 from repro_torch.core.restoration import (CacheAssembler, RestorationExecutor,
                                           RestoreParamPack, RestoreSink,
-                                          to_host)
+                                          StagingRing, choose_group_size,
+                                          fetch_aligned_partition,
+                                          measured_dispatch_overhead,
+                                          s_bucket, to_host)
 from repro_torch.core.scheduler import Schedule, solve
 from repro_torch.storage.chunk_store import ChunkStore
 from repro_torch.storage.two_stage import SnapshotTask, TwoStageSaver
@@ -47,7 +53,8 @@ class RestoreResult:
     schedule: Schedule
     timeline: Timeline               # virtual restoration timing
     wall_time: float                 # seconds, synchronised with the device
-    project_wall: float              # of which in projection groups
+    project_wall: float              # device seconds of projection groups
+    host_split: dict                 # executor host seconds by part
     n_tokens: int
 
 
@@ -56,23 +63,43 @@ class HCacheManager:
                  hw: HardwareProfile = PAPER_H800,
                  saver: Optional[TwoStageSaver] = None, dtype_bytes: int = 2,
                  schedule_override: Optional[str] = None,
-                 restore_group_size: int = 8):
+                 restore_group_size=8, profile=None):
         self.model = model
         self.cfg = model.cfg
         self.store = store
         self.hw = hw
-        self._plans = {}
-        self.restore_group_size = max(int(restore_group_size), 1)
+        self._plans: Dict[tuple, Schedule] = {}
+        self._group_plans: Dict[tuple, object] = {}
+        # online calibration: a MeasuredProfile the executors fold their
+        # observed task times into and every planning call (plan,
+        # resolve_group_size, capacity.restore_makespan) prices with;
+        # None keeps the static HardwareProfile model
+        self.profile = profile
+        # projection group plan: a width (1 = per layer), a tuple of
+        # widths, "auto" (per restore, the makespan argmin over uniform
+        # widths and the fetch-aligned partition) or "fetch" (the
+        # fetch-aligned partition)
+        if restore_group_size in ("auto", "fetch"):
+            self.restore_group_size = restore_group_size
+        elif isinstance(restore_group_size, (tuple, list)):
+            self.restore_group_size = tuple(
+                max(int(w), 1) for w in restore_group_size)
+        else:
+            self.restore_group_size = max(int(restore_group_size), 1)
         self._pack = None
         self._pack_params = None
+        self._ring: Optional[StagingRing] = None
+        self._launched: Set[tuple] = set()
         self.saver = saver or TwoStageSaver(store)
         self.dtype_bytes = dtype_bytes
         self.io_streams = 1          # concurrent restores (engine-reported)
         self.schedule_override = schedule_override   # None|hidden|kv|recompute
 
     def close(self) -> None:
-        """Drain and stop the saver's threads."""
+        """Drain and stop the saver's threads; wait for uploads in flight."""
         self.saver.close()
+        if self._ring is not None:
+            self._ring.close()
 
     def param_pack(self, params):
         """Restoration weights for ``params``, built once and reused; None
@@ -84,24 +111,108 @@ class HCacheManager:
             self._pack_params = params
         return self._pack
 
+    def staging(self) -> StagingRing:
+        """The restores' staging ring and copy stream, made once."""
+        if self._ring is None:
+            self._ring = StagingRing(self.model.device)
+        return self._ring
+
+    def first_launch(self, shape: tuple) -> bool:
+        """True the first time a restore launches at ``shape``: that launch
+        carries the kernel's build and set-up, so the profiler skips it."""
+        if shape in self._launched:
+            return False
+        self._launched.add(shape)
+        return True
+
     def set_io_streams(self, n: int) -> None:
         """Engine-reported restore multiplicity: how many sessions pull
-        the store at once; an executor prices its IO legs under it."""
+        the store at once; plans are memoized per multiplicity."""
         self.io_streams = max(int(n), 1)
+
+    def set_profile(self, profile) -> None:
+        """Attach (or detach) a MeasuredProfile; memoized plans priced
+        under the old one are flushed."""
+        if profile is not self.profile:
+            self.profile = profile
+            self.invalidate_plans()
+
+    def invalidate_plans(self) -> None:
+        """Flush every memoized schedule and group plan (after a change
+        of ``hw``). Profile drift and multiplicity need no flush: both
+        are part of the cache keys (``_price_key``)."""
+        self._plans.clear()
+        self._group_plans.clear()
+
+    def _price_key(self) -> tuple:
+        """The calibration state a plan was priced under: the profile's
+        epoch (it bumps when a fit drifts) and the IO multiplicity."""
+        epoch = self.profile.epoch if self.profile is not None else -1
+        return (epoch, self.io_streams)
 
     # ------------------------------------------------------------- planning
     def plan(self, n_tokens: int) -> Schedule:
-        """Bucketed bubble-free schedule (power-of-two token buckets)."""
+        """Bucketed bubble-free schedule (power-of-two token buckets),
+        priced under the measured profile and the IO multiplicity (part of
+        the memoization key)."""
         if self.schedule_override:
             methods = (self.schedule_override,) * self.cfg.n_layers
             return Schedule(methods, 0.0, 0.0, 0.0, 0.0)
         bucket = 1 << max(int(np.ceil(np.log2(max(n_tokens, 128)))), 7)
-        if bucket not in self._plans:
-            self._plans[bucket] = solve(
+        key = (bucket, self._price_key())
+        if key not in self._plans:
+            self._plans[key] = solve(
                 self.cfg, bucket, self.hw, dtype_bytes=self.dtype_bytes,
                 allow_recompute=self.model.adapter.supports_recompute,
+                profile=self.profile, io_streams=self.io_streams,
                 topology=self.store.shard_topology())
-        return self._plans[bucket]
+        return self._plans[key]
+
+    def resolve_group_size(self, n_tokens: int, methods):
+        """The projection group plan of one restore: the fixed width or
+        tuple, or under ``"auto"``/``"fetch"`` the plan priced at the
+        restore's S-bucket (``choose_group_size``, or the forced
+        fetch-aligned partition). Returns an int width or a tuple of
+        widths, memoized per (S-bucket, methods, ``_price_key``): a
+        profile-epoch bump or a multiplicity change re-plans, a converged
+        profile reuses. The one resolution point for the executor and
+        ``capacity.restore_makespan``."""
+        if self.restore_group_size not in ("auto", "fetch"):
+            return self.restore_group_size
+        key = (s_bucket(max(int(n_tokens), 1)), tuple(methods),
+               self._price_key())
+        got = self._group_plans.get(key)
+        if got is None:
+            if self.restore_group_size == "fetch":
+                got = self._fetch_partition(n_tokens, methods)
+            else:
+                got = choose_group_size(
+                    self.cfg, self.hw, n_tokens, methods,
+                    dtype_bytes=self.dtype_bytes,
+                    n_blobs=self.model.adapter.n_state_blobs,
+                    profile=self.profile, io_streams=self.io_streams,
+                    topology=self.store.shard_topology(),
+                    fetch_aligned=True)
+            self._group_plans[key] = got
+        return got
+
+    def _fetch_partition(self, n_tokens: int, methods):
+        """The forced fetch-aligned partition, priced at the S-bucket
+        under the current profile and multiplicity; an all-equal
+        partition collapses to its uniform width."""
+        bucket = s_bucket(max(int(n_tokens), 1))
+        times, layer_links = link_priced_times(
+            layer_costs(self.cfg, bucket, self.dtype_bytes), self.hw,
+            profile=self.profile, io_streams=self.io_streams,
+            topology=self.store.shard_topology())
+        part = fetch_aligned_partition(
+            methods, times,
+            dispatch_overhead=measured_dispatch_overhead(self.hw,
+                                                         self.profile),
+            links=layer_links)
+        if not part:
+            return 1
+        return part[0] if len(set(part)) == 1 else part
 
     # ----------------------------------------------------------------- save
     def save_prefill(self, session: str, tokens, prefill_out: dict, *,
@@ -179,7 +290,8 @@ class HCacheManager:
         adapter = self.model.adapter
         kinds = self.cfg.block_kinds()
         for li, method in enumerate(manifest["methods"]):
-            if method != "kv" or kinds[li] != BlockKind.ATTENTION:
+            if (method != "kv" or kinds[li] != BlockKind.ATTENTION
+                    or n_tokens <= prev_n):   # no new tokens: no K/V tail
                 continue
             for stream, name in zip(("kvk", "kvv"), adapter.kv_names):
                 x = cache[name][adapter.kv_row(li)][0, prev_n:n_tokens]
@@ -233,7 +345,8 @@ class HCacheManager:
             torch.cuda.synchronize(self.model.device)
         wall = time.perf_counter() - t0
         return RestoreResult(sink.cache, ex.schedule, ex.timeline(), wall,
-                             ex.project_wall, ex.n_tokens)
+                             ex.project_wall, dict(ex.host_split),
+                             ex.n_tokens)
 
     # -------------------------------------------------------------- eviction
     def evict(self, session: str) -> None:

@@ -18,17 +18,27 @@ state blob. The same graph serves:
                               analytic model cannot drift apart.
 
 A projection group is one device call: the members' hidden states go up
-in one upload from pinned host memory, the model's norm and the grouped
-restoration kernel (``kernels.ops.restore_kv_grouped``) run over the
-whole weight stack indexed by row, and the sink receives the group in one
-call. The token axis is padded to a power-of-two bucket (``s_bucket``)
-with zero rows that are sliced away. The virtual timeline is the model;
-real IO/compute overlap on CUDA streams is later work.
+in one upload from a pinned slot of the manager's ``StagingRing`` on its
+copy stream, the model's norm and the grouped restoration kernel
+(``kernels.ops.restore_kv_grouped``) run on the compute stream over the
+whole weight stack indexed by row once the upload's event has fired, and
+the sink receives the group in one call. A group is launched at its own
+width and token count: the kernel takes any (G, S) and gives the same
+bits for a row whatever the shape, so nothing is padded (the JAX
+package pads to a power-of-two token bucket and the plan's widest group
+to compile one shape; the plans here are still priced at that bucket).
+Group plans come from the manager: a fixed width, a tuple of widths, or
+the makespan argmin (``choose_group_size``) over uniform widths and the
+fetch-aligned partition (``fetch_aligned_partition``), priced under the
+manager's ``MeasuredProfile`` when it has one, which the executor feeds.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -250,6 +260,128 @@ def replay(tasks: Sequence[Task], times: Sequence[MethodTimes],
     return Timeline(max(io_t, comp_t), io_busy, comp_busy, io_t, comp_t)
 
 
+# ------------------------------------------------------------ group plans
+GROUP_SIZE_CANDIDATES = (1, 2, 4, 8)
+
+
+def fetch_aligned_partition(methods: Sequence[str],
+                            times: Sequence[MethodTimes], *,
+                            dispatch_overhead: float = 0.0,
+                            links: Optional[Dict[int, int]] = None)\
+        -> Tuple[int, ...]:
+    """Group boundaries at fetch-completion times.
+
+    A projection group cannot start before its LAST member's hidden
+    fetch lands, so a wide first group leaves the compute stream idle
+    for the whole fetch ramp while a width-1 tail pays dispatch overhead
+    per layer. The optimal shape is non-uniform: boundaries placed where
+    the fetch stream has just caught up — small leading groups, wide
+    tail groups. Exact O(n²) DP over the hidden layers: ``f(j)`` =
+    earliest compute-stream completion of the first ``j`` projections,
+    with fetch ``j`` landing at the io_h prefix sum and the compute
+    stream starting busy for the recompute prefix (which replay runs
+    before any projection).
+
+    ``links`` (layer → NIC link, distributed store) makes the fetch
+    completions per-shard: each link runs its own serial queue, so fetch
+    ``j`` lands on its OWN link's running clock. The DP gates a group
+    ending at ``j`` on the prefix-max of the completions (the group
+    needs ALL members' fetches; per-link clocks are not monotone in
+    ``j``), which collapses to the plain prefix sum on one host."""
+    hidden = [i for i, m in enumerate(methods) if m == "hidden"]
+    n = len(hidden)
+    if n <= 1:
+        return (1,) * n
+    fetch_done = [0.0] * (n + 1)            # per-fetch completion times
+    link_clock: Dict[int, float] = {}
+    for j, li in enumerate(hidden):
+        link = links.get(li, 0) if links else 0
+        link_clock[link] = link_clock.get(link, 0.0) + times[li].io_h
+        fetch_done[j + 1] = link_clock[link]
+    gate = [0.0] * (n + 1)                  # prefix max: all fetches <= j
+    for j in range(1, n + 1):
+        gate[j] = max(gate[j - 1], fetch_done[j])
+    busy0 = sum(times[li].c_token + dispatch_overhead
+                for li, m in enumerate(methods) if m == "recompute")
+    c_h = [times[li].c_h for li in hidden]
+    f = [0.0] * (n + 1)
+    parent = [0] * (n + 1)
+    f[0] = busy0
+    for j in range(1, n + 1):
+        best = None
+        proj = 0.0
+        for i in range(j - 1, -1, -1):      # group = hidden[i:j]
+            proj += c_h[i]
+            t = max(f[i], gate[j]) + dispatch_overhead + proj
+            if best is None or t < best:
+                best, parent[j] = t, i
+        f[j] = best
+    widths: List[int] = []
+    j = n
+    while j > 0:
+        widths.append(j - parent[j])
+        j = parent[j]
+    return tuple(reversed(widths))
+
+
+def measured_dispatch_overhead(hw, profile) -> float:
+    """Per-launch overhead to price a plan with: the profile's fitted
+    projection intercept when it has one, else the hardware guess."""
+    if profile is not None:
+        measured = profile.dispatch_overhead(
+            mesh=getattr(hw, "mesh_devices", 1))
+        if measured is not None:
+            return measured
+    return getattr(hw, "dispatch_overhead", 0.0)
+
+
+def choose_group_size(cfg, hw, n_tokens: int, methods: Sequence[str], *,
+                      dtype_bytes: int = 2, n_blobs: int = 0,
+                      profile=None, io_streams: int = 1,
+                      fetch_aligned: bool = False,
+                      topology=None, link_load=None):
+    """Auto group-size planning: replay the grouped task graph over the
+    hardware profile for g ∈ {1, 2, 4, 8, L} — plus, with
+    ``fetch_aligned``, the non-uniform fetch-completion partition — and
+    take the makespan argmin. The same group-aware cost model the
+    executor's timeline and ``capacity.restore_makespan`` use, so the
+    planner and the metric cannot disagree. Ties prefer fewer groups
+    (equal modelled makespan, strictly fewer launches). Returns an int
+    (uniform width) or a tuple of widths (non-uniform partition).
+
+    ``profile``/``io_streams`` price the replay with measured rates and
+    the current restore multiplicity. The choice is computed at the
+    ``s_bucket`` of ``n_tokens``, not the exact length, as the JAX
+    package does: every session in a bucket picks the same plan."""
+    n_hidden = sum(1 for m in methods if m == "hidden")
+    if n_hidden <= 1:
+        return 1
+    n_bucket = s_bucket(max(int(n_tokens), 1))
+    times, layer_links = link_priced_times(
+        layer_costs(cfg, n_bucket, dtype_bytes), hw, profile=profile,
+        io_streams=io_streams, topology=topology, link_load=link_load)
+    overhead = measured_dispatch_overhead(hw, profile)
+    cands = sorted({g for g in GROUP_SIZE_CANDIDATES if g < n_hidden}
+                   | {n_hidden})
+
+    def makespan(g):
+        tasks = compile_tasks(tuple(methods), n_blobs=n_blobs,
+                              group_size=g)
+        return replay(tasks, times, dispatch_overhead=overhead,
+                      links=task_links(tasks, layer_links)).makespan
+
+    best = min(cands, key=lambda g: (makespan(g), -g))
+    if not fetch_aligned:
+        return best
+    part = fetch_aligned_partition(methods, times,
+                                   dispatch_overhead=overhead,
+                                   links=layer_links)
+    widths = set(part)
+    if len(widths) == 1:                 # degenerate partition is uniform
+        part = widths.pop()
+    # prefer the uniform plan on ties: same modelled makespan, simpler
+    return part if makespan(part) < makespan(best) else best
+
 
 # ----------------------------------------------------- host <-> device words
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -261,25 +393,111 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def host_buffer(shape, dtype: np.dtype, device) -> torch.Tensor:
-    """An uninitialised host staging buffer of numpy ``dtype``, pinned when
-    it feeds a CUDA upload."""
-    pin = torch.device(device).type == "cuda"
-    return torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
-                       pin_memory=pin)
-
-
-def to_device(x, dtype: torch.dtype, device) -> torch.Tensor:
-    """Upload store data (numpy or a host tensor from ``host_buffer``) and
-    view it as ``dtype``: int16 words become bf16 bit for bit."""
-    if isinstance(x, np.ndarray):
-        staged = host_buffer(x.shape, x.dtype, device)
-        staged.numpy()[...] = x
-        x = staged
-    x = x.to(device, non_blocking=x.is_pinned())
+def as_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Store words as ``dtype``: int16 words become bf16 bit for bit."""
     if dtype == torch.bfloat16 and x.dtype == torch.int16:
         return x.view(torch.bfloat16)
     return x.to(dtype)
+
+
+STAGING_SLOTS = 3
+FILL_THREADS = 4
+# where an executor's host seconds go (``RestorationExecutor.host_split``)
+HOST_SPLIT = ("read", "copy", "upload", "launch", "drain")
+
+
+class StagingRing:
+    """Host staging of restoration uploads, owned by the manager and kept
+    across restores: ``STAGING_SLOTS`` host buffers (pinned on the card)
+    used in turn, each grown when an upload does not fit to the largest
+    size in the ring, and the copy stream the uploads run on.
+
+    ``stage(shape, dtype)`` hands out the next slot as a numpy array for
+    the host to fill, after waiting for that slot's previous upload to
+    finish: rewriting a pinned buffer under an upload in flight would
+    change the restored K/V silently. ``upload`` issues the copy with
+    ``non_blocking=True`` on the copy stream into a device tensor
+    allocated there, records the slot's event, makes the caller's current
+    stream (the compute stream) wait on it, and marks the tensor as used
+    by that stream (``record_stream``), so the caching allocator does not
+    hand its memory to a later copy-stream allocation while the compute
+    stream may still read it. An executor dropped mid-restore leaves
+    nothing unguarded: the slots and their events live here, and its
+    device tensors are freed through the allocator's stream records.
+    On the CPU the slots are plain memory and ``upload`` copies.
+
+    ``fill(jobs)`` runs a slot's host copies (one per layer of a group,
+    each into its own rows) on ``FILL_THREADS`` worker threads: one
+    thread does not reach the host's copy rate into pinned memory, and
+    numpy releases the interpreter lock while it copies."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.copy_stream = (torch.cuda.Stream(self.device) if self.cuda
+                            else None)
+        self._bufs: List[Optional[torch.Tensor]] = [None] * STAGING_SLOTS
+        self._events: List[Optional[torch.cuda.Event]] = \
+            [None] * STAGING_SLOTS
+        self._next = 0
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def stage(self, shape, dtype) -> Tuple[int, np.ndarray]:
+        """(slot, a host array of ``shape`` and numpy ``dtype`` in it)."""
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < nbytes:
+            # grow to the ring's largest slot at least: slots used in turn
+            # by groups of several widths then stop growing at once
+            size = max([nbytes, 1] + [b.numel() for b in self._bufs
+                                      if b is not None])
+            buf = self._bufs[i] = torch.empty(size, dtype=torch.uint8,
+                                              pin_memory=self.cuda)
+        return i, buf[:nbytes].numpy().view(dtype).reshape(shape)
+
+    def fill(self, jobs) -> None:
+        """Run ``jobs`` (callables writing disjoint parts of a staged
+        array) on the worker threads; returns when all are done."""
+        if len(jobs) == 1:
+            jobs[0]()
+            return
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(FILL_THREADS,
+                                            thread_name_prefix="staging")
+        for f in [self._pool.submit(job) for job in jobs]:
+            f.result()
+
+    def upload(self, slot: int, host: np.ndarray,
+               dtype: torch.dtype) -> torch.Tensor:
+        """The staged ``host`` array of ``slot`` on the device, as
+        ``dtype``, ordered before the current stream's later work."""
+        words = torch.from_numpy(np.empty(0, host.dtype)).dtype
+        src = self._bufs[slot][:host.nbytes].view(words).view(host.shape)
+        if not self.cuda:
+            return as_dtype(src.clone(), dtype)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.copy_stream):
+            x = torch.empty(host.shape, dtype=words, device=self.device)
+            x.copy_(src, non_blocking=True)
+            event = self._events[slot] = torch.cuda.Event()
+            event.record(self.copy_stream)
+        compute.wait_event(event)
+        x.record_stream(compute)
+        return as_dtype(x, dtype)
+
+    def close(self) -> None:
+        """Wait for the uploads in flight (their pinned sources) and stop
+        the worker threads."""
+        if self.cuda:
+            self.copy_stream.synchronize()
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
 
 # ------------------------------------------------------------------- sinks
@@ -353,8 +571,8 @@ class CacheAssembler(RestoreSink):
 
 # ---------------------------------------------------------- param packing
 def s_bucket(n: int, minimum: int = 16) -> int:
-    """Power-of-two token bucket for projection shapes; the padded tail is
-    zeros and its outputs are sliced away before the sink."""
+    """Power-of-two token bucket: the length group plans are priced at,
+    RoPE tables are cut at and profile samples are filed under."""
     b = max(int(minimum), 1)
     while b < n:
         b <<= 1
@@ -372,19 +590,33 @@ class RestoreParamPack:
         self.attn = model.h.attn
         self._tables: Dict[Tuple[int, int],
                            Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._rows: Dict[Tuple[int, ...], torch.Tensor] = {}
+
+    def rows(self, rows: Tuple[int, ...]) -> torch.Tensor:
+        """``rows`` as an int32 device tensor, uploaded once per tuple
+        and without waiting for the device (a pageable upload would)."""
+        got = self._rows.get(rows)
+        if got is None:
+            host = torch.tensor(rows, dtype=torch.int32)
+            if self.model.device.type == "cuda":
+                host = host.pin_memory()
+            got = self._rows[rows] = host.to(self.model.device,
+                                             non_blocking=True)
+        return got
 
     def rope_tables(self, n_pos: int, offset: int = 0):
         """cos/sin (n_pos, head_dim//2) for positions [offset,
-        offset + n_pos)."""
-        key = (n_pos, offset)
+        offset + n_pos): row slices of a table cut once per power-of-two
+        bucket of ``n_pos``."""
+        key = (s_bucket(n_pos), offset)
         got = self._tables.get(key)
         if got is None:
-            end = offset + n_pos
+            end = offset + key[0]
             cos, sin = rope_table(end, self.attn.head_dim,
                                   self.attn.rope_theta, self.model.device)
             got = (cos[offset:end].contiguous(), sin[offset:end].contiguous())
             self._tables[key] = got
-        return got
+        return got[0][:n_pos], got[1][:n_pos]
 
 
 def project_group(pack: RestoreParamPack, hidden: torch.Tensor,
@@ -408,10 +640,32 @@ class RestorationExecutor:
     (whichever stream's clock is behind goes next); a serving engine
     steps it a few tasks per engine step. ``prefetch_step`` runs IO tasks
     only, before a sink is attached: pieces finished without a sink are
-    kept and flushed by ``attach_sink``. Projection tasks are groups of
-    ``mgr.restore_group_size`` layers. ``project_wall`` sums the wall
-    seconds inside projection groups, synchronised with the device;
-    ``wall_time`` the seconds inside ``step`` and ``prefetch_step``."""
+    kept and flushed by ``attach_sink``. Projection tasks are groups under
+    the manager's resolved plan (``resolve_group_size``: a width, a tuple
+    of widths, or the ``auto``/``fetch`` choice).
+
+    On the card a group's data path is asynchronous: once its members'
+    reads have landed the host fills a slot of the manager's
+    ``StagingRing``, the upload runs on the ring's copy stream, and the
+    compute stream (the caller's current stream, which the engine's
+    decode also runs on) waits on the upload's event, runs the norm and
+    the restoration kernel and hands the group to the sink. No task body
+    waits for the device; CUDA events around each group's norm + kernel
+    give its device seconds, read once the end event has completed
+    (polled in ``step``, drained when the restore is done).
+    ``project_wall`` sums those device seconds (wall seconds on the CPU);
+    ``wall_time`` the host seconds inside ``step`` and ``prefetch_step``,
+    of which ``host_split`` says where they went: ``read`` (store reads
+    and waits for them), ``copy`` (filling staging slots), ``upload``
+    (waiting for a free slot, issuing the copy), ``launch`` (norm, kernel
+    and sink calls) and ``drain`` (waiting for the device at the end).
+
+    With a ``MeasuredProfile`` on the manager every task's observed
+    duration is folded into it (``_run_profiled``): IO tasks by the
+    store's read service, compute tasks by their device seconds (wall on
+    the CPU), skipping the first launch of each projection shape, which
+    includes the kernel's build and set-up. ``observed`` keeps them for
+    ``measured_timeline``."""
 
     def __init__(self, mgr, params, session: str,
                  sink: Optional[RestoreSink] = None, start_token: int = 0):
@@ -443,19 +697,23 @@ class RestorationExecutor:
         kinds = mgr.cfg.block_kinds()
         self._row_of = {li: r for r, li in enumerate(
             i for i, k in enumerate(kinds) if k == BlockKind.ATTENTION)}
-        self.group_size = max(int(mgr.restore_group_size), 1)
+        gs = mgr.resolve_group_size(self.n_eff, self.methods)
+        # int = uniform width; tuple = non-uniform partition
+        self.group_size = (tuple(int(w) for w in gs)
+                           if isinstance(gs, (tuple, list))
+                           else max(int(gs), 1))
         self.pack = mgr.param_pack(params)
-        n_hidden = sum(1 for m in self.methods if m == "hidden")
-        self._g_pad = min(self.group_size, max(n_hidden, 1))
-        self.dispatch_overhead = mgr.hw.dispatch_overhead
+        self.profile = mgr.profile
+        self.dispatch_overhead = measured_dispatch_overhead(mgr.hw,
+                                                            self.profile)
         self.tasks = compile_tasks(
             self.methods, n_blobs=self.model.adapter.n_state_blobs,
             group_size=self.group_size)
         self.costs = layer_costs(mgr.cfg, self.n_eff, mgr.dtype_bytes)
         self.topology = mgr.store.shard_topology()
         self.times, layer_links = link_priced_times(
-            self.costs, mgr.hw, io_streams=mgr.io_streams,
-            topology=self.topology)
+            self.costs, mgr.hw, profile=self.profile,
+            io_streams=mgr.io_streams, topology=self.topology)
         self._task_links = task_links(self.tasks, layer_links)
         self.executed: List[int] = []
         self._done = [False] * len(self.tasks)
@@ -466,8 +724,9 @@ class RestorationExecutor:
         self._io_clock = 0.0
         self._io_clocks: Dict[int, float] = {}
         self._comp_clock = 0.0
-        self._hio: Dict[int, object] = {}     # layer -> hidden read ticket
-        self._kvio: List[tuple] = []          # (layer, k ticket, v ticket)
+        self._cur_idx = -1
+        self._hio: Dict[int, tuple] = {}      # layer -> (task, read ticket)
+        self._kvio: List[tuple] = []          # (task, layer, k and v tickets)
         self._re_layers = [i for i, m in enumerate(self.methods)
                            if m == "recompute"]
         if self._re_layers != list(range(len(self._re_layers))):
@@ -478,10 +737,24 @@ class RestorationExecutor:
         self._re_next = 0
         self._finished = False
         self._pending: List[Tuple[str, tuple]] = []   # pieces before a sink
+        self._ring = mgr.staging()
+        self._cuda = self.model.device.type == "cuda"
+        # timed compute spans whose end event has not been read yet:
+        # (start event, end event, [(task, kind, work, share, keep)])
+        self._inflight: collections.deque = collections.deque()
         self._io_base = mgr.store.read_completion()
         self.io_measured = 0.0       # virtual read completion of this restore
         self.wall_time = 0.0         # seconds inside step() / prefetch_step()
         self.project_wall = 0.0
+        self.host_split = dict.fromkeys(HOST_SPLIT, 0.0)
+        self.observed: Dict[int, float] = {}
+        self._bucket = s_bucket(max(self.n_eff, 1))
+        self._n_timed = mgr.store.n_timed_devices()
+        # the plan this graph was compiled under, for the engine's
+        # predicted-vs-measured gauge (list order == compiled priority)
+        self.predicted_makespan = replay(
+            self.tasks, self.times, dispatch_overhead=self.dispatch_overhead,
+            links=self._task_links).makespan
 
     # ------------------------------------------------------------- plumbing
     @property
@@ -502,13 +775,23 @@ class RestorationExecutor:
         else:
             self._pending.append((op, args))
 
+    def _order(self) -> List[int]:
+        return self.executed + [i for i in range(len(self.tasks))
+                                if not self._done[i]]
+
     def timeline(self):
         """Timeline derived from the order tasks actually executed in."""
-        order = self.executed + [i for i in range(len(self.tasks))
-                                 if not self._done[i]]
-        return replay(self.tasks, self.times, order,
+        return replay(self.tasks, self.times, self._order(),
                       dispatch_overhead=self.dispatch_overhead,
                       links=self._task_links)
+
+    def measured_timeline(self):
+        """``timeline()`` with each task's duration replaced by what it
+        was observed to take (modelled values fill unmeasured tasks): the
+        measured side of the engine's predicted-vs-measured gauge."""
+        return replay(self.tasks, self.times, self._order(),
+                      dispatch_overhead=self.dispatch_overhead,
+                      durations=self.observed, links=self._task_links)
 
     def _ready(self, idx: int) -> bool:
         t = self.tasks[idx]
@@ -540,12 +823,14 @@ class RestorationExecutor:
             if idx is None:
                 break
             self._run_task(idx)
-        self._reap_kv()
+        # reap landed K/V reads; once every task has run, drain them
+        self._reap_kv(block=all(self._done))
         if self.done and not self._finished and self.sink is not None:
             self.sink.finish(self.n_tokens)
             self._finished = True
-        self.io_measured = max(
-            self.io_measured, self.mgr.store.read_completion() - self._io_base)
+        t1 = time.perf_counter()
+        self._poll(block=self.done)
+        self.host_split["drain"] += time.perf_counter() - t1
         self.wall_time += time.perf_counter() - t0
         return self.done
 
@@ -564,9 +849,107 @@ class RestorationExecutor:
         while not self.step(max_tasks=max(len(self.tasks), 1)):
             pass
 
+    # ------------------------------------------------------------ profiling
+    def _task_work(self, t: Task) -> float:
+        """Work units of one task: bytes for IO kinds, FLOPs for compute
+        kinds, on the cost basis ``method_times`` predicts with."""
+        if t.kind == "io_h":
+            return self.costs[t.layer].io_hidden
+        if t.kind == "io_kv":
+            c = self.costs[t.layer]
+            return c.io_kv or c.io_state
+        if t.kind == "recompute":
+            return self.costs[t.layer].c_token
+        if t.kind == "project":
+            return sum(self.costs[li].c_hidden for li in t.members
+                       if li in self._row_of)
+        return 0.0
+
+    def _run_profiled(self, idx: int, t: Task) -> None:
+        """Execute an IO task with its read service folded into the
+        profile: the striped store accumulates per-device read service
+        seconds, and the delta across this task divided by the device
+        count (stripes are read in parallel) is the stream seconds the
+        cost model predicts. With an IO engine attached the service
+        accrues on its workers instead, and the task records at reap time
+        from its tickets (``_observe_read``). Compute tasks record their
+        own device seconds (``_timed``)."""
+        inline = self._n_timed and self.mgr.store.io_engine is None
+        base = self.mgr.store.read_service_total() if inline else 0.0
+        getattr(self, "_exec_" + t.kind)(t)
+        if inline:
+            delta = ((self.mgr.store.read_service_total() - base)
+                     / self._n_timed)
+            if delta > 0.0:
+                self.observed[idx] = delta
+                self.profile.record(t.kind, self._bucket,
+                                    self._task_work(t), delta)
+
+    def _observe_read(self, idx: int, kind: str, tickets) -> None:
+        """Fold a reaped read into the profile from its tickets' own
+        service seconds (the slowest shard's: stripes on several shards
+        run in parallel), unless the task already recorded inline."""
+        if self.profile is None or idx in self.observed:
+            return
+        dur = max((tk.service for tk in tickets), default=0.0)
+        if dur <= 0.0:
+            return
+        self.observed[idx] = dur
+        shard_ids = {tk.shard_id for tk in tickets}
+        link = (shard_ids.pop() if len(shard_ids) == 1
+                and self.topology is not None else None)
+        self.profile.record(kind, self._bucket,
+                            self._task_work(self.tasks[idx]), dur, link=link)
+
+    def _measure(self, *completions: float) -> None:
+        done = max(completions, default=0.0)
+        if done:
+            self.io_measured = max(self.io_measured, done - self._io_base)
+
+    def _timed(self, fn, samples):
+        """Run ``fn`` on the compute stream between two timing points;
+        ``samples`` = [(task, kind, work, share, keep)] get ``share`` of
+        its seconds each (a projection ``keep``s its sample unless this
+        is its shape's first launch). On the card the span's CUDA events
+        are read later (``_poll``)."""
+        if not self._cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            self._book(time.perf_counter() - t0, samples)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        self._inflight.append((start, end, samples))
+        return out
+
+    def _poll(self, block: bool = False) -> None:
+        """Book the timed spans whose end event has completed (all of
+        them, waiting for the device, when ``block``)."""
+        while self._inflight:
+            start, end, samples = self._inflight[0]
+            if block:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._inflight.popleft()
+            self._book(start.elapsed_time(end) / 1e3, samples)
+
+    def _book(self, seconds: float, samples) -> None:
+        for idx, kind, work, share, keep in samples:
+            s = seconds * share
+            if kind == "project":
+                self.project_wall += s
+            if self.profile is not None and keep and s > 0.0:
+                self.observed[idx] = s
+                self.profile.record(kind, self._bucket, work, s)
+
     # ---------------------------------------------------------- task bodies
     def _run_task(self, idx: int) -> None:
         t = self.tasks[idx]
+        self._cur_idx = idx
         dur = task_duration(t, self.times, self.dispatch_overhead)
         if t.stream == "io":
             self._io_queue.remove(idx)
@@ -579,7 +962,15 @@ class RestorationExecutor:
             start = (self._comp_clock if not t.all_deps else
                      max(self._comp_clock, self._io_clock))
             self._comp_clock = max(self._comp_clock, start) + dur
-        getattr(self, "_exec_" + t.kind)(t)
+        if t.stream == "io":
+            t0 = time.perf_counter()
+            if self.profile is not None:
+                self._run_profiled(idx, t)
+            else:
+                getattr(self, "_exec_" + t.kind)(t)
+            self.host_split["read"] += time.perf_counter() - t0
+        else:
+            getattr(self, "_exec_" + t.kind)(t)
         self._done[idx] = True
         self.executed.append(idx)
 
@@ -587,9 +978,9 @@ class RestorationExecutor:
         if t.layer not in self._row_of:
             return          # recurrent layers restore through the blob
         # the read completes when the projection consumes it
-        self._hio[t.layer] = self.mgr.store.submit_layer_read(
+        self._hio[t.layer] = (self._cur_idx, self.mgr.store.submit_layer_read(
             self.session, "h", t.layer, self.n_tokens,
-            start_token=self.start_token)
+            start_token=self.start_token))
 
     def _exec_io_kv(self, t: Task) -> None:
         if t.layer not in self._row_of:
@@ -597,74 +988,121 @@ class RestorationExecutor:
         store, sess, n = self.mgr.store, self.session, self.n_tokens
         d = self.start_token
         self._kvio.append((
-            t.layer,
+            self._cur_idx, t.layer,
             store.submit_layer_read(sess, "kvk", t.layer, n, start_token=d),
             store.submit_layer_read(sess, "kvv", t.layer, n, start_token=d)))
 
-    def _reap_kv(self) -> None:
-        """Complete the K/V reads and emit them to the sink."""
+    def _land(self, idx: int, kind: str, *reads) -> None:
+        """Wait for submitted layer reads and account for them."""
+        t0 = time.perf_counter()
+        tickets = []
+        for r in reads:
+            for tk in r.tickets:
+                tk.wait()
+            tickets += r.tickets
+        self._measure(*(tk.completion for tk in tickets))
+        self._observe_read(idx, kind, tickets)
+        self.host_split["read"] += time.perf_counter() - t0
+
+    def _upload(self, shape, words, jobs, dtype: torch.dtype) -> torch.Tensor:
+        """Stage a host array of ``shape`` and numpy ``words`` in the ring
+        (each of ``jobs``, called with it, writes its own part) and upload
+        it as ``dtype``."""
+        t0 = time.perf_counter()
+        slot, buf = self._ring.stage(shape, words)
+        t1 = time.perf_counter()
+        self._ring.fill([functools.partial(job, buf) for job in jobs])
+        t2 = time.perf_counter()
+        x = self._ring.upload(slot, buf, dtype)
+        t3 = time.perf_counter()
+        self.host_split["upload"] += (t1 - t0) + (t3 - t2)
+        self.host_split["copy"] += t2 - t1
+        return x
+
+    def _reap_kv(self, block: bool = False) -> None:
+        """Complete the landed K/V reads and emit them to the sink;
+        ``block`` drains every outstanding one."""
         cfg, model = self.mgr.cfg, self.model
-        for layer, rk, rv in self._kvio:
-            ak, av = rk.wait(), rv.wait()
+        remaining = []
+        for entry in self._kvio:
+            idx, layer, rk, rv = entry
+            if not block and not (rk.ready() and rv.ready()):
+                remaining.append(entry)
+                continue
+            self._land(idx, "io_kv", rk, rv)
             shape = (1, self.n_eff, cfg.n_kv_heads, cfg.head_dim_)
-            k = to_device(ak.data, model.dtype, model.device).reshape(shape)
-            v = to_device(av.data, model.dtype, model.device).reshape(shape)
+            k, v = (self._upload((self.n_eff,) + r.row_shape, r.dtype,
+                                 [r.copy_into], model.dtype).view(shape)
+                    for r in (rk, rv))
+            t0 = time.perf_counter()
             self._emit("put_kv", self._row_of[layer], k, v, self.start_token)
-        self._kvio = []
+            self.host_split["launch"] += time.perf_counter() - t0
+        self._kvio = remaining
 
     def _exec_project(self, t: Task) -> None:
         model, pack, n = self.model, self.pack, self.n_eff
         members = [li for li in t.members if li in self._row_of]
         if not members:
             return          # recurrent layers restore through the blob
-        S = s_bucket(n)
-        G = max(self._g_pad, len(members))
-        reads = [self._hio.pop(li).wait() for li in members]
-        stack = host_buffer((G, S, reads[0].data.shape[-1]),
-                            reads[0].data.dtype, model.device)
-        buf = stack.numpy()
-        for g, r in enumerate(reads):
-            buf[g, :n] = r.data
-        buf[:len(reads), n:] = 0
-        buf[len(reads):] = 0
-        rows = [self._row_of[li] for li in members]
-        # pad to the stable group width with a repeated row over zero
-        # hidden states; the padded outputs are sliced away below
-        rows_pad = torch.tensor(rows + [rows[-1]] * (G - len(rows)),
-                                dtype=torch.int32, device=model.device)
-        cos, sin = pack.rope_tables(S, self.start_token)
+        reads = []
+        for li in members:
+            idx, r = self._hio.pop(li)
+            self._land(idx, "io_h", r)
+            reads.append(r)
+        # one row of the group per member; a narrow group's reads are
+        # shared by several jobs, so every fill keeps the threads busy
+        step = -(-FILL_THREADS // len(reads))
+        hidden = self._upload(
+            (len(reads), n) + reads[0].row_shape, reads[0].dtype,
+            [lambda buf, g=g, r=r, j=j: r.copy_into(buf[g], j, step)
+             for g, r in enumerate(reads) for j in range(step)],
+            model.dtype)
         t0 = time.perf_counter()
-        hidden = to_device(stack, model.dtype, model.device)
-        k, v = project_group(pack, hidden, rows_pad, cos, sin)
-        if k.is_cuda:
-            torch.cuda.synchronize(k.device)
-        self.project_wall += time.perf_counter() - t0
-        g_real = len(members)
-        self._emit("put_kv_group", tuple(rows), k[:g_real, None, :n],
-                   v[:g_real, None, :n], self.start_token)
+        rows = tuple(self._row_of[li] for li in members)
+        cos, sin = pack.rope_tables(n, self.start_token)
+        first = self.mgr.first_launch(("project", len(rows), s_bucket(n)))
+        k, v = self._timed(
+            lambda: project_group(pack, hidden, pack.rows(rows), cos, sin),
+            [(self._cur_idx, "project", self._task_work(t), 1.0, not first)])
+        self._emit("put_kv_group", rows, k[:, None], v[:, None],
+                   self.start_token)
+        self.host_split["launch"] += time.perf_counter() - t0
 
     def _exec_blob(self, t: Task) -> None:
         """An ssm session's recurrent states, bit for bit as stored."""
         store, sess, model = self.mgr.store, self.session, self.model
-        conv = to_device(store.get_blob(sess, "state_conv", 0), model.dtype,
-                         model.device)
-        ssm = to_device(store.get_blob(sess, "state_ssm", 0), torch.float32,
-                        model.device)
-        self._emit("put_states", conv, ssm)
+        states = []
+        for name, dtype in (("state_conv", model.dtype),
+                            ("state_ssm", torch.float32)):
+            a = np.asarray(store.get_blob(sess, name, 0))
+            states.append(self._upload(
+                a.shape, a.dtype, [lambda buf, a=a: np.copyto(buf, a)],
+                dtype))
+        self._emit("put_states", *states)
 
     def _exec_recompute(self, t: Task) -> None:
         """The recompute prefix is rebuilt once, at its first task, by
         replaying the session's prefill and decode segments
-        (``transformer.lm_replay_kv``); each task emits its layer."""
+        (``transformer.lm_replay_kv``); each task emits its layer. The
+        replay's seconds are shared evenly among the prefix's tasks."""
         from repro_torch.models import transformer as tfm
+        t0 = time.perf_counter()
         if self._re_kv is None:
             model = self.model
             toks = np.asarray(self.mgr.store.get_blob(
                 self.session, "tok", 0))[:self.n_tokens]
-            self._re_kv = tfm.lm_replay_kv(
-                self.params, torch.from_numpy(toks.astype(np.int64)).to(
-                    model.device), self.segments, model.h,
-                len(self._re_layers))
+            n_re = len(self._re_layers)
+            samples = [(i, "recompute", self._task_work(rt), 1.0 / n_re, True)
+                       for i, rt in enumerate(self.tasks)
+                       if rt.kind == "recompute"]
+            toks = torch.from_numpy(toks.astype(np.int64))
+            if self._cuda:
+                toks = toks.pin_memory()
+            toks = toks.to(model.device, non_blocking=True)
+            self._re_kv = self._timed(lambda: tfm.lm_replay_kv(
+                self.params, toks, self.segments, model.h, n_re), samples)
         k, v = self._re_kv
         self._emit("put_kv", self._row_of[t.layer], k[t.layer], v[t.layer])
         self._re_next += 1
+        self.host_split["launch"] += time.perf_counter() - t0
+

@@ -7,6 +7,8 @@ conversation trace.
         --full                                      # llama2-7b, bf16, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         falcon-mamba-7b --rounds 1 --full           # ssm family, GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --hw-profile p.json --restore-group-size auto   # calibrated
 
 It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
 CPU); with no GPU present and no ``--device`` it fails instead of falling
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.capacity import (ADMISSION_POLICIES, EVICTION_POLICIES,
                                        RestoreCostAwareAdmission)
 from repro_torch.core.hcache import HCacheManager
+from repro_torch.core.profiler import MeasuredProfile
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving import BACKENDS, InferenceEngine, Request
 from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
@@ -41,8 +45,6 @@ NOT_PORTED = {
     "--budget-kb": "the host-storage budget manager (restoration extras: "
                    "the int8 codec with CapacityManager)",
     "--tp": "tensor parallelism (multi-GPU)",
-    "--hw-profile": "the measured hardware profile (restoration extras: "
-                    "MeasuredProfile)",
     "--enc-seq": "encoder-decoder models (other families)",
     "--prefix-sharing": "prefix sharing and copy-on-write pages",
     "--serve-http": "the HTTP front door",
@@ -101,7 +103,16 @@ def _parser() -> argparse.ArgumentParser:
                         "(default max_batch * max_seq / block_size)")
     p.add_argument("--restore-group-size", default="8",
                    help="projection layers per restoration launch (an "
-                        "integer; 1 = per layer)")
+                        "integer; 1 = per layer), 'auto' for the makespan "
+                        "argmin over {1, 2, 4, 8, L} and the fetch-aligned "
+                        "partition per restore, or 'fetch' for the "
+                        "fetch-aligned partition")
+    p.add_argument("--hw-profile", default=None, metavar="PATH",
+                   help="online scheduler calibration: load a "
+                        "MeasuredProfile JSON from PATH if it exists (else "
+                        "start empty), fold every restore's observed task "
+                        "times into it, plan from it, and save it back on "
+                        "exit")
     p.add_argument("--metrics-json", default=None, metavar="PATH",
                    help="dump the final EngineMetrics counters and gauges "
                         "as JSON to PATH on exit")
@@ -114,17 +125,19 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args) -> int:
+def _refuse_unported(p: argparse.ArgumentParser, args):
+    """Refuse the flags of parts not ported yet; returns the group plan."""
     for flag, what in NOT_PORTED.items():
         val = getattr(args, flag[2:].replace("-", "_"))
         if val is not None and not (flag == "--tp" and str(val) == "1"):
             p.error(f"{flag}: {what} is not ported to repro_torch yet")
+    if args.restore_group_size in ("auto", "fetch"):
+        return args.restore_group_size
     try:
         return int(args.restore_group_size)
     except ValueError:
-        p.error(f"--restore-group-size {args.restore_group_size}: 'auto' "
-                "and 'fetch' group sizes are not ported to repro_torch yet "
-                "(restoration extras); give an integer")
+        p.error(f"--restore-group-size {args.restore_group_size}: give an "
+                "integer, 'auto' or 'fetch'")
 
 
 def main(argv=None) -> None:
@@ -155,8 +168,13 @@ def main(argv=None) -> None:
         store = ChunkStore(make_array("ssd", args.ssds), chunk_tokens=64)
         if args.async_io:
             store.attach_io_engine(AsyncIOEngine(1))
+    measured = None
+    if args.hw_profile:
+        measured = (MeasuredProfile.load(args.hw_profile)
+                    if os.path.exists(args.hw_profile)
+                    else MeasuredProfile())
     mgr = HCacheManager(model, store, hw=PROFILES[args.profile],
-                        restore_group_size=group_size)
+                        restore_group_size=group_size, profile=measured)
     admission = (RestoreCostAwareAdmission(aging=args.admission_aging)
                  if args.admission == "restore_cost"
                  else ADMISSION_POLICIES[args.admission]())
@@ -203,6 +221,17 @@ def main(argv=None) -> None:
               f"pool occupancy {r['occupancy_pct']}%, live/reserved "
               f"{r['util_pct']}%, restore-projection utilization "
               f"{r['proj_util_pct']}%")
+    if measured is not None:
+        print(f"scheduler calibration: observed bubble "
+              f"{m.restore_bubble_mean:.1%} over {m.restore_bubble_n} "
+              f"restores, planned-vs-measured makespan error "
+              f"{m.makespan_err_mean:.1%}, peak restore concurrency "
+              f"{m.io_streams_peak} streams")
+        counts = ", ".join(f"{k}={v}"
+                           for k, v in measured.sample_counts().items())
+        print(f"hw profile: epoch {measured.epoch}, samples "
+              f"[{counts or 'none'}] -> {args.hw_profile}")
+        measured.save(args.hw_profile)
     print("recoverable sessions:", engine.recoverable_sessions())
     _dump_metrics(engine, args.metrics_json)
     engine.close()

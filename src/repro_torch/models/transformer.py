@@ -120,11 +120,15 @@ def project_kv_rows(blocks: dict, rows: torch.Tensor, normed: torch.Tensor,
             v.view(G, S, h.n_kv_heads, h.head_dim))
 
 
-def rope_at(h: AttnHyper, positions: torch.Tensor):
+def rope_at(h: AttnHyper, positions: torch.Tensor,
+            end: Optional[int] = None):
     """cos/sin (..., hd/2) at ``positions``, gathered from the shared
-    table (see ``layers.rope.rope_table``)."""
-    cos, sin = rope_table(int(positions.max()) + 1, h.head_dim,
-                          h.rope_theta, positions.device)
+    table (see ``layers.rope.rope_table``). ``end``, when the caller knows
+    it, is ``positions.max() + 1``: reading that from the device would
+    wait for it."""
+    if end is None:
+        end = int(positions.max()) + 1
+    cos, sin = rope_table(end, h.head_dim, h.rope_theta, positions.device)
     idx = positions.long()
     return cos[idx], sin[idx]
 
@@ -383,7 +387,7 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
         start, n, kind = seg[0], seg[1], seg[2]
         if kind == "prefill":
             positions = start + torch.arange(n, device=dev)[None]
-            cos, sin = rope_at(a, positions)
+            cos, sin = rope_at(a, positions, start + n)
             x = _embed_input(params, h, tokens[None, start:start + n])
             for li in range(n_layers):
                 hist = ((k[li][:, :start], v[li][:, :start])
@@ -401,7 +405,7 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
         for p in range(start, start + n):
             toks[row, 0] = tokens[p]
             lengths = torch.full((width,), p, dtype=torch.int32, device=dev)
-            cos, sin = rope_at(a, lengths[:, None])
+            cos, sin = rope_at(a, lengths[:, None], p + 1)
             x = _embed_input(params, h, toks)
             for li in range(n_layers):
                 x = block_decode(blocks, li, x, h, k_cache=kc[li],

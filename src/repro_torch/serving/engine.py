@@ -9,7 +9,11 @@ Request lifecycle (paper §5):
                              into the sequence's batch-slot buffers. Any
                              number of sessions restore concurrently, and
                              restoring sessions never block the decode
-                             batch of active ones. Queued sessions with
+                             batch of active ones: a restore's uploads
+                             run on the manager's copy stream and its
+                             projections on the current stream, and no
+                             step waits for the device for them until a
+                             restore's end. Queued sessions with
                              stored state get their first hidden-layer IO
                              prefetched before a slot even frees;
             -> PREFILL       chunked prompt prefill (SplitFuse-style: at most
@@ -108,6 +112,20 @@ class EngineMetrics:
     occupancy_count: int = 0
     alloc_stalls: int = 0               # admissions deferred: pool exhausted
     io_streams_peak: int = 1            # max concurrent RESTORING slots
+    # scheduler-calibration gauges, per completed restore that observed
+    # its task durations (a MeasuredProfile on the manager): the bubble
+    # (idle share of the slack stream in the measured-duration replay),
+    # the planned and the measured makespan and the relative error of
+    # the one against the other; profiler_samples is the profile's
+    # per-kind sample count (empty when the engine runs uncalibrated)
+    restore_bubble_sum: float = 0.0
+    restore_bubble_n: int = 0
+    makespan_err_sum: float = 0.0
+    makespan_err_n: int = 0
+    makespan_predicted: List[float] = dataclasses.field(default_factory=list)
+    makespan_measured: List[float] = dataclasses.field(default_factory=list)
+    profiler_samples: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
     device_gauges: List[dict] = dataclasses.field(default_factory=list)
     restore_project_wall: float = 0.0   # sum over completed restores
     restore_wall_sum: float = 0.0
@@ -120,6 +138,16 @@ class EngineMetrics:
     @property
     def fragmentation_mean(self) -> float:
         return 1.0 - self.occupancy_mean if self.occupancy_count else 0.0
+
+    @property
+    def restore_bubble_mean(self) -> float:
+        return (self.restore_bubble_sum / self.restore_bubble_n
+                if self.restore_bubble_n else 0.0)
+
+    @property
+    def makespan_err_mean(self) -> float:
+        return (self.makespan_err_sum / self.makespan_err_n
+                if self.makespan_err_n else 0.0)
 
     @staticmethod
     def _summary(xs: List[float]) -> Dict[str, float]:
@@ -140,11 +168,14 @@ class EngineMetrics:
             v = getattr(self, f.name)
             if f.name == "device_gauges":
                 out[f.name] = [dict(r) for r in v]
+            elif f.name == "profiler_samples":
+                out[f.name] = dict(v)
             elif isinstance(v, list):
                 out[f.name] = self._summary(v)
             else:
                 out[f.name] = v
-        for prop in ("occupancy_mean", "fragmentation_mean"):
+        for prop in ("occupancy_mean", "fragmentation_mean",
+                     "restore_bubble_mean", "makespan_err_mean"):
             out[prop] = float(getattr(self, prop))
         return out
 
@@ -430,9 +461,31 @@ class InferenceEngine:
                                             ex.io_measured)
                 m.restore_project_wall += ex.project_wall
                 m.restore_wall_sum += ex.wall_time
+                self._record_calibration(ex)
                 seq.phase = Phase.PREFILL
         if ran:
             self.metrics.restore_steps += 1
+
+    def _record_calibration(self, ex) -> None:
+        """Calibration gauges of one finished restore: its bubble and its
+        planned-vs-measured makespan, when it observed task durations."""
+        m = self.metrics
+        if ex.observed:
+            tl = ex.measured_timeline()
+            if tl.makespan > 0:
+                # the bottleneck stream's bubble is ~0 by construction;
+                # the slack stream's idle share is the bubble the
+                # scheduler exists to close
+                m.restore_bubble_sum += max(tl.io_bubble, tl.compute_bubble)
+                m.restore_bubble_n += 1
+                m.makespan_predicted.append(ex.predicted_makespan)
+                m.makespan_measured.append(tl.makespan)
+                if ex.predicted_makespan > 0:
+                    m.makespan_err_sum += (abs(ex.predicted_makespan
+                                               - tl.makespan) / tl.makespan)
+                    m.makespan_err_n += 1
+        if self.mgr.profile is not None:
+            m.profiler_samples = self.mgr.profile.sample_counts()
 
     # -------------------------------------------------------------- prefill
     def _prefill_step(self, seq: SequenceState) -> None:

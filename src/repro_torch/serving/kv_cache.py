@@ -237,10 +237,14 @@ class KVCacheBackend:
         raise NotImplementedError
 
     def _upload(self, *parts: np.ndarray) -> List[torch.Tensor]:
-        """Host int arrays -> device int64 tensors, in one copy."""
-        flat = np.concatenate([np.asarray(p, np.int64).ravel()
-                               for p in parts])
-        dev = torch.from_numpy(flat).to(self.model.device)
+        """Host int arrays -> device int64 tensors, in one copy. On the
+        card it goes through pinned memory without waiting for the device
+        (a pageable upload would wait for the stream's earlier work)."""
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(p, np.int64).ravel() for p in parts]))
+        if self.model.device.type == "cuda":
+            flat = flat.pin_memory()
+        dev = flat.to(self.model.device, non_blocking=True)
         out, at = [], 0
         for p in parts:
             n = int(np.asarray(p).size)

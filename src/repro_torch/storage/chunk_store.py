@@ -104,6 +104,34 @@ class LayerRead:
         return AsyncRead(out[off:stop], max(completions, default=0.0),
                          completions)
 
+    def _parts(self):
+        for t in self.tickets:
+            t.wait()
+        return [self.tickets[ti].parts[pi] for ti, pi in self._order]
+
+    @property
+    def row_shape(self) -> Tuple[int, ...]:
+        """Shape of one token's row of the read (after it has landed)."""
+        return tuple(self._parts()[0].shape[1:])
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._parts()[0].dtype
+
+    def copy_into(self, out: np.ndarray, first: int = 0,
+                  step: int = 1) -> None:
+        """``wait().data`` written into ``out`` chunk by chunk, without
+        assembling it first (the restore stages it in pinned memory);
+        ``first``/``step`` copy only chunks ``first::step``, so several
+        threads can share one read."""
+        off, stop = self._slice
+        at = 0                           # this part's first token
+        for i, part in enumerate(self._parts()):
+            lo, hi = max(at, off), min(at + part.shape[0], stop)
+            if hi > lo and i % step == first:
+                out[lo - off:hi - off] = part[lo - at:hi - at]
+            at += part.shape[0]
+
 
 @dataclasses.dataclass
 class _Partial:

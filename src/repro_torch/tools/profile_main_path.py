@@ -5,16 +5,20 @@
         [--windows all|ssm]
 
 Needs one CUDA GPU. Builds llama2-7b at full width and depth in bf16
-(random weights, seed 0), prefills and saves one 1024-token session with
-the hidden-state method on every layer, then profiles (1) one restore of
-it, (2) 8 decode steps from the restored cache, (3) an engine-sized
+(random weights, seed 0), prefills and saves sessions of 1024, 1536 and
+2000 tokens with the hidden-state method on every layer, then profiles
+(1) one restore of each (groups of 8), with the restore's host seconds
+split into store reads, host copies into staging memory, upload issue,
+launches and waits for the device, (2) 8 decode steps from the restored
+1024-token cache, (3) an engine-sized
 prefill chunk, 128 tokens over 1900 tokens of history, and (4) 8 decode
 steps of the paged backend at the engine's batch of 4 slots holding
 ~2000 tokens each; then it frees llama2-7b, builds falcon-mamba-7b the
 same way and profiles (5) 8 decode steps of the contiguous backend at 4
 slots, each holding the states of a 512-token prefill, and (6) the
 prefill of a 2000-token prompt (``ssm_forward``, the lifecycle's round 0).
-``--windows ssm`` runs (5) and (6) alone; ``--src`` profiles the
+``--windows ssm`` runs (5) and (6) alone, ``--windows restore`` the
+restores of (1) alone; ``--src`` profiles the
 ``repro_torch`` of another ``src`` directory (``git archive`` of another
 commit unpacked under the gitignored ``build/``), so one chip call can
 hold two trees against each other. For each window it prints the wall
@@ -25,6 +29,7 @@ time. Fails when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import os
 import subprocess
@@ -36,6 +41,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 N_TOKENS = 1024
+RESTORE_TOKENS = (1024, 1536, 2000)  # the restore windows
 DECODE_STEPS = 8
 TOP = 8
 CHUNK, HIST = 128, 1900              # an engine prefill chunk over history
@@ -76,7 +82,8 @@ def profiled(fn):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=None)
-    ap.add_argument("--windows", choices=("all", "ssm"), default="all")
+    ap.add_argument("--windows", choices=("all", "ssm", "restore"),
+                    default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
@@ -86,12 +93,13 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    if args.windows == "all":
-        profile_llama()
-    profile_ssm()
+    if args.windows != "ssm":
+        profile_llama(restore_only=args.windows == "restore")
+    if args.windows != "restore":
+        profile_ssm()
 
 
-def profile_llama() -> None:
+def profile_llama(restore_only: bool = False) -> None:
     """Windows (1)-(4) on llama2-7b, which is freed afterwards."""
     from repro_torch.configs import get_arch
     from repro_torch.core.hcache import HCacheManager
@@ -99,23 +107,41 @@ def profile_llama() -> None:
     from repro_torch.storage import ChunkStore, make_array
     model = Model(get_arch("llama2-7b"), dtype=torch.bfloat16)
     params = model.init(0)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, model.cfg.vocab_size, N_TOKENS)).to(model.device)
+    rng = np.random.default_rng(0)
     mgr = HCacheManager(model, ChunkStore(make_array("ssd", 4),
                                           chunk_tokens=64),
                         schedule_override="hidden", restore_group_size=8)
     try:
-        out = model.prefill(params, {"tokens": toks[None]},
-                            capture_hidden=True)
-        mgr.save_prefill("s", toks.cpu().numpy(), out)
-        tok = torch.argmax(out["logits"][:, -1], -1).to(torch.int32)[:, None]
-        del out
-        mgr.restore(params, "s", capacity=N_TOKENS + 2 * DECODE_STEPS)
-        res, prof, wall = profiled(lambda: mgr.restore(
-            params, "s", capacity=N_TOKENS + 2 * DECODE_STEPS))
-        report(f"restore of {N_TOKENS} tokens (32 hidden layers, groups "
-               "of 8)", prof, wall)
-        cache = res.cache
+        for n in RESTORE_TOKENS:
+            toks = torch.from_numpy(rng.integers(
+                0, model.cfg.vocab_size, n)).to(model.device)
+            out = model.prefill(params, {"tokens": toks[None]},
+                                capture_hidden=True)
+            mgr.save_prefill(f"s{n}", toks.cpu().numpy(), out)
+            if n == N_TOKENS:
+                tok = torch.argmax(out["logits"][:, -1], -1).to(
+                    torch.int32)[:, None]
+            del out
+        for n in RESTORE_TOKENS:
+            cap = n + 2 * DECODE_STEPS
+            mgr.restore(params, f"s{n}", capacity=cap)        # warm
+            with split_probe() as split:
+                res, prof, wall = profiled(lambda: mgr.restore(
+                    params, f"s{n}", capacity=cap))
+            report(f"restore of {n} tokens (32 hidden layers, groups of "
+                   "8)", prof, wall)
+            parts = getattr(res, "host_split", None) or split
+            print("  host split (ms): " + ", ".join(
+                f"{k} {v * 1e3:.2f}" for k, v in parts.items())
+                + f", other {(wall - sum(parts.values())) * 1e3:.2f}"
+                + (" (the executor's own split)"
+                   if getattr(res, "host_split", None) else
+                   " (timed around the parent's calls)"))
+            if n == N_TOKENS:
+                cache = res.cache
+            del res
+        if restore_only:
+            return
 
         def decode():
             nonlocal cache, tok
@@ -127,13 +153,67 @@ def profile_llama() -> None:
         _, prof, wall = profiled(decode)
         report(f"{DECODE_STEPS} decode steps at ~{N_TOKENS} tokens", prof,
                wall)
-        del cache, res
+        del cache
         profile_engine_windows(model, params)
     finally:
         mgr.close()
-    del model, params, mgr           # free llama2-7b before falcon-mamba
-    gc.collect()
-    torch.cuda.empty_cache()
+        del model, params, mgr       # free llama2-7b before falcon-mamba
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def split_probe():
+    """Host seconds of a restore by part, timed around the calls of a tree
+    whose executor keeps no split of its own (the parent's): store reads
+    and waits for them, uploads (``to_device``), launches
+    (``project_group``), waits for the device (``torch.cuda.synchronize``
+    inside a projection group), and host copies (the rest of a group)."""
+    from repro_torch.core import restoration as rest
+    from repro_torch.storage import chunk_store
+    split = {"read": 0.0, "copy": 0.0, "upload": 0.0, "launch": 0.0,
+             "wait": 0.0}
+    group = {"depth": 0, "inner": 0.0}
+    patched = []
+
+    def wrap(owner, name, part):
+        fn = getattr(owner, name, None)
+        if fn is None:
+            return
+
+        def timed(*args, **kw):
+            if part == "wait" and not group["depth"]:
+                return fn(*args, **kw)   # the restore's own start and end
+            if part is None:
+                group["depth"] += 1
+                group["inner"] = 0.0
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                if part is None:         # a group: the rest is copying
+                    group["depth"] -= 1
+                    split["copy"] += dt - group["inner"]
+                else:
+                    split[part] += dt
+                    if group["depth"]:
+                        group["inner"] += dt
+        patched.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    for owner, name, part in (
+            (chunk_store.ChunkStore, "submit_layer_read", "read"),
+            (chunk_store.LayerRead, "wait", "read"),
+            (rest, "to_device", "upload"), (rest, "project_group", "launch"),
+            (torch.cuda, "synchronize", "wait"),
+            (rest.RestorationExecutor, "_exec_project", None)):
+        wrap(owner, name, part)
+    try:
+        yield split
+    finally:
+        for owner, name, fn in reversed(patched):
+            setattr(owner, name, fn)
 
 
 def profile_engine_windows(model, params) -> None:

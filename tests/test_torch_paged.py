@@ -293,11 +293,59 @@ def test_serve_runs_end_to_end_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--prefix-sharing"],
                                   ["--budget-kb", "64"], ["--serve-http"],
-                                  ["--hw-profile", "p.json"],
+                                  ["--tp", "4"],
                                   ["--enc-seq", "16"],
-                                  ["--restore-group-size", "auto"]])
+                                  ["--budget-kb", "1"]])
 def test_serve_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(["--device", "cpu"] + argv)
     assert exc.value.code != 0
     assert "not ported" in capsys.readouterr().err
+
+
+SERVE_SMALL = ["--device", "cpu", "--sessions", "3", "--rounds", "2",
+               "--prompt-len", "10", "--gen", "3", "--max-batch", "2",
+               "--max-seq", "64"]
+
+
+def test_serve_hw_profile_writes_a_profile_that_loads_back(tmp_path,
+                                                           capsys):
+    from repro_torch.core.profiler import MeasuredProfile
+    path = tmp_path / "profile.json"
+    for run in range(2):             # the second run starts from the file
+        serve_cli.main(SERVE_SMALL + ["--hw-profile", str(path),
+                                      "--restore-group-size", "auto"])
+        out = capsys.readouterr().out
+        assert f"-> {path}" in out and "scheduler calibration" in out
+        profile = MeasuredProfile.load(str(path))
+        counts = profile.sample_counts()
+        assert counts and all(n > 0 for n in counts.values())
+        assert f"epoch {profile.epoch}," in out
+        if run:                      # the loaded samples were kept
+            assert all(counts[k] >= first[k] for k in first)
+            assert sum(counts.values()) > sum(first.values())
+        first = counts
+
+
+def test_serve_group_plans_auto_and_fetch_give_the_tokens_of_8(
+        tmp_path, capsys, monkeypatch):
+    emitted = []
+
+    class Recording(serve_cli.InferenceEngine):
+        def _emit_token(self, seq, tok):
+            emitted.append((seq.request.session_id, tok))
+            super()._emit_token(seq, tok)
+
+    monkeypatch.setattr(serve_cli, "InferenceEngine", Recording)
+    tokens = {}
+    for plan in ("8", "auto", "fetch"):
+        path = tmp_path / f"m{plan}.json"
+        emitted.clear()
+        serve_cli.main(SERVE_SMALL + ["--restore-group-size", plan,
+                                      "--preempt-quantum", "2",
+                                      "--metrics-json", str(path)])
+        capsys.readouterr()
+        tokens[plan] = list(emitted)
+        assert json.loads(path.read_text())["restored_tokens"] > 0
+    assert len(tokens["8"]) == 18
+    assert tokens["auto"] == tokens["8"] and tokens["fetch"] == tokens["8"]

@@ -246,3 +246,22 @@ def test_evict_drops_the_session(port):
             mgr.restore(params, "s")
     finally:
         mgr.close()
+
+
+def test_pause_without_new_tokens_keeps_kv_layers_restorable(port):
+    """A pause or retire that adds no token since the last save (the
+    engine retires a session whose tokens were all saved) appends no
+    K/V tail to ``kv``-method layers, and the session still restores the
+    prefill's K/V bitwise."""
+    cfg, model, params = port
+    toks, out = _prefill(cfg, model, params, n=24, seed=7)
+    mgr = _manager(model, "kv")
+    try:
+        mgr.save_prefill("s", toks[0].numpy(), out)
+        mgr.save_session_pause("s", _cache_from(out, 32), 24,
+                               tokens_tail=np.zeros(0, np.int32))
+        res = mgr.restore(params, "s")
+    finally:
+        mgr.close()
+    assert torch.equal(res.cache["k"], out["kv"][0])
+    assert torch.equal(res.cache["v"], out["kv"][1])
