@@ -39,11 +39,20 @@ Needs one CUDA GPU and the repository checkout around this file. It
      1024- and 2000-token prefill, against the same tokens as S launches
      at S = 1, its bound and the exp unit's floor. The bf16 prefill-
      attention comparisons accept, beside TOL, the most that P's rounding
-     to bf16 can move an element (``flash_p_rounding_bound``);
+     to bf16 can move an element (``flash_p_rounding_bound``). Then
+     kernels #1 and #3-#5 at the shapes qwen2-7b (G = 7, K/V 512 wide
+     with bias) and gemma2-9b (hd 256, window 4096, softcap 50) give
+     them (``MODEL_RESTORE``, ``MODEL_DECODE``, ``MODEL_FLASH``): each
+     against its plain version, timed beside its bound and SDPA or
+     ``torch.matmul``;
   3. serves the smoke configs (``reduced_for_smoke``: 4 layers, hd 16)
      through ``launch/serve.py`` on the card in bf16, without ``--full``:
      llama2-7b on the contiguous and the paged backend (4 sessions x 2
-     rounds) and falcon-mamba-7b (4 sessions, 1 round);
+     rounds), falcon-mamba-7b (4 sessions, 1 round), and qwen2-7b,
+     qwen2.5-14b, starcoder2-15b and gemma2-9b (2 sessions x 2 rounds;
+     qwen2-7b and gemma2-9b on both backends); then qwen2-7b again on a
+     store of two layer-striped hosts (``--hosts 2``), which must report
+     a per-link restore load and give the one-host serve's tokens;
   4. drives the lifecycle path: llama2-7b at full width and depth in
      bf16, random weights from a seed, 3 sessions x 2 rounds of
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
@@ -75,7 +84,14 @@ Needs one CUDA GPU and the repository checkout around this file. It
      plan), uncalibrated and calibrated (a ``MeasuredProfile``, group
      plan "auto"): the same tokens, profile samples for every method the
      calibrated restores ran, and its calibration gauges filled;
-  7. frees llama2-7b and drives the ssm path: falcon-mamba-7b at full
+  7. frees llama2-7b and serves qwen2-7b at full width and depth in
+     bf16 (random weights from a seed) through the lifecycle of step 4
+     and the engine of step 6 on both backends (phased), under the same
+     gates; frees it and serves gemma2-9b at full width and depth through
+     the lifecycle with a 4608-token and a 1024-token session, so that
+     the 4096-token window of its local layers cuts the history in
+     prefill, restore, the recompute replay and decode;
+  8. frees it and drives the ssm path: falcon-mamba-7b at full
      width and depth in bf16 (random weights from a seed) through the
      lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
      evict -> restore, the restored conv and ssm states bitwise equal to
@@ -85,10 +101,10 @@ Needs one CUDA GPU and the repository checkout around this file. It
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire, every prefill
      and decode step one scan launch per layer);
-  8. checks that each path launched its kernels (counts reset before and
+  9. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
-     prefill kernel's by shape), then prints the kernels' JSON line, the
-     card, and the device line last.
+     prefill kernel's by shape), then prints the seconds of each phase,
+     the card, the kernels' JSON line and the device line last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -120,6 +136,8 @@ TOL = {"bf16": (2.0 ** -7, 1e-3), "fp32": (1e-4, 1e-5)}
 
 SEED = 0
 PROMPTS = (1024, 1536, 2000)      # round 0; 2000 exercises bucket padding
+# gemma2-9b's lifecycle: a prompt past its 4096-token window, a short one
+GEMMA_PROMPTS = (4608, 1024)
 ROUND1_TOKENS = 256
 DECODE_TOKENS = 16
 MATCH_TOKENS = 8
@@ -927,6 +945,166 @@ def check_flash(card: str, gen):
             "by_head_dim": by_hd}
 
 
+# ---------------------------------------- the new dense models' shapes
+# kernels #1 and #3-#5 at the shapes qwen2-7b (28 heads over 4 kv heads
+# of 128, K/V width 512, QKV bias) and gemma2-9b (16 heads over 8 kv
+# heads of 256, a 4096-token window on its local layers, attention
+# softcap 50) give them on this script's paths, bf16
+MODEL_RESTORE = {    # name: (G, S, D, KV, hd, bias)
+    "qwen2-7b restore": (8, 1024, 3584, 512, 128, True),
+    "gemma2-9b restore": (8, 1024, 3584, 2048, 256, False),
+}
+MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
+    "qwen2-7b engine step": (4, 4, 7, 128, (2300, 1537, 777, 2049), 2560,
+                             None, None),
+    "gemma2-9b local": (1, 8, 2, 256, (4880,), 4904, 4096, 50.0),
+    "gemma2-9b global": (1, 8, 2, 256, (4880,), 4904, None, 50.0),
+}
+MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
+    "qwen2-7b 1024 self": (0, 1024, 28, 4, 128, None, None),
+    "qwen2-7b 256 over 2016": (2016, 256, 28, 4, 128, None, None),
+    "gemma2-9b 4608 self local": (0, 4608, 16, 8, 256, 4096, 50.0),
+    "gemma2-9b 4608 self global": (0, 4608, 16, 8, 256, None, 50.0),
+    "gemma2-9b 256 over 4624 local": (4624, 256, 16, 8, 256, 4096, 50.0),
+}
+
+
+def time_model_shapes(card):
+    """Kernels #1, #3, #4 and #5 at MODEL_RESTORE, MODEL_DECODE and
+    MODEL_FLASH: each held against its plain version (paged decode
+    bitwise equal to contiguous; a restored row alone bitwise equal to
+    its group launch), then timed beside its bound and a PyTorch
+    yardstick (SDPA applies no softcap: its time at gemma2-9b's shapes
+    leaves the softcap out). Draws from a generator of its own, so the
+    earlier phases' data do not change. Returns {kernel name: rows}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.tools import bench_decode as bd
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {"restore_kv_grouped": [], "decode_attention": [],
+           "decode_attention_paged": [], "flash_attention": []}
+    for name, (G, S, D, KV, hd, bias) in MODEL_RESTORE.items():
+        args = restore_case(G, S, D, KV, hd, G, list(range(G)), bias,
+                            torch.bfloat16, gen)
+        k, v = rkv.restore_kv_grouped_cuda(*args, head_dim=hd)
+        torch.cuda.synchronize()
+        pk, pv = rkv.restore_kv_grouped_plain(*args, head_dim=hd)
+        err = max(check_close(f"{name} K", k, pk, "bf16"),
+                  check_close(f"{name} V", v, pv, "bf16"))
+        check_row_invariance(rkv, args, (k, v), hd)
+        del pk, pv
+        w_cat = torch.cat([args[1], args[2]], -1)
+        ms = time_ms(lambda: rkv.restore_kv_grouped_cuda(*args, head_dim=hd),
+                     20)
+        lib_ms = time_ms(lambda: torch.matmul(args[0], w_cat), 20)
+        bound_ms, bound_by = bound(
+            2 * G * S * D * 2 * KV,
+            2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV
+                 + (2 * G * KV if bias else 0)) + 2 * 4 * S * hd // 2, card)
+        print(f"{name} G={G} S={S} D={D} KV={KV} hd={hd} bias={bias} bf16: "
+              f"max_abs_err {err:.3g}, rows alone bitwise equal; kernel "
+              f"{ms:.4f} ms (CUDA events), torch.matmul K|V yardstick "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out["restore_kv_grouped"].append({
+            "shape": name, "G": G, "S": S, "D": D, "KV": KV, "hd": hd,
+            "bias": bias, "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+        del args, k, v, w_cat
+    for name, (B, Kv, G, hd, lens, smax, window, cap) in \
+            MODEL_DECODE.items():
+        kw = dict(window=window, softcap=cap)
+        live_bytes = 4 * sum(lens) * Kv * hd
+        cases = [bd.make_case(B, Kv, G, hd, lens, smax, gen) for _ in
+                 range(min(8, max(1, -(-int(bd.L2_SPAN) // live_bytes))))]
+        q, k, v, kp, vp, table, n = cases[0]
+        got = dec.decode_attention_cuda(q, k, v, n, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"decode {name}", got,
+                          dec.decode_attention_plain(q, k, v, n, **kw),
+                          "bf16")
+        if not torch_equal(dec.decode_attention_paged_cuda(
+                q, kp, vp, table, n, **kw), got):
+            raise AssertionError(f"decode {name}: paged differs from "
+                                 "contiguous")
+        ms3 = graph_ms(bd.cycled(cases, lambda q, k, v, kp, vp, t, n: (
+            dec.decode_attention_cuda(q, k, v, n, **kw))))
+        ms4 = graph_ms(bd.cycled(cases, lambda q, k, v, kp, vp, t, n: (
+            dec.decode_attention_paged_cuda(q, kp, vp, t, n, **kw))))
+        ar = torch.arange(smax, device="cuda")
+        sdpa_in = []
+        for q_, k_, v_, _, _, _, n_ in cases:
+            last = n_[::Kv, None]
+            keep = ar[None, :] < last
+            if window:
+                keep = keep & (ar[None, :] >= last - window)
+            sdpa_in.append((q_.reshape(B, Kv * G, 1, hd), k_.transpose(1, 2),
+                            v_.transpose(1, 2), keep[:, None, None, :]))
+        lib_ms = graph_ms(bd.cycled(sdpa_in, lambda q, k, v, m: (
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                           enable_gqa=G > 1))))
+        seen = [min(x, window) if window else x for x in lens]
+        b3, by3, nbytes = decode_cost(card, B, Kv, G, hd, seen)
+        b4, by4, _ = decode_cost(card, B, Kv, G, hd, seen, paged=True)
+        print(f"decode {name} B={B} Kv={Kv} G={G} hd={hd} lens={list(lens)} "
+              f"Smax={smax} window={window} softcap={cap} bf16: max_abs_err "
+              f"{err:.3g}, paged bitwise equal; #3 {ms3:.4f} ms, #4 "
+              f"{ms4:.4f} ms, SDPA {lib_ms:.4f} ms (CUDA graphs of 100 over "
+              f"{len(cases)} copies), bound {b3:.4f} / {b4:.4f} ms ({by3}; "
+              f"{nbytes / 1e6:.1f} MB)")
+        row = {"shape": name, "B": B, "Kv": Kv, "G": G, "hd": hd,
+               "lens": list(lens), "Smax": smax, "window": window,
+               "softcap": cap, "max_abs_err": err, "library_ms": lib_ms}
+        out["decode_attention"].append(dict(row, ms=ms3, bound_ms=b3,
+                                            bound_by=by3))
+        out["decode_attention_paged"].append(dict(row, ms=ms4, bound_ms=b4,
+                                                  bound_by=by4))
+        del cases, sdpa_in
+    for name, (hist, Sq, H, Kv, hd, window, cap) in MODEL_FLASH.items():
+        kw = dict(window=window, softcap=cap)
+        Skv = hist + Sq
+        q, k, v = flash_case(1, Sq, Skv, H, Kv, hd, torch.bfloat16, gen)
+        off = torch.tensor([hist], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([Skv], dtype=torch.int32, device="cuda")
+        got = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"flash {name}", got,
+                          fa.flash_attention_plain(q, k, v, off, kl, **kw),
+                          "bf16", fa.flash_p_rounding_bound(q, k, v, off, kl,
+                                                            **kw))
+        if not torch_equal(got, fa.flash_attention_cuda(q, k, v, off, kl,
+                                                        **kw)):
+            raise AssertionError(f"flash {name}: not deterministic")
+        ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl,
+                                                      **kw), n=10)
+        qs = q.transpose(1, 2).contiguous()
+        ks, vs = (t.repeat_interleave(H // Kv, 2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        qi = hist + torch.arange(Sq, device="cuda")[:, None]
+        kj = torch.arange(Skv, device="cuda")[None, :]
+        mask = (kj <= qi) & ((kj > qi - window) if window else True)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask), n=10)
+        flops = 4 * hd * H * flash_band([hist], [Skv], Sq, window)
+        nbytes = 2 * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8
+        bound_ms, bound_by = bound(flops, nbytes, card)
+        print(f"flash {name} H={H} Kv={Kv} hd={hd} window={window} "
+              f"softcap={cap} bf16: max_abs_err {err:.3g}, deterministic; "
+              f"kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms (CUDA graphs of "
+              f"10), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / 1e9:.1f} GFLOP)")
+        out["flash_attention"].append({
+            "shape": name, "hist": hist, "Sq": Sq, "H": H, "Kv": Kv,
+            "hd": hd, "window": window, "softcap": cap, "max_abs_err": err,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+        del q, k, v, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def ssm_case(Bt, I, N, dtype, gen, S=None):
     """Inputs of the Mamba1 state update as the layer makes them: fp32 h,
     dt (softplus range) and A (-exp of the init's log(1..N)); x, B, C, D
@@ -1142,16 +1320,17 @@ def write_kv(cache, kv, start):
     cache["v"][:, :, start:start + n] = kv[1]
 
 
-def build_model():
-    """llama2-7b at full width and depth, bf16, random weights from SEED,
-    warmed by one short prefill and decode step (library handles and
-    allocator pools), so the served requests' times exclude that set-up."""
+def build_model(arch="llama2-7b"):
+    """A dense model (llama2-7b unless ``arch`` names another) at full
+    width and depth, bf16, random weights from SEED, warmed by one short
+    prefill and decode step (library handles and allocator pools), so the
+    served requests' times exclude that set-up."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
 
-    cfg = get_arch("llama2-7b")
+    cfg = get_arch(arch)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -1163,16 +1342,19 @@ def build_model():
                                     device=model.device)
     model.decode_step(params, cache, greedy(out["logits"]))
     n_params = count_params(params)
-    print(f"llama2-7b: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_heads}x{cfg.head_dim_} heads, d_ff={cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, {n_params / 1e9:.2f} B params bf16 "
+    print(f"{arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.head_dim_} heads over {cfg.n_kv_heads} kv "
+          f"heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.2f} B params bf16 "
           f"({2 * n_params / 1e9:.1f} GB); init and warm-up "
           f"{_sync_s(t0):.1f} s on {model.device}")
     return model, params
 
 
-def run_main_path(model, params):
-    """3 sessions x 2 rounds through the HCache manager."""
+def run_main_path(model, params, prompts=PROMPTS):
+    """A session per round-0 prompt length of ``prompts``, 2 rounds each,
+    through the HCache manager: session 0 all-hidden, the others under
+    the planner."""
     import numpy as np
     from repro_torch.core.hcache import HCacheManager
     from repro_torch.storage import ChunkStore, make_array
@@ -1183,10 +1365,10 @@ def run_main_path(model, params):
                 HCacheManager(model, store, restore_group_size=8)]
     rng = np.random.default_rng(SEED)
     try:
-        for s, n0 in enumerate(PROMPTS):
+        for s, n0 in enumerate(prompts):
             mgr = managers[0 if s == 0 else 1]
             plan = mgr.plan(n0)
-            print(f"session {s}: schedule for {n0} tokens: "
+            print(f"{model.cfg.name} session {s}: schedule for {n0} tokens: "
                   f"{plan.summary()}; methods "
                   f"{''.join(m[0].upper() for m in plan.methods)}")
             serve_session(model, params, mgr, f"s{s}", n0, rng)
@@ -1290,7 +1472,8 @@ def serve_session(model, params, mgr, session, n0, rng):
         seq_r, _, _ = decode(model, params, check.cache, tok, MATCH_TOKENS)
         seq_g, ref, _ = decode(model, params, ref, tok, MATCH_TOKENS)
         verdict = "MATCH" if seq_r == seq_g else "MISMATCH"
-        print(f"{session} round {rnd}: {n_new} new tokens on {n_hist} of "
+        print(f"{model.cfg.name} {session} round {rnd}: {n_new} new tokens "
+              f"on {n_hist} of "
               f"history; first token {first}; TTFT {ttft_ms:.1f} ms "
               f"(restore {restore_ms:.1f} ms, projection {project_ms:.1f} "
               f"ms); decode {decode_ms:.2f} ms/token; check restore "
@@ -1639,7 +1822,8 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
                  max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
                  preempt_quantum=ENGINE_QUANTUM, backend=backend,
                  restore_tasks_per_step=restore_tasks, phased=phased)
-    name = (f"engine {backend}" + ("" if phased else " unphased")
+    name = (label(model) + f"engine {backend}"
+            + ("" if phased else " unphased")
             + (" whole restores" if restore_tasks == WHOLE_RESTORES else "")
             + (f" calibrated ({group})" if profile is not None else ""))
     rng = np.random.default_rng(SEED)
@@ -1704,7 +1888,14 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     return res
 
 
-def check_engine(con, pag):
+def label(model) -> str:
+    """The prefix of a path's printed lines: none for llama2-7b (the main
+    path's model), the model's name for the others."""
+    name = model.cfg.name
+    return "" if name == "llama2-7b" else f"{name} "
+
+
+def check_engine(con, pag, prefix=""):
     """Both backends' runs agree and exercised what the phase is for."""
     if con["tokens"] != pag["tokens"]:
         bad = [k for k in con["tokens"] if con["tokens"][k] != pag["tokens"][k]]
@@ -1719,7 +1910,8 @@ def check_engine(con, pag):
     if not (pag["metrics"].reserved_tokens_peak
             < con["metrics"].reserved_tokens_peak):
         raise AssertionError("paged reserved no less than contiguous")
-    print("engine: tokens identical on both backends for all 12 requests")
+    print(f"{prefix}engine: tokens identical on both backends for all 12 "
+          "requests")
 
 
 def check_same_tokens(name, run, ref, ref_name="phased"):
@@ -1914,7 +2106,67 @@ SMOKE_SERVES = (
      ("restore_kv_grouped", "decode_attention_paged", "flash_attention")),
     ("serve falcon-mamba-7b smoke", ["--arch", "falcon-mamba-7b",
                                      "--rounds", "1"], ("ssm_update",)),
-)
+) + tuple(
+    (f"serve {arch} smoke {backend}", ["--arch", arch, "--sessions", "2",
+                                       "--rounds", "2", "--backend",
+                                       backend],
+     ("restore_kv_grouped", "flash_attention", "decode_attention"
+      if backend == "contiguous" else "decode_attention_paged"))
+    for arch, backends in (("qwen2-7b", ("contiguous", "paged")),
+                           ("qwen2.5-14b", ("contiguous",)),
+                           ("starcoder2-15b", ("contiguous",)),
+                           ("gemma2-9b", ("contiguous", "paged")))
+    for backend in backends)
+# qwen2-7b's contiguous smoke serve again on a store of two hosts, layer-
+# striped: the engine must report a per-link load and give the one-host
+# serve's tokens
+HOSTS_SERVE = ("serve qwen2-7b smoke contiguous",
+               "serve qwen2-7b smoke contiguous --hosts 2",
+               ["--hosts", "2", "--placement", "layer"])
+
+
+def recorded_serve(serve, argv):
+    """``serve.main(argv)`` with its engine's emitted tokens and the
+    per-link loads its manager holds after each report recorded."""
+    tokens, loads = [], []
+    base = serve.InferenceEngine
+
+    class Recording(base):
+        def _emit_token(self, seq, tok):
+            tokens.append((seq.request.session_id, int(tok)))
+            super()._emit_token(seq, tok)
+
+        def _update_io_streams(self, extra=0):
+            super()._update_io_streams(extra)
+            loads.append(self.mgr.link_load)
+
+    serve.InferenceEngine = Recording
+    try:
+        serve.main(argv)
+    finally:
+        serve.InferenceEngine = base
+    return {"tokens": tokens, "loads": loads}
+
+
+def check_hosts_serve(one, two):
+    """The two-host serve reported a ``LinkLoad`` at every update, some
+    with a restore in flight, the one-host serve none; same tokens."""
+    from repro_torch.core.cost_model import LinkLoad
+    if not two["loads"] or not all(isinstance(x, LinkLoad)
+                                   for x in two["loads"]):
+        raise AssertionError("--hosts 2: the engine did not set the "
+                             "manager's link load")
+    if not any(x.key() for x in two["loads"]):
+        raise AssertionError("--hosts 2: no load with a restore in flight")
+    if any(x is not None for x in one["loads"]):
+        raise AssertionError("one host: a link load was set")
+    if two["tokens"] != one["tokens"]:
+        raise AssertionError("--hosts 2: tokens differ from the one-host "
+                             "serve's")
+    print(f"{HOSTS_SERVE[1]}: link loads reported at "
+          f"{len(two['loads'])} updates (busiest "
+          f"{max(two['loads'], key=lambda x: sum(x.streams.values()))}); "
+          f"{len(two['tokens'])} tokens identical to the one-host serve's")
 
 
 def flash_shape_classes(counter):
@@ -1931,6 +2183,7 @@ def main() -> None:
     import gc
 
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1959,6 +2212,9 @@ def main() -> None:
     decode, decode_shapes = check_decode(card, gen)
     kernels = [restore, decode, check_paged_decode(card, gen, decode_shapes),
                check_flash(card, gen), check_ssm_update(card, gen)]
+    for k, rows in time_model_shapes(card).items():
+        next(x for x in kernels if x["name"] == k)["model_shapes"] = rows
+    phase_s = {"kernel checks": time.perf_counter() - t_start}
 
     def reset():
         rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
@@ -1981,7 +2237,8 @@ def main() -> None:
         t0 = time.perf_counter()
         out = fn()
         got = read()
-        print(f"{name} done in {time.perf_counter() - t0:.1f} s; kernel "
+        phase_s[name] = time.perf_counter() - t0
+        print(f"{name} done in {phase_s[name]:.1f} s; kernel "
               f"launches {got}")
         for k in needs:
             if got[k] <= 0:
@@ -1995,8 +2252,15 @@ def main() -> None:
         return out
 
     from repro_torch.launch import serve
+    served = {}
     for name, argv, needs in SMOKE_SERVES:
-        drive(name, lambda a=argv: serve.main(a), needs)
+        served[name] = drive(name, lambda a=argv: recorded_serve(serve, a),
+                             needs)
+    one_host, two_hosts, extra = HOSTS_SERVE
+    argv, needs = next((a, n) for name, a, n in SMOKE_SERVES
+                       if name == one_host)
+    check_hosts_serve(served[one_host], drive(
+        two_hosts, lambda: recorded_serve(serve, argv + extra), needs))
     gc.collect()
     torch.cuda.empty_cache()
     model, params = build_model()
@@ -2008,6 +2272,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs, plain = {}, {}
+
+    lm_needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
 
     def against_plain(name, run, plain):
         # outside the counted path: the plain forward launches kernels too
@@ -2059,6 +2325,32 @@ def main() -> None:
     del model, params, runs, plain, twin, calibrated   # free llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
+    # qwen2-7b at full width and depth: the lifecycle, then the engine on
+    # both backends (phased), under every gate of llama2-7b's runs
+    model, params = build_model("qwen2-7b")
+    drive("qwen2-7b lifecycle", lambda: run_main_path(model, params),
+          lm_needs)
+    runs, plain = {}, {}
+    for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                   ("paged", "decode_attention_paged")):
+        runs[backend] = drive(
+            f"qwen2-7b engine {backend}",
+            lambda b=backend: run_engine(model, params, b),
+            ("restore_kv_grouped", decode_kernel, "flash_attention"))
+        against_plain(f"qwen2-7b engine {backend}", runs[backend], plain)
+    check_engine(runs["contiguous"], runs["paged"], "qwen2-7b ")
+    del model, params, runs, plain                     # free qwen2-7b
+    gc.collect()
+    torch.cuda.empty_cache()
+    # gemma2-9b at full width and depth through the lifecycle: a session
+    # whose prompt outruns the 4096-token window of the local layers in
+    # prefill, restore, the recompute replay and decode, and a short one
+    model, params = build_model("gemma2-9b")
+    drive("gemma2-9b lifecycle",
+          lambda: run_main_path(model, params, GEMMA_PROMPTS), lm_needs)
+    del model, params                                  # free gemma2-9b
+    gc.collect()
+    torch.cuda.empty_cache()
     model, params = build_ssm_model()
     drive("ssm lifecycle", lambda: run_ssm_lifecycle(model, params),
           ("ssm_update",))
@@ -2083,6 +2375,9 @@ def main() -> None:
         for s in kernels[3]["shapes"]))
     print("flash_attention launches by shape class over the paths: "
           f"{kernels[3]['launches_by_class']}")
+    print("seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,10 @@ def restore_makespan(mgr, n_tokens: int,
     (``mgr.resolve_group_size``), priced under the manager's
     ``MeasuredProfile`` where it has samples (``mgr.hw`` elsewhere) and
     with the IO legs stretched by the engine-reported restore
-    multiplicity (``mgr.io_streams``), so admission and eviction cost a
-    restore under the bandwidth it would contend for."""
+    multiplicity (``mgr.io_streams``; on a multi-host store, on the links
+    each layer's stripes occupy under ``mgr.link_load``), so admission
+    and eviction cost a restore under the bandwidth it would contend
+    for."""
     if n_tokens <= 0:
         return 0.0
     if methods is None:
@@ -42,7 +44,7 @@ def restore_makespan(mgr, n_tokens: int,
     times, layer_links = link_priced_times(
         layer_costs(mgr.cfg, n_tokens, mgr.dtype_bytes), mgr.hw,
         profile=mgr.profile, io_streams=mgr.io_streams,
-        topology=mgr.store.shard_topology())
+        topology=mgr.store.shard_topology(), link_load=mgr.link_load)
     tasks = compile_tasks(tuple(methods),
                           n_blobs=mgr.model.adapter.n_state_blobs,
                           group_size=mgr.resolve_group_size(n_tokens,

@@ -93,6 +93,10 @@ class HCacheManager:
         self.saver = saver or TwoStageSaver(store)
         self.dtype_bytes = dtype_bytes
         self.io_streams = 1          # concurrent restores (engine-reported)
+        # multi-host store: restore streams per NIC link (a
+        # ``cost_model.LinkLoad``, engine-reported); None on one-host
+        # stores, where ``io_streams`` is the whole story
+        self.link_load = None
         self.schedule_override = schedule_override   # None|hidden|kv|recompute
 
     def close(self) -> None:
@@ -130,6 +134,11 @@ class HCacheManager:
         the store at once; plans are memoized per multiplicity."""
         self.io_streams = max(int(n), 1)
 
+    def set_link_load(self, load) -> None:
+        """Engine-reported restore streams per NIC link (multi-host
+        store); plans are memoized per load (``_price_key``)."""
+        self.link_load = load
+
     def set_profile(self, profile) -> None:
         """Attach (or detach) a MeasuredProfile; memoized plans priced
         under the old one are flushed."""
@@ -146,9 +155,11 @@ class HCacheManager:
 
     def _price_key(self) -> tuple:
         """The calibration state a plan was priced under: the profile's
-        epoch (it bumps when a fit drifts) and the IO multiplicity."""
+        epoch (it bumps when a fit drifts), the IO multiplicity and the
+        per-link load."""
         epoch = self.profile.epoch if self.profile is not None else -1
-        return (epoch, self.io_streams)
+        load = self.link_load.key() if self.link_load is not None else None
+        return (epoch, self.io_streams, load)
 
     # ------------------------------------------------------------- planning
     def plan(self, n_tokens: int) -> Schedule:
@@ -165,7 +176,7 @@ class HCacheManager:
                 self.cfg, bucket, self.hw, dtype_bytes=self.dtype_bytes,
                 allow_recompute=self.model.adapter.supports_recompute,
                 profile=self.profile, io_streams=self.io_streams,
-                topology=self.store.shard_topology())
+                topology=self.store.shard_topology(), link_load=self.link_load)
         return self._plans[key]
 
     def resolve_group_size(self, n_tokens: int, methods):
@@ -192,7 +203,7 @@ class HCacheManager:
                     n_blobs=self.model.adapter.n_state_blobs,
                     profile=self.profile, io_streams=self.io_streams,
                     topology=self.store.shard_topology(),
-                    fetch_aligned=True)
+                    link_load=self.link_load, fetch_aligned=True)
             self._group_plans[key] = got
         return got
 
@@ -204,7 +215,7 @@ class HCacheManager:
         times, layer_links = link_priced_times(
             layer_costs(self.cfg, bucket, self.dtype_bytes), self.hw,
             profile=self.profile, io_streams=self.io_streams,
-            topology=self.store.shard_topology())
+            topology=self.store.shard_topology(), link_load=self.link_load)
         part = fetch_aligned_partition(
             methods, times,
             dispatch_overhead=measured_dispatch_overhead(self.hw,

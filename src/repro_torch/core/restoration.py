@@ -710,10 +710,14 @@ class RestorationExecutor:
             self.methods, n_blobs=self.model.adapter.n_state_blobs,
             group_size=self.group_size)
         self.costs = layer_costs(mgr.cfg, self.n_eff, mgr.dtype_bytes)
+        # a multi-host store prices each layer's IO on the links its
+        # stripes occupy, under the restores in flight on each link
         self.topology = mgr.store.shard_topology()
+        self.link_load = mgr.link_load
         self.times, layer_links = link_priced_times(
             self.costs, mgr.hw, profile=self.profile,
-            io_streams=mgr.io_streams, topology=self.topology)
+            io_streams=mgr.io_streams, topology=self.topology,
+            link_load=self.link_load)
         self._task_links = task_links(self.tasks, layer_links)
         self.executed: List[int] = []
         self._done = [False] * len(self.tasks)
@@ -760,6 +764,18 @@ class RestorationExecutor:
     @property
     def done(self) -> bool:
         return all(self._done) and not self._kvio
+
+    def links_touched(self) -> Tuple[int, ...]:
+        """The NIC links this restore's reads occupy: what the engine
+        folds into the manager's ``LinkLoad``."""
+        topo = self.topology
+        if topo is None or topo.n_shards <= 1:
+            return (0,)
+        if topo.placement == "chunk":
+            return tuple(range(topo.n_shards))
+        return tuple(sorted({topo.links_for_layer(li)[0]
+                             for li, m in enumerate(self.methods)
+                             if m in ("hidden", "kv")}))
 
     def attach_sink(self, sink: RestoreSink) -> None:
         """Direct the restore into ``sink``, flushing the pieces that

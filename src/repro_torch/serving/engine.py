@@ -70,6 +70,7 @@ import numpy as np
 
 from repro_torch.core.capacity import (AdmissionPolicy, EvictionPolicy,
                                        FIFOAdmission, LRUEviction)
+from repro_torch.core.cost_model import LinkLoad
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.serving.kv_cache import (KVCacheBackend, ViewSink,
                                           make_backend)
@@ -428,12 +429,26 @@ class InferenceEngine:
         """Report the restore multiplicity to the planner: how many
         sessions are (about to be) pulling the shared host link at once.
         ``extra`` counts a restore being placed this instant, before its
-        slot shows RESTORING."""
-        restoring = [s for s in self.slots
+        slot shows RESTORING.
+
+        On a multi-host store, each restoring executor's NIC links are
+        also folded into a per-link ``LinkLoad``, so a restore is charged
+        only for the links it shares with those in flight (a restore being
+        placed has no executor yet and counts on every link)."""
+        restoring = [s.executor for s in self.slots
                      if s is not None and s.phase == Phase.RESTORING
                      and s.executor is not None]
         n = max(len(restoring) + extra, 1)
         self.mgr.set_io_streams(n)
+        topo = self.mgr.store.shard_topology()
+        if topo is not None and topo.n_shards > 1:
+            streams: Dict[int, int] = {}
+            for ex in restoring:
+                for link in ex.links_touched():
+                    streams[link] = streams.get(link, 0) + 1
+            for link in range(topo.n_shards):
+                streams[link] = streams.get(link, 0) + extra
+            self.mgr.set_link_load(LinkLoad(streams))
         self.metrics.io_streams_peak = max(self.metrics.io_streams_peak, n)
 
     def _restore_step(self) -> None:

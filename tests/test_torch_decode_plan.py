@@ -105,7 +105,7 @@ def _plan_walk(q, k, v, kv_len, plan, softcap=None, window=None):
 
 
 @pytest.mark.parametrize("window,softcap", [(None, None), (200, 30.0)])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 5, 7, 12])
 @pytest.mark.parametrize("hd", [16, 80, 256])
 def test_plan_walk_matches_plain_and_pallas(hd, G, window, softcap):
     """Rows from no key to three splits and more (lengths 0, 5, one split,

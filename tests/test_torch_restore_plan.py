@@ -21,9 +21,10 @@ from repro_torch.kernels import restore_kv as rkv
 SEQS = (1, 4, 16, 128, 300, 1024, 2048)
 GROUPS = (1, 8)
 # llama2-7b, llama2-13b, opt-30b, the odd head sizes, gemma2-9b (8 kv
-# heads of 256), and the smoke configs (4 kv heads of 16, or one)
+# heads of 256), the smoke configs (4 kv heads of 16, or one), qwen2-7b
+# and starcoder2-15b (4 kv heads of 128), and qwen2.5-14b (8 of 128)
 WIDTHS = ((4096, 128), (5120, 128), (7168, 128), (768, 96), (640, 80),
-          (2048, 256), (64, 16), (16, 16))
+          (2048, 256), (64, 16), (16, 16), (512, 128), (1024, 128))
 ALL = [(S, G, KV, hd) for S in SEQS for G in GROUPS for KV, hd in WIDTHS]
 IDS = [f"S{S}-G{G}-KV{KV}-hd{hd}" for S, G, KV, hd in ALL]
 
