@@ -48,7 +48,9 @@ Needs one CUDA GPU and the repository checkout around this file. It
   3. serves the smoke configs (``reduced_for_smoke``: 4 layers, hd 16)
      through ``launch/serve.py`` on the card in bf16, without ``--full``:
      llama2-7b on the contiguous and the paged backend (4 sessions x 2
-     rounds), falcon-mamba-7b (4 sessions, 1 round), and qwen2-7b,
+     rounds), again under ``--budget-kb 8`` (the ladder's actions must be
+     printed) and paged with ``--prefix-sharing`` (its hit rate must be
+     printed), falcon-mamba-7b (4 sessions, 1 round), and qwen2-7b,
      qwen2.5-14b, starcoder2-15b and gemma2-9b (2 sessions x 2 rounds;
      qwen2-7b and gemma2-9b on both backends); then qwen2-7b again on a
      store of two layer-striped hosts (``--hosts 2``), which must report
@@ -83,7 +85,20 @@ Needs one CUDA GPU and the repository checkout around this file. It
      it starts (so that the schedule does not depend on the restore
      plan), uncalibrated and calibrated (a ``MeasuredProfile``, group
      plan "auto"): the same tokens, profile samples for every method the
-     calibrated restores ran, and its calibration gauges filled;
+     calibrated restores ran, and its calibration gauges filled; then the
+     contiguous engine's traffic once more under a host-storage budget
+     (``CapacityManager``, 55 % of the phased run's peak hot bytes, no
+     cold tier, the ladder cold -> int8 -> recompute) and a third round
+     for a session the ladder put in int8: int8 actions,
+     after every ``maintain`` the hot bytes within the budget unless
+     only protected sessions hold them, restores of sessions never in
+     the int8 codec bitwise, those of sessions once in it within 0.02
+     relative L2 of their snapshots and, for int8 restores, against the
+     plain version (numpy dequantize, plain projection); and the paged
+     engine with prefix sharing (a shared 1024-token document, a fork,
+     copy-on-write pages, restore-skip) against its twin without: the
+     same tokens, hits, skipped tokens, copies and shared pages, every
+     page free after ``close``;
   7. frees llama2-7b and serves qwen2-7b at full width and depth in
      bf16 (random weights from a seed) through the lifecycle of step 4
      and the engine of step 6 on both backends (phased), under the same
@@ -1614,6 +1629,46 @@ WHOLE_RESTORES = 10_000
 PLAIN_REL = 0.05
 PLAIN_GAP = 0.25
 
+# The host-storage budget phase: the contiguous engine's traffic under a
+# CapacityManager whose budget is BUDGET_FRACTION of the hot bytes the
+# unbudgeted phased run's store held at its peak, on a store with no cold
+# tier, so that the representation itself must shrink (int8, then
+# token-only). Its ladder stops before "drop": the traffic protects every
+# session at the start of round 1 (all are queued or resident), and the
+# protected working set alone then exceeds the budget, so the full ladder
+# would drop sessions that round 1 resubmits. The protected working set
+# also keeps the store over the budget long enough that the ladder takes
+# each int8 session on to token-only before it comes back, so a third
+# round probes the int8 restore: the budget is tightened to just under
+# the store's bytes, the ladder puts the coldest session with hidden rows
+# in int8, the budget is set back, and that session gets INT8_PROBE_TOKENS
+# more tokens through the engine, restoring from its int8 rows. A restore of a session that
+# was ever in the int8 codec is held within INT8_REL relative L2 error of
+# its snapshot, layer by layer, and an int8 restore's hidden layers
+# against the plain version (numpy dequantize, the norm, the plain
+# projection) on every INT8_ROW_STRIDE-th token row and the last, within
+# the bf16 TOL.
+BUDGET_FRACTION = 0.55
+INT8_PROBE_TOKENS = 64
+BUDGET_LADDER = ("cold", "int8", "recompute")
+INT8_REL = 0.02
+INT8_ROW_STRIDE = 16
+
+# The prefix-sharing phase: the paged engine (16-token pages), 6 sessions
+# x 2 rounds over 4 slots, every round-0 prompt one shared document of
+# PREFIX_DOC tokens (a multiple of the 128-token prefill chunk and of the
+# 64-token store chunk) and a question of PREFIX_QUESTION tokens of its
+# own; round 1 adds ROUND1_TOKENS. Session u0 is forked to u0f once it
+# decodes its third token. The same requests run with sharing off, and
+# the two must give the same tokens. Every layer is planned "hidden": a
+# session with recompute layers is not shared (its restore would not
+# give the shared pages' bits), and llama2-7b's planner picks 7. No
+# preemption: a token decoded in one run and fed again by a resume
+# prefill in the other would be computed by other kernels.
+PREFIX_DOC = 1024
+PREFIX_QUESTION = (64, 256)
+PREFIX_SESSIONS = 6
+
 
 def engine_classes():
     """The engine and manager of the port, instrumented for this phase:
@@ -1632,8 +1687,11 @@ def engine_classes():
     from repro_torch.serving import InferenceEngine, Phase
 
     class Manager(HCacheManager):
+        all_hidden = False
+
         def save_prefill(self, session, tokens, prefill_out, *, start=0):
-            self.schedule_override = "hidden" if session == "s0" else None
+            self.schedule_override = ("hidden" if self.all_hidden
+                                      or session == "s0" else None)
             try:
                 return super().save_prefill(session, tokens, prefill_out,
                                             start=start)
@@ -1648,6 +1706,14 @@ def engine_classes():
             self.last_logits, self.token_logits = None, {}
             self.prefills = self.decodes = 0
             self.walls = {"restore": 0.0, "prefill": 0.0, "decode": 0.0}
+            # budget and sharing gauges: peak hot bytes and shared pages,
+            # sessions ever in the int8 codec, the requests whose restores
+            # read one, restore walls by codec, the int8 checks' worst
+            self.bytes_peak = self.shared_peak = 0
+            self.tainted, self.req_tainted = set(), set()
+            self.walls_by_codec = {"none": [], "int8": [], "recompute": []}
+            self.int8_worst = {"rel": 0.0, "plain": 0.0, "rows": 0,
+                               "restores": 0}
             L = self.model.cfg.n_layers
             save = self.mgr.save_session_pause
             prefill = self.adapter.prefill_chunk
@@ -1720,27 +1786,99 @@ def engine_classes():
         def _decode_batch(self):
             self._timed("decode", super()._decode_batch)
 
+        def step(self):
+            super().step()
+            self.bytes_peak = max(self.bytes_peak, self.mgr.store.bytes_used)
+            self.shared_peak = max(self.shared_peak,
+                                   self.metrics.shared_pages)
+
         def _restore_step(self):
-            restoring = [s for s in self.slots
+            restoring = [(s, s.executor) for s in self.slots
                          if s is not None and s.phase == Phase.RESTORING]
             self._timed("restore", super()._restore_step)
-            for s in restoring:
+            for s, ex in restoring:
                 if s.phase != Phase.PREFILL:
                     continue
                 sid = s.request.session_id
                 k, v = s.view.gather_hist(s.history_len)
                 sk, sv = self.snapshots[sid]
-                methods = self.mgr.store.get_manifest(sid)["methods"]
-                for li, m in enumerate(methods):
-                    if not (torch.equal(k[li, 0], sk[li])
-                            and torch.equal(v[li, 0], sv[li])):
-                        raise AssertionError(
-                            f"{self.kv.name}: restored {m} layer {li} of "
-                            f"{sid} ({s.history_len} tokens) differs from "
-                            "its K/V before the pause")
+                methods = list(ex.methods)
+                codec = ("int8" if ex.compress == "int8" else "recompute"
+                         if set(methods) == {"recompute"} else "none")
+                self.walls_by_codec[codec].append(ex.wall_time)
+                if sid in self.tainted:
+                    # rows once stored in int8 restore lossy: every layer
+                    # within INT8_REL of the snapshot, and an int8
+                    # restore's hidden layers against the plain version
+                    self.req_tainted.add(id(s))
+                    self.int8_worst["restores"] += 1
+                    for li in range(len(methods)):
+                        for got, want in ((k[li, 0], sk[li]),
+                                          (v[li, 0], sv[li])):
+                            rel = float((got.float() - want.float()).norm()
+                                        / want.float().norm())
+                            self.int8_worst["rel"] = max(
+                                self.int8_worst["rel"], rel)
+                            if rel > INT8_REL:
+                                raise AssertionError(
+                                    f"{sid}: restored layer {li} lies "
+                                    f"{rel:.4f} (relative L2) from its "
+                                    "snapshot")
+                    if codec == "int8":
+                        err, n_rows = check_int8_restore(
+                            self.mgr, self.params, sid, methods,
+                            s.history_len, k, v)
+                        self.int8_worst["plain"] = max(
+                            self.int8_worst["plain"], err)
+                        self.int8_worst["rows"] += n_rows
+                else:
+                    for li, m in enumerate(methods):
+                        if not (torch.equal(k[li, 0], sk[li])
+                                and torch.equal(v[li, 0], sv[li])):
+                            raise AssertionError(
+                                f"{self.kv.name}: restored {m} layer {li} "
+                                f"of {sid} ({s.history_len} tokens) "
+                                "differs from its K/V before the pause")
                 self.checked.append((sid, s.history_len, set(methods)))
 
     return Manager, Engine
+
+
+def check_int8_restore(mgr, params, sid, methods, n, k, v):
+    """An int8 restore's hidden layers against the plain version on the
+    same stored streams: the numpy dequantize, the model's norm and the
+    plain projection (``restore_kv_grouped_plain``), all hidden layers in
+    one call, on every INT8_ROW_STRIDE-th token row and the last (the
+    kernel computes each row alone: ``check_row_invariance``). Returns
+    the largest |difference| and the rows checked per layer."""
+    import numpy as np
+    import torch
+    from repro_torch.core.restoration import dequantize_hidden_int8
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.models import transformer as tfm
+    model = mgr.model
+    pack = mgr.param_pack(params)
+    idx = sorted(set(range(0, n, INT8_ROW_STRIDE)) | {n - 1})
+    layers = [li for li, m in enumerate(methods) if m == "hidden"]
+    hidden = np.stack([dequantize_hidden_int8(
+        mgr.store.read_layer(sid, "h", li, n)[idx],
+        mgr.store.read_layer(sid, "hs", li, n)[idx]) for li in layers])
+    hidden = torch.from_numpy(hidden).to(model.device).to(model.dtype)
+    rows = pack.rows(tuple(layers))
+    at = torch.tensor(idx, device=model.device)
+    cos, sin = pack.rope_tables(n)
+    normed = tfm.norm_rows(pack.blocks, rows, hidden, model.cfg)
+    a = pack.blocks["attn"]
+    pk, pv = rkv.restore_kv_grouped_plain(
+        normed, a["wk"], a["wv"], a.get("bk"), a.get("bv"), rows,
+        cos[at].contiguous(), sin[at].contiguous(),
+        head_dim=pack.attn.head_dim, use_rope=pack.attn.use_rope)
+    li = torch.tensor(layers, device=model.device)
+    got_k = k[li, 0][:, at].reshape(pk.shape)
+    got_v = v[li, 0][:, at].reshape(pv.shape)
+    err = max(check_close(f"int8 restore K of {sid}", got_k, pk, "bf16"),
+              check_close(f"int8 restore V of {sid}", got_v, pv, "bf16"))
+    return err, len(idx)
 
 
 def plain_logits(model, params, toks):
@@ -1752,7 +1890,8 @@ def plain_logits(model, params, toks):
     return tfm.lm_forward(params, toks, model.h)["logits"]
 
 
-def check_against_plain(model, params, requests, plain):
+def check_against_plain(model, params, requests, plain, ungated=(),
+                        histories=None):
     """Hold an engine run against a plain computation on the same
     weights. ``requests[(rnd, sid)] = (prompt, generated, the logits
     that sampled each generated token)``. The plain logits come from one B=1 forward over the
@@ -1762,9 +1901,12 @@ def check_against_plain(model, params, requests, plain):
     request, the plain logits at the positions that sampled its tokens,
     for the next backend's run. Raises past PLAIN_REL or PLAIN_GAP;
     returns the worst relative error (of first tokens, cold and restored,
-    and of decoded ones) and the worst gap."""
+    and of decoded ones) and the worst gap. The requests of ``ungated``
+    (keys) are compared but not held: their worst error and gap are
+    returned as ``ungated`` and ``ungated_gap``. ``histories`` gives the
+    stream a session starts from (a fork's: its source's at the fork)."""
     import torch
-    history = {}
+    history = dict(histories or {})
     worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0}
     for key in sorted(requests):                 # round 0 before round 1
         rnd, sid = key
@@ -1786,6 +1928,11 @@ def check_against_plain(model, params, requests, plain):
         rows = torch.arange(len(gen), device=ref.device)
         picked = ref[rows, torch.tensor(gen, device=ref.device)]
         gap = float(((ref.amax(-1) - picked) / ref.std(-1)).max())
+        if key in ungated:
+            worst["ungated"] = max(worst.get("ungated", 0.0),
+                                   float(rel.max()))
+            worst["ungated_gap"] = max(worst.get("ungated_gap", 0.0), gap)
+            continue
         name = "restored" if rnd else "cold"
         worst[name] = max(worst[name], float(rel[0]))
         worst["decode"] = max(worst["decode"], float(rel[1:].max()))
@@ -1802,14 +1949,65 @@ def check_against_plain(model, params, requests, plain):
     return worst
 
 
+def budget_capacity(mgr, eng, budget):
+    """The budget phase's ``CapacityManager`` (``BUDGET_LADDER``), held to
+    its contract after every ``maintain``: the hot bytes within the
+    budget, or every session outside the protected set (resident, queued,
+    prefetching) already down to the ladder's last stage (every layer
+    ``recompute``), so that only protected sessions keep it over. The
+    saver is drained first, so the walk counts every row written so far.
+    Also times the demotions and records the sessions ever put in the
+    int8 codec."""
+    from repro_torch.core.capacity import CapacityManager
+    cap = CapacityManager(mgr, host_budget_bytes=budget,
+                          ladder=BUDGET_LADDER)
+    store = mgr.store
+    cap.over = []                     # (step, bytes over the budget)
+    cap.seconds = {"int8": 0.0, "recompute": 0.0, "promote": 0.0}
+    maintain = cap.maintain
+
+    def checked_maintain(engine):
+        mgr.saver.drain()
+        maintain(engine)
+        used = store.bytes_used
+        if used > budget:
+            prot = cap._protected()
+            free = [x for x in store.sessions() if x not in prot
+                    and set(store.get_manifest(x)["methods"])
+                    != {"recompute"}]
+            if free:
+                raise AssertionError(
+                    f"budget: {used} hot bytes over {budget} after a "
+                    f"maintain, with {free} outside the protected set "
+                    "not yet token-only")
+            cap.over.append((engine.step_count, used - budget))
+
+    def timed(name, fn):
+        def run(sid):
+            t0 = time.perf_counter()
+            done = fn(sid)
+            cap.seconds[name] += time.perf_counter() - t0
+            if done and name == "int8":
+                eng.tainted.add(sid)
+            return done
+        return run
+
+    cap.maintain = checked_maintain
+    mgr.demote_hidden_int8 = timed("int8", mgr.demote_hidden_int8)
+    mgr.degrade_to_recompute = timed("recompute", mgr.degrade_to_recompute)
+    mgr.promote_hidden_fp16 = timed("promote", mgr.promote_hidden_fp16)
+    return cap
+
+
 def run_engine(model, params, backend: str, *, phased=True, profile=None,
-               group=8, restore_tasks=8):
+               group=8, restore_tasks=8, budget=None):
     """6 sessions x 2 rounds through the continuous-batching engine on
     ``backend``; returns tokens, metrics, what was checked and, per
     request, what ``check_against_plain`` needs. ``phased`` times each
     phase between synchronisations; ``profile`` (a ``MeasuredProfile``)
     and ``group`` are the manager's calibration and group plan;
-    ``restore_tasks`` the restore tasks each engine step runs."""
+    ``restore_tasks`` the restore tasks each engine step runs; ``budget``
+    the hot-tier bytes of a ``CapacityManager`` (``budget_capacity``)."""
     import numpy as np
     import torch
     from repro_torch.serving import Request
@@ -1822,12 +2020,18 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
                  max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
                  preempt_quantum=ENGINE_QUANTUM, backend=backend,
                  restore_tasks_per_step=restore_tasks, phased=phased)
+    cap = None
+    if budget is not None:
+        cap = budget_capacity(mgr, eng, budget)
+        eng.capacity = cap
+        cap.attach_engine(eng)
     name = (label(model) + f"engine {backend}"
             + ("" if phased else " unphased")
             + (" whole restores" if restore_tasks == WHOLE_RESTORES else "")
-            + (f" calibrated ({group})" if profile is not None else ""))
+            + (f" calibrated ({group})" if profile is not None else "")
+            + (" budget" if budget is not None else ""))
     rng = np.random.default_rng(SEED)
-    tokens, rows, requests = {}, [], {}
+    tokens, rows, requests, keys = {}, [], {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for rnd in range(2):
@@ -1843,10 +2047,37 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
             tokens[(rnd, sid)] = list(seq.generated)
             requests[(rnd, sid)] = (seq.request.prompt, list(seq.generated),
                                     eng.token_logits[id(seq)])
+            keys[(rnd, sid)] = id(seq)
             rows.append(f"{sid}/{rnd}: ttft {seq.ttft_wall * 1e3:.0f} ms "
                         + ("(restored)" if rnd else "(cold)")
                         + f", pauses {seq.pauses}, last restore "
                         f"{seq.restore_wall * 1e3:.0f} ms")
+    probe = None
+    if cap is not None:
+        # the int8 probe: tighten the budget to just under the store's
+        # bytes, let the ladder put a session in int8, set it back, and
+        # serve that session a third round
+        cap.host_budget_bytes = store.bytes_used - 1
+        before = len(cap.actions)
+        cap.ensure_host_budget()
+        cap.host_budget_bytes = budget
+        probe = next((sid for st, sid in cap.actions[before:]
+                      if st == "int8"), None)
+        if probe is None:
+            raise AssertionError("budget: the tightened budget put no "
+                                 "session in int8")
+        prompt = rng.integers(0, model.cfg.vocab_size,
+                              INT8_PROBE_TOKENS).astype(np.int32)
+        seq = eng.submit(Request(probe, prompt,
+                                 max_new_tokens=DECODE_TOKENS))
+        eng.run()
+        tokens[(2, probe)] = list(seq.generated)
+        requests[(2, probe)] = (seq.request.prompt, list(seq.generated),
+                                eng.token_logits[id(seq)])
+        keys[(2, probe)] = id(seq)
+        rows.append(f"{probe}/2 (int8 probe): ttft "
+                    f"{seq.ttft_wall * 1e3:.0f} ms (restored), last restore "
+                    f"{seq.restore_wall * 1e3:.0f} ms")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = eng.metrics
@@ -1855,11 +2086,13 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     res = {"tokens": tokens, "metrics": m, "wall": wall,
            "checked": len(eng.checked), "methods": methods,
            "prefills": eng.prefills, "decodes": eng.decodes,
-           "profile": profile}
+           "profile": profile, "bytes_peak": eng.bytes_peak,
+           "ungated": {(rnd, sid) for (rnd, sid), key in keys.items()
+                       if key in eng.req_tainted}}
     mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
     walls = dict(eng.walls)
     walls["other"] = wall - sum(walls.values())
-    print(f"{name}: {wall:.1f} s for 12 requests; TTFT cold mean "
+    print(f"{name}: {wall:.1f} s for {len(tokens)} requests; TTFT cold mean "
           f"{mean(m.ttft_wall_cold):.0f} ms (max "
           f"{1e3 * max(m.ttft_wall_cold, default=0):.0f}), restored mean "
           f"{mean(m.ttft_wall_restored):.0f} ms (max "
@@ -1872,8 +2105,11 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
           + f" over {m.decode_steps} steps; "
           f"{eng.prefills} prefill chunks; preemptions {m.preemptions}; "
           f"peak reserved tokens {m.reserved_tokens_peak}; "
-          f"{len(eng.checked)} restores bitwise equal to their snapshots "
-          f"(methods {sorted(methods)})")
+          f"{len(eng.checked)} restores checked against their snapshots "
+          f"(methods {sorted(methods)}): "
+          + (f"{eng.int8_worst['restores']} of sessions once int8 within "
+             f"{INT8_REL} relative L2, the rest bitwise" if eng.tainted
+             else "bitwise"))
     if phased:
         print(f"{name} wall by phase (synchronised): " + ", ".join(
             f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
@@ -1883,9 +2119,171 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
               f"bubble mean {m.restore_bubble_mean:.1%}; profiler samples "
               f"{m.profiler_samples}")
     print(f"{name} requests: " + "; ".join(rows))
+    if cap is not None:
+        res.update(capacity=cap, int8_worst=dict(eng.int8_worst),
+                   probe=probe,
+                   walls_by_codec={k: list(v) for k, v
+                                   in eng.walls_by_codec.items()},
+                   bytes_end=store.bytes_used)
     eng.close()
     res["requests"] = requests
     return res
+
+
+def prefix_requests(vocab):
+    """The prefix phase's requests: round 0 one shared document and a
+    question per session, round 1 ROUND1_TOKENS more per session and for
+    the fork u0f; the same arrays for both runs."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    doc = rng.integers(0, vocab, PREFIX_DOC).astype(np.int32)
+    lo, hi = PREFIX_QUESTION
+    rounds = [{f"u{s}": np.concatenate(
+        [doc, rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+         .astype(np.int32)]) for s in range(PREFIX_SESSIONS)}]
+    rounds.append({sid: rng.integers(0, vocab, ROUND1_TOKENS)
+                   .astype(np.int32)
+                   for sid in list(rounds[0]) + ["u0f"]})
+    return rounds
+
+
+def run_prefix_engine(model, params, sharing: bool, rounds):
+    """The prefix phase's traffic through the paged engine with
+    ``prefix_sharing`` on or off (phased; see PREFIX_DOC); returns tokens,
+    metrics, what was checked, the sharing gauges' peaks and what
+    ``check_against_plain`` needs."""
+    import torch
+    from repro_torch.serving import Phase, Request
+    from repro_torch.storage import ChunkStore, make_array
+    Manager, Engine = engine_classes()
+    store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
+    mgr = Manager(model, store)
+    mgr.all_hidden = True
+    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+                 max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
+                 backend="paged", block_size=16, prefix_sharing=sharing)
+    name = "engine paged prefix " + ("sharing" if sharing else "no sharing")
+    tokens, requests, history, seqs = {}, {}, {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rnd, prompts in enumerate(rounds):
+        for sid, prompt in prompts.items():
+            seqs[rnd, sid] = eng.submit(Request(
+                sid, prompt, max_new_tokens=DECODE_TOKENS))
+        if rnd == 0:
+            u0 = seqs[0, "u0"]
+            while not (u0.phase == Phase.DECODE and len(u0.generated) >= 3):
+                eng.step()
+            eng.fork_session("u0", "u0f")
+            # the fork's history is its source's at the fork
+            eng.snapshots["u0f"] = eng.snapshots["u0"]
+            n_fork = u0.total_len - 1
+            history["u0f"] = [int(t) for t in
+                              list(prompts["u0"]) + u0.generated][:n_fork]
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for (rnd, sid), seq in seqs.items():
+        tokens[rnd, sid] = list(seq.generated)
+        requests[rnd, sid] = (seq.request.prompt, list(seq.generated),
+                              eng.token_logits[id(seq)])
+    m = eng.metrics
+    restored = [seq.ttft_wall for (rnd, _), seq in seqs.items() if rnd]
+    # round 0: a prompt that hit the index starts as a stored session
+    hits = [q.ttft_wall for (r, _), q in seqs.items() if not r and q.restored]
+    misses = [q.ttft_wall for (r, _), q in seqs.items()
+              if not r and not q.restored]
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    print(f"{name}: {wall:.1f} s for {len(seqs)} requests; round-0 TTFT "
+          f"mean {mean(misses):.0f} ms over {len(misses)} misses, "
+          f"{mean(hits):.0f} ms over {len(hits)} prefix hits; round 1 mean "
+          f"{mean(restored):.0f} ms (max "
+          f"{1e3 * max(restored):.0f}); {len(m.restore_sim_all)} restores "
+          f"({m.restored_tokens} tokens restored, {m.restore_skipped_tokens} "
+          f"skipped); hit rate {m.prefix_hit_rate:.2f} ({m.prefix_hits}/"
+          f"{m.prefix_lookups} lookups, {m.prefix_hit_tokens} tokens); "
+          f"copy-on-write copies {m.cow_copies}; shared pages peak "
+          f"{eng.shared_peak}; host dedup {m.dedup_host_bytes / 1e6:.1f} MB; "
+          f"decode {1e3 * eng.walls['decode'] / max(m.decode_steps, 1):.1f} "
+          f"ms per step over {m.decode_steps} steps; {len(eng.checked)} "
+          "restores bitwise equal to their snapshots; wall by phase "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in eng.walls.items()))
+    print(f"{name} requests: " + "; ".join(
+        f"{sid}/{rnd}: ttft {q.ttft_wall * 1e3:.0f} ms"
+        + (f", restore {q.restore_wall * 1e3:.0f} ms" if rnd else
+           " (prefix hit)" if q.restored else "")
+        for (rnd, sid), q in seqs.items()))
+    eng.close()
+    a = eng.kv.allocator
+    if a.free_count != eng.kv.num_blocks or any(a._ref):
+        raise AssertionError(f"{name}: pages still held after close "
+                             f"({eng.kv.num_blocks - a.free_count})")
+    return {"tokens": tokens, "metrics": m, "wall": wall,
+            "checked": len(eng.checked), "shared_peak": eng.shared_peak,
+            "requests": requests, "histories": history,
+            "restored_ttft": restored,
+            "ttft": {key: q.ttft_wall for key, q in seqs.items()},
+            "hits": {key for key, q in seqs.items()
+                     if not key[0] and q.restored}}
+
+
+def check_prefix(on, off):
+    """Sharing on gives sharing off's tokens, and shared what it is for."""
+    if on["tokens"] != off["tokens"]:
+        bad = [k for k in on["tokens"] if on["tokens"][k] != off["tokens"][k]]
+        raise AssertionError(f"prefix sharing changed the tokens of {bad}")
+    m = on["metrics"]
+    if not (m.prefix_hits > 0 and m.restore_skipped_tokens > 0
+            and m.cow_copies > 0 and on["shared_peak"] > 0):
+        raise AssertionError(
+            f"prefix sharing: hits {m.prefix_hits}, skipped "
+            f"{m.restore_skipped_tokens}, copies {m.cow_copies}, shared "
+            f"pages peak {on['shared_peak']}: one of them is 0")
+    if off["metrics"].prefix_hits or off["metrics"].cow_copies:
+        raise AssertionError("sharing off: hits or copies counted")
+    if on["checked"] <= 0 or off["checked"] <= 0:
+        raise AssertionError("prefix sharing: no restore was checked")
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    hits = sorted(on["hits"])
+    print(f"engine paged prefix: tokens identical with sharing on and off "
+          f"for all {len(on['tokens'])} requests; wall {on['wall']:.1f} / "
+          f"{off['wall']:.1f} s (on / off); round-0 TTFT of the "
+          f"{len(hits)} prefix hits {mean([on['ttft'][k] for k in hits]):.0f}"
+          f" ms against {mean([off['ttft'][k] for k in hits]):.0f} ms for "
+          f"the same requests without sharing; round-1 TTFT mean "
+          f"{mean(on['restored_ttft']):.0f} / "
+          f"{mean(off['restored_ttft']):.0f} ms")
+
+
+def check_budget(run, budget, peak):
+    """The budget run's ladder: int8 actions, no drop, restores of int8
+    sessions checked, every request served. Prints first, then gates."""
+    cap = run["capacity"]
+    walls = {k: (len(v), 1e3 * sum(v) / max(len(v), 1))
+             for k, v in run["walls_by_codec"].items()}
+    w = run["int8_worst"]
+    print(f"engine contiguous budget: budget {budget} B "
+          f"({BUDGET_FRACTION:.0%} of the unbudgeted peak {peak} B), ladder "
+          f"{BUDGET_LADDER}; actions {cap.actions}; hot bytes at the end "
+          f"{run['bytes_end']} (unbudgeted {peak}); int8 probe "
+          f"{run['probe']}; over the budget after "
+          f"{len(cap.over)} maintains, by at most "
+          f"{max([o for _, o in cap.over], default=0)} B, held by protected "
+          f"sessions only; demotion seconds " + ", ".join(
+              f"{k} {v:.3f}" for k, v in cap.seconds.items())
+          + "; restores (count, mean wall ms) by codec " + ", ".join(
+              f"{k} {n} / {ms:.1f}" for k, (n, ms) in walls.items())
+          + f"; rows once int8: worst relative L2 to the snapshot "
+          f"{w['rel']:.5f} (limit {INT8_REL}); the {walls['int8'][0]} int8 "
+          f"restores against the plain version on {w['rows']} token rows "
+          f"per hidden layer in all, max abs err {w['plain']:.4g}")
+    stages = [st for st, _ in cap.actions]
+    if "int8" not in stages or "drop" in stages:
+        raise AssertionError(f"budget ladder: actions {cap.actions}")
+    if not walls["int8"][0] or not w["rows"]:
+        raise AssertionError("budget: no int8 restore was checked")
+    if any(len(t) != DECODE_TOKENS for t in run["tokens"].values()):
+        raise AssertionError("budget: a request ended short")
 
 
 def label(model) -> str:
@@ -2104,6 +2502,13 @@ SMOKE_SERVES = (
     ("serve llama2-7b smoke paged", ["--sessions", "4", "--rounds", "2",
                                      "--backend", "paged"],
      ("restore_kv_grouped", "decode_attention_paged", "flash_attention")),
+    ("serve llama2-7b smoke contiguous --budget-kb",
+     ["--sessions", "4", "--rounds", "2", "--budget-kb", "8"],
+     ("restore_kv_grouped", "decode_attention", "flash_attention")),
+    ("serve llama2-7b smoke paged --prefix-sharing",
+     ["--sessions", "4", "--rounds", "2", "--backend", "paged",
+      "--prefix-sharing"],
+     ("restore_kv_grouped", "decode_attention_paged", "flash_attention")),
     ("serve falcon-mamba-7b smoke", ["--arch", "falcon-mamba-7b",
                                      "--rounds", "1"], ("ssm_update",)),
 ) + tuple(
@@ -2117,6 +2522,13 @@ SMOKE_SERVES = (
                            ("starcoder2-15b", ("contiguous",)),
                            ("gemma2-9b", ("contiguous", "paged")))
     for backend in backends)
+# what a serve must print: its ladder's actions (the 8 KiB budget is
+# below the smoke trace's first session, so the cold tier fills) or its
+# prefix-sharing line
+SERVE_PRINTS = {"serve llama2-7b smoke contiguous --budget-kb":
+                "capacity ladder actions: [('cold'",
+                "serve llama2-7b smoke paged --prefix-sharing":
+                "prefix sharing: hit rate"}
 # qwen2-7b's contiguous smoke serve again on a store of two hosts, layer-
 # striped: the engine must report a per-link load and give the one-host
 # serve's tokens
@@ -2125,9 +2537,25 @@ HOSTS_SERVE = ("serve qwen2-7b smoke contiguous",
                ["--hosts", "2", "--placement", "layer"])
 
 
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def recorded_serve(serve, argv):
-    """``serve.main(argv)`` with its engine's emitted tokens and the
-    per-link loads its manager holds after each report recorded."""
+    """``serve.main(argv)`` with its engine's emitted tokens, the
+    per-link loads its manager holds after each report, and its printed
+    lines recorded."""
+    import contextlib
     tokens, loads = [], []
     base = serve.InferenceEngine
 
@@ -2141,11 +2569,13 @@ def recorded_serve(serve, argv):
             loads.append(self.mgr.link_load)
 
     serve.InferenceEngine = Recording
+    tee = _Tee(sys.stdout)
     try:
-        serve.main(argv)
+        with contextlib.redirect_stdout(tee):
+            serve.main(argv)
     finally:
         serve.InferenceEngine = base
-    return {"tokens": tokens, "loads": loads}
+    return {"tokens": tokens, "loads": loads, "out": "".join(tee.parts)}
 
 
 def check_hosts_serve(one, two):
@@ -2256,6 +2686,9 @@ def main() -> None:
     for name, argv, needs in SMOKE_SERVES:
         served[name] = drive(name, lambda a=argv: recorded_serve(serve, a),
                              needs)
+        if SERVE_PRINTS.get(name, "") not in served[name]["out"]:
+            raise AssertionError(f"{name}: no line with "
+                                 f"{SERVE_PRINTS[name]!r}")
     one_host, two_hosts, extra = HOSTS_SERVE
     argv, needs = next((a, n) for name, a, n in SMOKE_SERVES
                        if name == one_host)
@@ -2278,15 +2711,21 @@ def main() -> None:
     def against_plain(name, run, plain):
         # outside the counted path: the plain forward launches kernels too
         t1 = time.perf_counter()
-        worst = check_against_plain(model, params, run.pop("requests"),
-                                    plain)
-        print(f"{name} against the plain forward (12 requests, "
+        requests = run.pop("requests")
+        ungated = run.get("ungated", ())
+        worst = check_against_plain(model, params, requests, plain,
+                                    ungated, run.get("histories"))
+        print(f"{name} against the plain forward ({len(requests)} requests, "
               f"{time.perf_counter() - t1:.1f} s): logits relative error "
               f"max {worst['cold']:.5f} at cold first tokens, "
               f"{worst['restored']:.5f} at restored first tokens, "
               f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}); "
               f"generated tokens at most {worst['gap']:.4f} std below the "
-              f"plain best (limit {PLAIN_GAP})")
+              f"plain best (limit {PLAIN_GAP})" + (
+                  f"; not held, the {len(ungated)} requests that restored "
+                  f"int8 rows: {worst.get('ungated', 0.0):.5f}, "
+                  f"{worst.get('ungated_gap', 0.0):.4f} std" if ungated
+                  else ""))
         gc.collect()                 # free this run's cache first
         torch.cuda.empty_cache()
 
@@ -2322,7 +2761,30 @@ def main() -> None:
     plain = {}                       # these streams may differ from above
     against_plain("engine contiguous whole restores", twin, plain)
     against_plain("engine contiguous calibrated", calibrated, plain)
+    # the host-storage budget: the same traffic under BUDGET_FRACTION of
+    # the phased contiguous run's peak hot bytes, no cold tier
+    peak = runs["contiguous"]["bytes_peak"]
+    budget = int(BUDGET_FRACTION * peak)
+    budgeted = drive("engine contiguous budget",
+                     lambda: run_engine(model, params, "contiguous",
+                                        budget=budget), lm_needs)
+    check_budget(budgeted, budget, peak)
+    against_plain("engine contiguous budget", budgeted, {})
+    # prefix sharing: one shared document, a fork, copy-on-write pages,
+    # against the same requests with sharing off
+    rounds = prefix_requests(model.cfg.vocab_size)
+    paged_needs = ("restore_kv_grouped", "decode_attention_paged",
+                   "flash_attention")
+    shared = drive("engine paged prefix sharing",
+                   lambda: run_prefix_engine(model, params, True, rounds),
+                   paged_needs)
+    unshared = drive("engine paged prefix no sharing",
+                     lambda: run_prefix_engine(model, params, False, rounds),
+                     paged_needs)
+    check_prefix(shared, unshared)
+    against_plain("engine paged prefix sharing", shared, {})
     del model, params, runs, plain, twin, calibrated   # free llama2-7b
+    del budgeted, shared, unshared
     gc.collect()
     torch.cuda.empty_cache()
     # qwen2-7b at full width and depth: the lifecycle, then the engine on

@@ -20,7 +20,18 @@ restored by the graph's ``blob`` task.
 
 Stored hidden states and states keep their dtype bit for bit: fp32 as
 float32, bf16 as its raw 2-byte words (numpy has no bfloat16), so a
-save/restore cycle is lossless at 2 bytes per element on the card.
+save/restore cycle is lossless at 2 bytes per element on the card
+(``store_dtype``).
+
+Hidden codecs: a session's "h" stream is stored as above (``"none"``) or,
+with ``compress="int8"`` or after the capacity ladder's
+``demote_hidden_int8``, as per-token int8 rows plus an "hs" stream of
+fp32 scales (``quantize_hidden_int8``), dequantized on the device at
+restore. The codec is per session (``_compress_for``; the manifest's
+``"compress"``), and every later append of the session follows it.
+``promote_hidden_fp16`` re-encodes an int8 stream at ``store_dtype``;
+``degrade_to_recompute`` drops every stream but the tokens, so the
+session restores all of its layers by the recompute replay.
 """
 from __future__ import annotations
 
@@ -38,9 +49,12 @@ from repro_torch.core.pipeline import Timeline
 from repro_torch.core.restoration import (CacheAssembler, RestorationExecutor,
                                           RestoreParamPack, RestoreSink,
                                           StagingRing, choose_group_size,
+                                          dequantize_hidden_int8,
                                           fetch_aligned_partition,
+                                          host_float32,
                                           measured_dispatch_overhead,
-                                          s_bucket, to_host)
+                                          quantize_hidden_int8, s_bucket,
+                                          to_host)
 from repro_torch.core.scheduler import Schedule, solve
 from repro_torch.storage.chunk_store import ChunkStore
 from repro_torch.storage.two_stage import SnapshotTask, TwoStageSaver
@@ -63,7 +77,7 @@ class HCacheManager:
                  hw: HardwareProfile = PAPER_H800,
                  saver: Optional[TwoStageSaver] = None, dtype_bytes: int = 2,
                  schedule_override: Optional[str] = None,
-                 restore_group_size=8, profile=None):
+                 restore_group_size=8, profile=None, compress: str = "none"):
         self.model = model
         self.cfg = model.cfg
         self.store = store
@@ -98,6 +112,21 @@ class HCacheManager:
         # stores, where ``io_streams`` is the whole story
         self.link_load = None
         self.schedule_override = schedule_override   # None|hidden|kv|recompute
+        # the hidden codec of new sessions ("none" | "int8"), and the
+        # per-session codecs the capacity ladder set (synced from the
+        # manifest when a session resumes under a fresh manager)
+        self.compress = compress
+        self._session_compress: Dict[str, str] = {}
+
+    @property
+    def store_dtype(self) -> np.dtype:
+        """The numpy dtype of stored hidden rows at full fidelity: fp32,
+        or bf16's raw 2-byte words."""
+        return np.dtype(np.int16 if self.model.dtype == torch.bfloat16
+                        else np.float32)
+
+    def _compress_for(self, session: str) -> str:
+        return self._session_compress.get(session, self.compress)
 
     def close(self) -> None:
         """Drain and stop the saver's threads; wait for uploads in flight."""
@@ -235,9 +264,13 @@ class HCacheManager:
         toks = np.asarray(tokens).reshape(-1)
         prev = self.store.get_manifest(session) if start > 0 else None
         if prev and prev.get("methods"):
-            # a resumed session keeps its stored methods: re-planning could
-            # flip a layer across a bucket boundary and leave a hole
+            # a resumed session keeps its stored methods and codec:
+            # re-planning could flip a layer across a bucket boundary and
+            # leave a hole, and a capacity demotion must hold
             methods = list(prev["methods"])
+            comp = prev.get("compress", self.compress)
+            if comp != self.compress:
+                self._session_compress[session] = comp
         else:
             methods = list(self.plan(start + toks.shape[0]).methods)
         self.store.put_blob(session, "tok", 0, toks if start == 0 else
@@ -248,9 +281,8 @@ class HCacheManager:
             if kinds[li] != BlockKind.ATTENTION:
                 continue        # recurrent layers: the state blobs below
             if method == "hidden":
-                self.store.append_tokens(
-                    session, "h", li, start,
-                    to_host(adapter.prefill_hidden(prefill_out, li)))
+                self._append_hidden(session, li, start,
+                                    adapter.prefill_hidden(prefill_out, li))
             elif method == "kv":
                 k, v = adapter.prefill_kv(prefill_out, li)
                 self.store.append_tokens(session, "kvk", li, start,
@@ -266,19 +298,61 @@ class HCacheManager:
         self.store.flush(session)
         self.store.put_manifest(session, {
             "n_tokens": int(start + toks.shape[0]), "methods": methods,
-            "segments": segments, "arch": self.cfg.name})
+            "segments": segments, "arch": self.cfg.name,
+            "compress": self._compress_for(session)})
+
+    def _append_hidden(self, session: str, layer: int, start: int,
+                       h: torch.Tensor) -> None:
+        """One layer's prefill hidden rows (n, D) in the session's codec."""
+        if self._compress_for(session) == "int8":
+            q, scale = quantize_hidden_int8(
+                h.detach().float().cpu().numpy())
+            self.store.append_tokens(session, "h", layer, start, q)
+            self.store.append_tokens(session, "hs", layer, start, scale)
+        else:
+            self.store.append_tokens(session, "h", layer, start, to_host(h))
+
+    def _store_rows(self, h: np.ndarray) -> np.ndarray:
+        """fp32 rows as full-fidelity stored rows (``store_dtype``)."""
+        return to_host(torch.from_numpy(np.ascontiguousarray(
+            h, np.float32)).to(self.model.dtype))
 
     def save_decode_hidden(self, session_ids: Sequence[Optional[str]],
                            hidden: torch.Tensor, lengths) -> float:
         """Two-stage save of one decode step's hidden states: one
         layer-stacked (L, B, 1, D) snapshot; the saver's daemon splits it
         per (layer, sequence). ``lengths`` (B,) are the new tokens'
-        positions. Returns the virtual stage-1 cost in seconds."""
+        positions. Returns the virtual stage-1 cost in seconds.
+
+        The rows of sessions in the int8 codec are quantized on the host
+        after the copy (per token, so a row at a time gives the bulk
+        codec's bits) and go to "h" and "hs" in snapshots of their own."""
         L = hidden.shape[0]
-        return self.saver.snapshot(SnapshotTask(
-            session_ids=list(session_ids), stream="h", layer=-1,
-            start_tokens=[int(x) for x in np.asarray(lengths)],
-            data=to_host(hidden), layers=list(range(L))))
+        layers = list(range(L))
+        starts = [int(x) for x in np.asarray(lengths)]
+        ids = list(session_ids)
+        h = to_host(hidden)
+        int8_rows = [b for b, s in enumerate(ids)
+                     if s is not None and self._compress_for(s) == "int8"]
+        if not int8_rows:
+            return self.saver.snapshot(SnapshotTask(
+                session_ids=ids, stream="h", layer=-1, start_tokens=starts,
+                data=h, layers=layers))
+        cost = 0.0
+        plain = [b for b in range(len(ids)) if b not in int8_rows]
+        if plain:
+            cost += self.saver.snapshot(SnapshotTask(
+                session_ids=[ids[b] for b in plain], stream="h", layer=-1,
+                start_tokens=[starts[b] for b in plain], data=h[:, plain],
+                layers=layers))
+        for b in int8_rows:
+            q, scale = quantize_hidden_int8(
+                host_float32(h[:, b:b + 1], self.model.dtype))
+            cost += self.saver.snapshot(SnapshotTask(
+                [ids[b]], "h", -1, [starts[b]], q, layers=layers))
+            cost += self.saver.snapshot(SnapshotTask(
+                [ids[b]], "hs", -1, [starts[b]], scale, layers=layers))
+        return cost
 
     def save_session_pause(self, session: str, cache: dict, n_tokens: int,
                            *, tokens_tail, batch_width: int = 1,
@@ -296,8 +370,9 @@ class HCacheManager:
             raise KeyError(f"no stored state for session {session!r}")
         prev_n = int(manifest["n_tokens"])
         tail = np.asarray(tokens_tail).reshape(-1)
+        old = self._tokens(session)[:prev_n]
         self.store.put_blob(session, "tok", 0, np.concatenate(
-            [self._tokens(session)[:prev_n], tail.astype(np.int64)]))
+            [old, tail.astype(old.dtype)]))
         adapter = self.model.adapter
         kinds = self.cfg.block_kinds()
         for li, method in enumerate(manifest["methods"]):
@@ -340,6 +415,24 @@ class HCacheManager:
         return RestorationExecutor(self, params, session, sink=sink,
                                    start_token=start_token)
 
+    def fork_session(self, src: str, dst: str, *, share: bool = True)\
+            -> dict:
+        """Clone ``src``'s stored state under ``dst``: ``share=True``
+        aliases its chunks and blobs in the store (the bytes exist once
+        until a side diverges), ``share=False`` copies them. Returns the
+        cloned manifest."""
+        self.saver.drain()
+        man = self.store.get_manifest(src)
+        if man is None:
+            raise KeyError(f"cannot fork {src!r}: no stored state")
+        if self.store.get_manifest(dst) is not None:
+            raise ValueError(f"fork target {dst!r} already has state")
+        self.store.share_session(src, dst, copy=not share)
+        self.store.put_manifest(dst, dict(man))
+        if src in self._session_compress:
+            self._session_compress[dst] = self._session_compress[src]
+        return dict(man)
+
     def restore(self, params, session: str, *,
                 capacity: Optional[int] = None) -> RestoreResult:
         """Rebuild the session's cache (B = 1) from the store: K/V in a
@@ -359,10 +452,108 @@ class HCacheManager:
                              ex.project_wall, dict(ex.host_split),
                              ex.n_tokens)
 
+    # ---------------------------------------------------- capacity demotion
+    def _hidden_layers(self, man: dict, session: str, n: int,
+                       streams=("h",)) -> List[int]:
+        kinds = self.cfg.block_kinds()
+        return [li for li, m in enumerate(man["methods"])
+                if m == "hidden" and kinds[li] == BlockKind.ATTENTION
+                and all(self.store.layer_available(session, st, li, n)
+                        for st in streams)]
+
+    def demote_hidden_int8(self, session: str) -> bool:
+        """Re-encode a session's stored hidden rows to the int8 codec
+        (about half the "h" bytes). Later appends of the session follow
+        the codec, and restores dequantize. False when not applicable.
+        Like the other ladder stages it does not drain the saver: it may
+        run on a saver thread, and the ladder touches only sessions with
+        no rows in flight (``CapacityManager._protected``)."""
+        man = self.store.get_manifest(session)
+        if not man or man.get("compress", "none") == "int8":
+            return False
+        n = int(man.get("n_tokens", 0))
+        layers = self._hidden_layers(man, session, n)
+        if n == 0 or not layers:
+            return False
+        # the re-encode is appended hot: a cold-demoted stream goes back
+        # to the cold tier afterwards, or this stage would grow the
+        # budgeted bytes
+        was_cold = self.store.stream_in_cold(session, "h")
+        data = {li: host_float32(self.store.read_layer(session, "h", li, n),
+                                 self.model.dtype) for li in layers}
+        self.store.drop_stream(session, "h")
+        self.store.drop_stream(session, "hs")
+        for li, h in data.items():
+            q, scale = quantize_hidden_int8(h)
+            self.store.append_tokens(session, "h", li, 0, q)
+            self.store.append_tokens(session, "hs", li, 0, scale)
+        self.store.flush(session)
+        if was_cold:
+            self.store.demote_stream_to_cold(session, "h")
+            self.store.demote_stream_to_cold(session, "hs")
+        man["compress"] = "int8"
+        self.store.put_manifest(session, man)
+        if was_cold:
+            # put_manifest writes the manifest hot; a cold session's
+            # metadata follows its chunks
+            self.store.demote_stream_to_cold(session, "meta")
+        self._session_compress[session] = "int8"
+        return True
+
+    def promote_hidden_fp16(self, session: str) -> bool:
+        """Inverse of ``demote_hidden_int8``: re-encode the int8 rows at
+        ``store_dtype`` and drop the scales, so later appends and restores
+        run at full fidelity again (the rows already quantized keep their
+        error). False when not applicable."""
+        man = self.store.get_manifest(session)
+        if not man or man.get("compress", "none") != "int8":
+            return False
+        n = int(man.get("n_tokens", 0))
+        layers = self._hidden_layers(man, session, n, ("h", "hs"))
+        if n == 0 or not layers:
+            return False
+        data = {li: self._store_rows(dequantize_hidden_int8(
+            self.store.read_layer(session, "h", li, n),
+            self.store.read_layer(session, "hs", li, n))) for li in layers}
+        self.store.drop_stream(session, "h")
+        self.store.drop_stream(session, "hs")
+        for li, h in data.items():
+            self.store.append_tokens(session, "h", li, 0, h)
+        self.store.flush(session)
+        man["compress"] = "none"
+        self.store.put_manifest(session, man)
+        self._session_compress[session] = "none"
+        return True
+
+    def degrade_to_recompute(self, session: str) -> bool:
+        """Drop a session's hidden and K/V streams, keeping the tokens and
+        the manifest (with its segments): every layer then restores by
+        the recompute replay. False for families without recompute."""
+        if not self.model.adapter.supports_recompute:
+            return False
+        man = self.store.get_manifest(session)
+        if not man or all(m == "recompute" for m in man["methods"]):
+            return False
+        if not self.store.has_blob(session, "tok", 0):
+            return False
+        if self._tokens(session).shape[0] < int(man.get("n_tokens", 0)):
+            return False
+        for stream in ("h", "hs", "kvk", "kvv"):
+            self.store.drop_stream(session, stream)
+        man["methods"] = ["recompute"] * len(man["methods"])
+        man["compress"] = "none"
+        self._session_compress.pop(session, None)
+        self.store.put_manifest(session, man)
+        return True
+
     # -------------------------------------------------------------- eviction
-    def evict(self, session: str) -> None:
-        """Drop everything stored for ``session``."""
-        self.saver.drain()
+    def evict(self, session: str, *, drain: bool = True) -> None:
+        """Drop everything stored for ``session``, after the saver's rows
+        in flight (``drain=False`` on a saver thread, where the capacity
+        ladder may run: it drops only sessions with no rows in flight)."""
+        if drain:
+            self.saver.drain()
+        self._session_compress.pop(session, None)
         self.store.drop_session(session)
 
     def sessions(self) -> List[str]:

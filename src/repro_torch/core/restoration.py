@@ -400,6 +400,38 @@ def as_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+# ----------------------------------------------------- hidden-state codec
+def quantize_hidden_int8(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-token int8 quantization of stored hidden states (fp32 in): the
+    rows and their fp32 scales (..., 1). The save path and the capacity
+    ladder encode with it; restores decode with ``dequantize_hidden_int8``
+    or, on the device, ``dequantize_hidden_int8_torch``."""
+    scale = np.abs(x).max(axis=-1, keepdims=True).astype(np.float32) / 127.0
+    scale = np.maximum(scale, 1e-8)
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequantize_hidden_int8(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * scale.astype(np.float32)
+
+
+def dequantize_hidden_int8_torch(q: torch.Tensor,
+                                 scale: torch.Tensor) -> torch.Tensor:
+    """``dequantize_hidden_int8`` where the rows lie (fp32): one IEEE
+    multiply per element, so the card gives the numpy codec's bits."""
+    return q.float() * scale.float()
+
+
+def host_float32(words: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """Stored rows of a ``dtype`` model (``to_host``'s words) as fp32,
+    exactly: bf16 words widen bit for bit."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(words)).view(
+            torch.bfloat16).float().numpy()
+    return np.asarray(words, np.float32)
+
+
 STAGING_SLOTS = 3
 FILL_THREADS = 4
 # where an executor's host seconds go (``RestorationExecutor.host_split``)
@@ -649,7 +681,9 @@ class RestorationExecutor:
     ``StagingRing``, the upload runs on the ring's copy stream, and the
     compute stream (the caller's current stream, which the engine's
     decode also runs on) waits on the upload's event, runs the norm and
-    the restoration kernel and hands the group to the sink. No task body
+    the restoration kernel and hands the group to the sink (rows stored
+    in the int8 codec go up as int8 with their fp32 scales, in two slots,
+    and are multiplied out on the compute stream first). No task body
     waits for the device; CUDA events around each group's norm + kernel
     give its device seconds, read once the end event has completed
     (polled in ``step``, drained when the restore is done).
@@ -679,6 +713,9 @@ class RestorationExecutor:
         self.sink = sink
         self.n_tokens = int(manifest["n_tokens"])
         self.methods = tuple(manifest["methods"])
+        # the stored hidden codec: "int8" rows come with an "hs" stream of
+        # per-token scales and are dequantized on the device
+        self.compress = manifest.get("compress", mgr.compress)
         # tokens [0, start_token) are already in the target slot: the
         # graph restores only the suffix (reads from its first chunk,
         # projections at its bucket, RoPE and sink writes at the offset).
@@ -729,7 +766,8 @@ class RestorationExecutor:
         self._io_clocks: Dict[int, float] = {}
         self._comp_clock = 0.0
         self._cur_idx = -1
-        self._hio: Dict[int, tuple] = {}      # layer -> (task, read ticket)
+        self._hio: Dict[int, tuple] = {}      # layer -> (task, h and hs
+        #                                       reads; hs None unless int8)
         self._kvio: List[tuple] = []          # (task, layer, k and v tickets)
         self._re_layers = [i for i, m in enumerate(self.methods)
                            if m == "recompute"]
@@ -993,10 +1031,14 @@ class RestorationExecutor:
     def _exec_io_h(self, t: Task) -> None:
         if t.layer not in self._row_of:
             return          # recurrent layers restore through the blob
-        # the read completes when the projection consumes it
-        self._hio[t.layer] = (self._cur_idx, self.mgr.store.submit_layer_read(
-            self.session, "h", t.layer, self.n_tokens,
-            start_token=self.start_token))
+        # the reads complete when the projection consumes them
+        store, sess, n = self.mgr.store, self.session, self.n_tokens
+        d = self.start_token
+        self._hio[t.layer] = (
+            self._cur_idx,
+            store.submit_layer_read(sess, "h", t.layer, n, start_token=d),
+            store.submit_layer_read(sess, "hs", t.layer, n, start_token=d)
+            if self.compress == "int8" else None)
 
     def _exec_io_kv(self, t: Task) -> None:
         if t.layer not in self._row_of:
@@ -1060,25 +1102,40 @@ class RestorationExecutor:
         members = [li for li in t.members if li in self._row_of]
         if not members:
             return          # recurrent layers restore through the blob
-        reads = []
+        reads, scales = [], []
         for li in members:
-            idx, r = self._hio.pop(li)
-            self._land(idx, "io_h", r)
+            idx, r, rs = self._hio.pop(li)
+            self._land(idx, "io_h", *[x for x in (r, rs) if x is not None])
             reads.append(r)
+            scales.append(rs)
         # one row of the group per member; a narrow group's reads are
         # shared by several jobs, so every fill keeps the threads busy
         step = -(-FILL_THREADS // len(reads))
+        int8 = scales[0] is not None
         hidden = self._upload(
             (len(reads), n) + reads[0].row_shape, reads[0].dtype,
             [lambda buf, g=g, r=r, j=j: r.copy_into(buf[g], j, step)
              for g, r in enumerate(reads) for j in range(step)],
-            model.dtype)
+            torch.int8 if int8 else model.dtype)
+        if int8:
+            # the int8 rows and their fp32 scales go up in two slots (a
+            # little over half a bf16 upload's bytes) and are multiplied
+            # out on the compute stream before the projection
+            scale = self._upload(
+                (len(scales), n, 1), np.float32,
+                [lambda buf, g=g, r=r: r.copy_into(buf[g])
+                 for g, r in enumerate(scales)], torch.float32)
         t0 = time.perf_counter()
         rows = tuple(self._row_of[li] for li in members)
         cos, sin = pack.rope_tables(n, self.start_token)
         first = self.mgr.first_launch(("project", len(rows), s_bucket(n)))
+
+        def project():
+            h = (dequantize_hidden_int8_torch(hidden, scale).to(model.dtype)
+                 if int8 else hidden)
+            return project_group(pack, h, pack.rows(rows), cos, sin)
         k, v = self._timed(
-            lambda: project_group(pack, hidden, pack.rows(rows), cos, sin),
+            project,
             [(self._cur_idx, "project", self._task_work(t), 1.0, not first)])
         self._emit("put_kv_group", rows, k[:, None], v[:, None],
                    self.start_token)

@@ -9,11 +9,19 @@ conversation trace.
         falcon-mamba-7b --rounds 1 --full           # ssm family, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --hw-profile p.json --restore-group-size auto   # calibrated
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --budget-kb 64                              # host budget ladder
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --backend paged --prefix-sharing            # shared prefixes
 
 It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
 CPU); with no GPU present and no ``--device`` it fails instead of falling
 back to the CPU. Weights are random, from seed 0. Flags of parts that are
 not ported yet are refused with a message that names the missing part.
+``--budget-kb`` caps the store's hot tier and adds a DRAM cold tier
+under a ``CapacityManager`` (its ladder's actions are printed);
+``--prefix-sharing`` turns on shared prefixes and copy-on-write pages
+(the paged backend's index; host chunk sharing on either backend).
 An ``ssm`` model (falcon-mamba-7b) runs on the contiguous backend for one
 round per session: its prefill starts from zero state, so a second round
 is refused.
@@ -31,6 +39,7 @@ from repro_torch.config.arch import reduced_for_smoke
 from repro_torch.config.hardware import PROFILES
 from repro_torch.configs import get_arch
 from repro_torch.core.capacity import (ADMISSION_POLICIES, EVICTION_POLICIES,
+                                       CapacityManager,
                                        RestoreCostAwareAdmission)
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.core.profiler import MeasuredProfile
@@ -42,11 +51,8 @@ from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
 # flags of the JAX package's serve.py whose parts are not ported yet, and
 # the ROADMAP item that brings each
 NOT_PORTED = {
-    "--budget-kb": "the host-storage budget manager (restoration extras: "
-                   "the int8 codec with CapacityManager)",
     "--tp": "tensor parallelism (multi-GPU)",
     "--enc-seq": "encoder-decoder models (other families)",
-    "--prefix-sharing": "prefix sharing and copy-on-write pages",
     "--serve-http": "the HTTP front door",
 }
 
@@ -107,6 +113,15 @@ def _parser() -> argparse.ArgumentParser:
                         "argmin over {1, 2, 4, 8, L} and the fetch-aligned "
                         "partition per restore, or 'fetch' for the "
                         "fetch-aligned partition")
+    p.add_argument("--budget-kb", type=int, default=None,
+                   help="host hot-tier byte budget (KiB); enables the "
+                        "capacity ladder (cold tier, int8 hidden states, "
+                        "recompute-only, drop) over a DRAM cold tier")
+    p.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="cross-session prefix sharing: refcounted copy-on-"
+                        "write pages and a token-hash prefix index (paged "
+                        "backend), shared host chunks and session forks")
     p.add_argument("--hw-profile", default=None, metavar="PATH",
                    help="online scheduler calibration: load a "
                         "MeasuredProfile JSON from PATH if it exists (else "
@@ -156,16 +171,19 @@ def main(argv=None) -> None:
                 "each session one round (its prefill cannot resume on "
                 "restored state); pass --rounds 1")
     params = model.init(0)
+    cold = make_array("dram", args.ssds) if args.budget_kb else None
     if args.hosts > 1:
         from repro_torch.config.hardware import NIC_BW
         nic_bw = (args.nic_bw * 1e9 if args.nic_bw else NIC_BW)
         store = ChunkStore(shards=make_shards(args.hosts, args.ssds, "ssd",
                                               nic_bw=nic_bw),
-                           chunk_tokens=64, placement=args.placement)
+                           chunk_tokens=64, cold_devices=cold,
+                           placement=args.placement)
         if args.async_io is not False:
             store.attach_io_engine(AsyncIOEngine(args.hosts))
     else:
-        store = ChunkStore(make_array("ssd", args.ssds), chunk_tokens=64)
+        store = ChunkStore(make_array("ssd", args.ssds), chunk_tokens=64,
+                           cold_devices=cold)
         if args.async_io:
             store.attach_io_engine(AsyncIOEngine(1))
     measured = None
@@ -175,6 +193,8 @@ def main(argv=None) -> None:
                     else MeasuredProfile())
     mgr = HCacheManager(model, store, hw=PROFILES[args.profile],
                         restore_group_size=group_size, profile=measured)
+    capacity = (CapacityManager(mgr, host_budget_bytes=args.budget_kb * 1024)
+                if args.budget_kb else None)
     admission = (RestoreCostAwareAdmission(aging=args.admission_aging)
                  if args.admission == "restore_cost"
                  else ADMISSION_POLICIES[args.admission]())
@@ -183,9 +203,11 @@ def main(argv=None) -> None:
                              preempt_quantum=args.preempt_quantum,
                              eviction=EVICTION_POLICIES[args.eviction](),
                              admission=admission,
+                             capacity=capacity,
                              backend=args.backend,
                              block_size=args.block_size,
-                             cache_blocks=args.cache_blocks)
+                             cache_blocks=args.cache_blocks,
+                             prefix_sharing=args.prefix_sharing)
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {dtype} on "
           f"{device}")
 
@@ -208,7 +230,8 @@ def main(argv=None) -> None:
     print(f"\nrestored {m.restored_tokens} tokens over "
           f"{len(m.ttft_wall)} requests; decode steps {m.decode_steps}; "
           f"preemptions {m.preemptions}; "
-          f"store {store.bytes_used / 1e6:.1f} MB across "
+          f"store {store.bytes_used / 1e6:.1f} MB hot "
+          f"/ {store.bytes_cold / 1e6:.1f} MB cold across "
           f"{len(store.devices)} devices")
     print(f"cache backend {engine.kv.name}: peak concurrency "
           f"{m.concurrent_peak} slots, peak live/reserved tokens "
@@ -216,6 +239,14 @@ def main(argv=None) -> None:
           f"{m.occupancy_mean:.2f} (fragmentation "
           f"{m.fragmentation_mean:.2f}), free blocks {m.free_blocks}, "
           f"alloc stalls {m.alloc_stalls}")
+    if args.prefix_sharing:
+        print(f"prefix sharing: hit rate {m.prefix_hit_rate:.2f} "
+              f"({m.prefix_hits}/{m.prefix_lookups} lookups, "
+              f"{m.prefix_hit_tokens} tokens), skipped "
+              f"{m.restore_skipped_tokens} restore/prefill tokens, "
+              f"{m.cow_copies} CoW copies, pages shared/private "
+              f"{m.shared_pages}/{m.private_pages}, host dedup "
+              f"{m.dedup_host_bytes / 1e6:.2f} MB, forks {m.forks}")
     for r in m.device_gauges:
         print(f"device {r['device']}: free pages {r['free_pages']}, "
               f"pool occupancy {r['occupancy_pct']}%, live/reserved "
@@ -232,6 +263,8 @@ def main(argv=None) -> None:
         print(f"hw profile: epoch {measured.epoch}, samples "
               f"[{counts or 'none'}] -> {args.hw_profile}")
         measured.save(args.hw_profile)
+    if capacity is not None and capacity.actions:
+        print("capacity ladder actions:", capacity.actions)
     print("recoverable sessions:", engine.recoverable_sessions())
     _dump_metrics(engine, args.metrics_json)
     engine.close()

@@ -48,9 +48,30 @@ Crash recovery: a fresh engine over the same ChunkStore can resume any
 session (``recoverable_sessions``) — serving-side fault tolerance is
 HCache itself.
 
+Host-storage budget: with a ``CapacityManager`` (``capacity=``) every
+step ends with its ``maintain`` (recency, then the demotion ladder over
+idle sessions), every save offers the session for re-promotion from the
+int8 codec (``_after_save``), and idle steps sweep promotions. A warm
+prefetch executor is dropped when the ladder changed its session's codec
+or methods since it started.
+
+Prefix sharing (``prefix_sharing=True``; DESIGN.md §12): on the paged
+backend a ``PrefixIndex`` maps page-aligned token prefixes to pages that
+hold their K/V. A slot publishes its full pages at prefill completion
+and before it frees; admission adopts the longest indexed prefix of a
+fresh prompt (prefill-skip: the new session's host streams alias the
+publisher's pinned chunks, so it is an ordinary stored session of the
+matched length) or of a stored session's history (restore-skip: the
+executor starts at the match, ``begin_restore(start_token=)``). Pages
+are copy-on-write (``PagedBackend._ensure_private``). ``fork_session``
+clones a session's stored state (aliased chunks under sharing, copies
+without) and, on the paged backend, parks the source's pages for the
+fork to adopt. Sessions in the int8 codec or with recompute layers are
+not shared: shared pages hold exact K/V, and a restore of theirs would
+not give those bits.
+
 Not ported yet, and refused at construction with the ROADMAP item that
-brings them: prefix sharing and session forks, the host-storage budget
-manager (``capacity=``) and tensor parallelism (``tp > 1``).
+brings it: tensor parallelism (``tp > 1``).
 
 A family whose adapter cannot resume (``supports_resume`` false: the
 ``ssm`` family, whose prefill starts from zero state) serves each
@@ -62,18 +83,21 @@ the history).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from repro_torch.core.capacity import (AdmissionPolicy, EvictionPolicy,
-                                       FIFOAdmission, LRUEviction)
+from repro_torch.core.capacity import (AdmissionPolicy, CapacityManager,
+                                       EvictionPolicy, FIFOAdmission,
+                                       LRUEviction)
 from repro_torch.core.cost_model import LinkLoad
 from repro_torch.core.hcache import HCacheManager
-from repro_torch.serving.kv_cache import (KVCacheBackend, ViewSink,
-                                          make_backend)
+from repro_torch.serving.kv_cache import (KVCacheBackend, PagedBackend,
+                                          ViewSink, make_backend)
+from repro_torch.serving.prefix_index import HostPin, PrefixIndex
 from repro_torch.serving.request import Phase, Request, SequenceState
 from repro_torch.serving.sampling import sample
 
@@ -112,6 +136,17 @@ class EngineMetrics:
     occupancy_sum: float = 0.0          # running (sum, count)
     occupancy_count: int = 0
     alloc_stalls: int = 0               # admissions deferred: pool exhausted
+    # prefix-sharing gauges, all zero unless prefix_sharing=True
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefix_hit_tokens: int = 0
+    restore_skipped_tokens: int = 0     # tokens adopted instead of
+    #                                     restored or prefilled
+    cow_copies: int = 0                 # pages privatised on divergence
+    shared_pages: int = 0               # refcount > 1 (last sample)
+    private_pages: int = 0              # refcount == 1 (last sample)
+    dedup_host_bytes: int = 0           # host bytes sharing avoided
+    forks: int = 0
     io_streams_peak: int = 1            # max concurrent RESTORING slots
     # scheduler-calibration gauges, per completed restore that observed
     # its task durations (a MeasuredProfile on the manager): the bubble
@@ -150,6 +185,11 @@ class EngineMetrics:
         return (self.makespan_err_sum / self.makespan_err_n
                 if self.makespan_err_n else 0.0)
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        return (self.prefix_hits / self.prefix_lookups
+                if self.prefix_lookups else 0.0)
+
     @staticmethod
     def _summary(xs: List[float]) -> Dict[str, float]:
         if not xs:
@@ -176,7 +216,8 @@ class EngineMetrics:
             else:
                 out[f.name] = v
         for prop in ("occupancy_mean", "fragmentation_mean",
-                     "restore_bubble_mean", "makespan_err_mean"):
+                     "restore_bubble_mean", "makespan_err_mean",
+                     "prefix_hit_rate"):
             out[prop] = float(getattr(self, prop))
         return out
 
@@ -190,21 +231,12 @@ class InferenceEngine:
                  admission: Optional[AdmissionPolicy] = None,
                  eviction: Optional[EvictionPolicy] = None,
                  preempt_quantum: Optional[int] = None,
-                 capacity=None,
+                 capacity: Optional[CapacityManager] = None,
                  backend: Union[str, KVCacheBackend] = "contiguous",
                  block_size: int = 16,
                  cache_blocks: Optional[int] = None,
                  prefix_sharing: bool = False,
                  tp: int = 1):
-        if prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported yet (ROADMAP queue 1: prefix "
-                "sharing and copy-on-write pages)")
-        if capacity is not None:
-            raise NotImplementedError(
-                "the host-storage budget manager is not ported yet "
-                "(ROADMAP queue 1: restoration extras, the int8 codec with "
-                "CapacityManager)")
         if tp > 1:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP queue 1: "
@@ -225,8 +257,20 @@ class InferenceEngine:
         # minimum resident steps before a DECODE session is
         # eviction-eligible; None disables mid-stream eviction
         self.preempt_quantum = preempt_quantum
+        self.capacity = capacity
+        if capacity is not None:
+            capacity.attach_engine(self)
         self.kv = make_backend(backend, model, max_batch, max_seq,
                                block_size=block_size, num_blocks=cache_blocks)
+        # cross-session prefix sharing: host chunk aliasing on fork works
+        # on every backend; the token-hash index needs pages
+        self.prefix_sharing = bool(prefix_sharing)
+        self.prefix_index: Optional[PrefixIndex] = None
+        self._fork_pages: Dict[str, dict] = {}   # parked page holds
+        if self.prefix_sharing and isinstance(self.kv, PagedBackend):
+            self.prefix_index = PrefixIndex(self.kv)
+            self.prefix_index.store = manager.store
+            self.kv.prefix_index = self.prefix_index
         # token callbacks: on_token fires once per emitted token (the
         # resume feed after a pause replays an existing token and does not
         # re-fire); on_finish once per request at retire, with reason
@@ -271,8 +315,62 @@ class InferenceEngine:
         manifest = self.mgr.store.get_manifest(seq.request.session_id)
         stored = (int(manifest["n_tokens"]) if manifest
                   else seq.history_len)
-        return (stored + len(seq.effective_prompt)
+        need = (stored + len(seq.effective_prompt)
                 + seq.request.max_new_tokens - len(seq.generated))
+        fork = self._fork_pages.get(seq.request.session_id)
+        if fork is not None and fork["partial"]:
+            # adopting a fork's partial tail page shares it with the
+            # donor; the resume-feed write privatises it, costing one
+            # extra pool page while both holds are live
+            need += self.kv.block_size
+        return need
+
+    def _host_align(self, m: int) -> int:
+        """Floor a device prefix match so its host analogue aliases only
+        whole chunks (the adopted length must be page- and chunk-
+        aligned)."""
+        C = self.mgr.store.chunk_tokens
+        bs = self.kv.block_size
+        align = bs * C // math.gcd(bs, C)
+        return (m // align) * align
+
+    def _shareable(self, man: dict) -> bool:
+        """A stored session whose no-sharing restore gives exact K/V: the
+        full-fidelity codec and no recompute layers."""
+        return (man.get("compress", self.mgr.compress) == "none"
+                and "recompute" not in list(man["methods"]))
+
+    def _shared_prefix_estimate(self, seq: SequenceState) -> int:
+        """Tokens an admission of ``seq`` would cover with shared pages
+        (parked fork pages or a prefix-index hit): those pages come by
+        a hold, not from the free pool."""
+        if self.prefix_index is None:
+            return 0
+        sid = seq.request.session_id
+        man = self.mgr.store.get_manifest(sid)
+        fork = self._fork_pages.get(sid)
+        if (fork is not None and man is not None
+                and fork["n_tokens"] == int(man["n_tokens"])):
+            bs = self.kv.block_size
+            return (fork["n_tokens"] // bs) * bs
+        if man is not None:
+            if not self._shareable(man):
+                return 0
+            n = int(man["n_tokens"])
+            _, m, _ = self.prefix_index.match(self.mgr._tokens(sid)[:n],
+                                              limit=n, record=False)
+            return m
+        prompt = np.asarray(seq.effective_prompt).reshape(-1)
+        _, m, _ = self.prefix_index.match(prompt, limit=len(prompt) - 1,
+                                          need_host=self.save_hidden,
+                                          record=False)
+        return self._host_align(m) if self.save_hidden else m
+
+    def _can_reserve_for(self, seq: SequenceState) -> bool:
+        """Admission gate: ``kv.can_reserve``, made sharing-aware."""
+        need = self._tokens_needed(seq)
+        return self.kv.can_reserve(
+            max(need - self._shared_prefix_estimate(seq), 1))
 
     def _admit(self) -> None:
         while self.queue:
@@ -282,7 +380,7 @@ class InferenceEngine:
             seq = self.admission.select(tuple(self.queue), self)
             if seq is None:
                 break
-            if not self.kv.can_reserve(self._tokens_needed(seq)):
+            if not self._can_reserve_for(seq):
                 # allocator backpressure: a free slot exists but the page
                 # pool cannot hold the session — wait for retires/frees
                 self.metrics.alloc_stalls += 1
@@ -302,13 +400,93 @@ class InferenceEngine:
                 "JAX package's second round drops the history, ROADMAP "
                 "queue 3)")
 
+    def _adopt_shared_prefix(self, seq: SequenceState, slot: int) -> int:
+        """Map the longest shared prefix of this session into the free
+        slot's block table before ``reserve`` tops it up with private
+        pages. Three sources, tried in order: parked fork pages (the fork
+        adopts the donor's saved history whole), a prefix-index hit on
+        the session's stored history (restore-skip), or one on a fresh
+        prompt (prefill-skip: the host streams alias the publisher's
+        pinned chunks, so the session is a complete stored session of the
+        matched length). Returns the adopted token count."""
+        if self.prefix_index is None:
+            return 0
+        sid = seq.request.session_id
+        man = self.mgr.store.get_manifest(sid)
+        fork = self._fork_pages.pop(sid, None)
+        if fork is not None:
+            if man is not None and fork["n_tokens"] == int(man["n_tokens"]):
+                self.kv.adopt_shared(slot, fork["blocks"], owned=True)
+                return fork["n_tokens"]
+            # the source saved more state since the fork: the parked
+            # pages are stale; drop the holds and try the index
+            self.kv.release_blocks(fork["blocks"])
+        if man is not None:
+            if not self._shareable(man):
+                return 0
+            n = int(man["n_tokens"])
+            blocks, m, _ = self.prefix_index.match(
+                self.mgr._tokens(sid)[:n], limit=n)
+            if m:
+                self.kv.adopt_shared(slot, blocks)
+            return m
+        prompt = np.asarray(seq.effective_prompt).reshape(-1)
+        blocks, m, entry = self.prefix_index.match(
+            prompt, limit=len(prompt) - 1, need_host=self.save_hidden)
+        if m and self.save_hidden:
+            m = self._host_align(m)
+            blocks = blocks[:m // self.kv.block_size]
+        if not m:
+            return 0
+        self.kv.adopt_shared(slot, blocks)
+        if self.save_hidden:
+            self._alias_host_prefix(sid, prompt[:m], entry)
+        else:
+            seq.history_len = m
+        seq.pending_prompt = prompt[m:]
+        return m
+
+    def _alias_host_prefix(self, sid: str, prefix_tokens, entry) -> None:
+        """The host side of a fresh-prompt prefix hit: the new session's
+        streams alias the publisher's pinned chunks for the matched
+        tokens, and a manifest is committed with the publisher's methods
+        and its history segments clipped at the match (what a recompute
+        replay of this history must run), so every later path (prefill,
+        pause, restore) sees an ordinary stored session of ``m`` tokens.
+        The aliases cost no bytes until the session diverges."""
+        store = self.mgr.store
+        m = len(prefix_tokens)
+        pin: HostPin = entry.pin
+        n_chunks = -(-m // store.chunk_tokens)
+        store.put_blob(sid, "tok", 0, np.asarray(prefix_tokens, np.int32))
+        for (stream, li), ids in pin.pins.items():
+            for ci in range(min(n_chunks, len(ids))):
+                store.alias_chunk(sid, stream, li, ci, ids[ci])
+        segments = []
+        for seg in pin.segments:
+            start, n = int(seg[0]), int(seg[1])
+            if start < m:
+                segments.append([start, min(n, m - start)] + list(seg[2:]))
+        store.put_manifest(sid, {"n_tokens": m,
+                                 "methods": list(pin.methods),
+                                 "segments": segments,
+                                 "arch": self.mgr.cfg.name,
+                                 "compress": "none"})
+
     def _place(self, seq: SequenceState, slot: int) -> bool:
         """Bind a (possibly resuming) sequence to a free batch slot.
         False iff the backend could not reserve capacity (the sequence is
         requeued and the slot stays free)."""
         sid = seq.request.session_id
         self._refuse_unresumable(sid)
+        adopted = self._adopt_shared_prefix(seq, slot)
         if not self.kv.reserve(slot, self._tokens_needed(seq)):
+            if self.prefix_index is not None and self.kv.slot_blocks[slot]:
+                self.kv.free_slot(slot)      # drop adopted page holds
+            if adopted and self.mgr.store.get_manifest(sid) is None:
+                # a no-save fresh match: nothing persisted, undo the trim
+                seq.pending_prompt = None
+                seq.history_len = 0
             self.metrics.alloc_stalls += 1
             self.queue.appendleft(seq)
             return False
@@ -317,22 +495,44 @@ class InferenceEngine:
         seq.view = self.kv.view(slot)
         self.slots[slot] = seq
         self.sessions[sid] = seq
+        if self.capacity is not None:
+            self.capacity.touch(sid, self.step_count)
         manifest = self.mgr.store.get_manifest(sid)
         if manifest:
             n_man = int(manifest["n_tokens"])
+            d = min(adopted, n_man)
+            if d:
+                self.metrics.restore_skipped_tokens += d
+            if d >= n_man and n_man > 0:
+                # the whole stored history is resident in shared pages:
+                # nothing to restore
+                self._prefetch.pop(sid, None)
+                seq.restored = True
+                seq.history_len = n_man
+                seq.restore_sim = 0.0
+                seq.restore_wall = 0.0
+                self.kv.set_length(slot, n_man)
+                seq.phase = Phase.PREFILL
+                self._prefill_step(seq)
+                return True
             seq.phase = Phase.RESTORING
             ex = self._prefetch.pop(sid, None)
             if ex is not None and (
                     ex.n_tokens != n_man
-                    or list(ex.methods) != list(manifest["methods"])):
-                # the session saved more state after the prefetch
-                # started: the warm executor is stale
+                    or list(ex.methods) != list(manifest["methods"])
+                    or ex.compress != manifest.get("compress",
+                                                   self.mgr.compress)
+                    or ex.start_token != d):
+                # the session saved more state (or the capacity ladder
+                # changed its codec or methods) after the prefetch
+                # started, or a shared prefix moved the start token: the
+                # warm executor is stale
                 ex = None
             if ex is None:
                 # this restore joins the already-RESTORING slots on the
                 # shared host link: plan it at the new multiplicity
                 self._update_io_streams()
-                ex = self.mgr.begin_restore(self.params, sid)
+                ex = self.mgr.begin_restore(self.params, sid, start_token=d)
             ex.attach_sink(ViewSink(seq.view))
             seq.executor = ex
             # reserve [0, n) now: concurrent decode steps park their
@@ -341,6 +541,9 @@ class InferenceEngine:
             self.kv.set_length(slot, ex.n_tokens)
         else:
             seq.phase = Phase.PREFILL
+            if seq.history_len:
+                # a no-save prefix hit: the adopted range is live history
+                self.kv.set_length(slot, seq.history_len)
             self._prefill_step(seq)
         return True
 
@@ -358,7 +561,7 @@ class InferenceEngine:
             # second admission gate — the page pool — blocks the queue;
             # pausing a victim recycles its pages
             seq = self.admission.select(tuple(self.queue), self)
-            if seq is None or self.kv.can_reserve(self._tokens_needed(seq)):
+            if seq is None or self._can_reserve_for(seq):
                 return
         candidates = [s for s in self.slots
                       if s is not None and s.phase == Phase.DECODE
@@ -380,11 +583,13 @@ class InferenceEngine:
         """Dump a resident session's restorable state through the
         manager: the history through the last sampled token's
         predecessor, with the decode batch it ran in."""
+        sid = s.request.session_id
         self.mgr.saver.drain()
         self.mgr.save_session_pause(
-            s.request.session_id, s.view.snapshot(), s.total_len - 1,
+            sid, s.view.snapshot(), s.total_len - 1,
             tokens_tail=np.asarray(s.generated[s.tok_saved:-1], np.int32),
             batch_width=self.max_batch, batch_row=s.slot)
+        self._after_save(sid)
         s.tok_saved = len(s.generated) - 1
 
     def _pause_slot(self, i: int) -> None:
@@ -394,6 +599,7 @@ class InferenceEngine:
         resume prefill after restoration."""
         s = self.slots[i]
         self._save_pause(s)
+        self._publish_slot(s)
         s.gen_absorbed = len(s.generated)
         s.pending_prompt = np.asarray([s.generated[-1]], np.int32)
         s.pending_from_gen = True
@@ -411,6 +617,108 @@ class InferenceEngine:
         self.metrics.preemptions += 1
         if self.on_pause is not None:
             self.on_pause(s)
+
+    # ------------------------------------------------------ prefix sharing
+    def _host_pin_fn(self, sid: str, man: dict):
+        """``pin_fn`` for ``PrefixIndex.publish``: pins every stored
+        stream's chunks covering ``depth`` pages, or None when they are
+        not all flushed (the entry then serves restore-skip only, not
+        fresh-prompt hits)."""
+        if not self.save_hidden:
+            return None
+        methods = list(man["methods"])
+        if "recompute" in methods:
+            return None
+        store = self.mgr.store
+        C = store.chunk_tokens
+        bs = self.kv.block_size
+        segments = [list(seg) for seg in man.get("segments", [])]
+
+        def pin(depth: int):
+            n_tok = depth * bs
+            n_chunks = -(-n_tok // C)
+            targets = []
+            for li, m in enumerate(methods):
+                for stream in (("h",) if m == "hidden" else ("kvk", "kvv")):
+                    for ci in range(n_chunks):
+                        if (store.chunk_rows(sid, stream, li, ci)
+                                < min(C, n_tok - ci * C)):
+                            return None
+                    targets.append((stream, li))
+            pins = {(stream, li): store.pin_chunks(sid, stream, li,
+                                                   list(range(n_chunks)))
+                    for stream, li in targets}
+            return HostPin(methods=methods, pins=pins, n_chunks=n_chunks,
+                           segments=segments)
+        return pin
+
+    def _publish_slot(self, seq: SequenceState) -> None:
+        """Index the slot's full pages for sharing: at prefill completion
+        and again just before the slot frees at pause or retire (the
+        index holds its pages, so they outlive the residency)."""
+        if self.prefix_index is None or seq.view is None or seq.slot < 0:
+            return
+        blks = self.kv.slot_blocks[seq.slot]
+        if not blks:
+            return
+        sid = seq.request.session_id
+        length = int(self.kv.lengths_np[seq.slot])
+        if self.save_hidden:
+            man = self.mgr.store.get_manifest(sid)
+            if not man or man.get("compress", self.mgr.compress) != "none":
+                return                     # demoted codecs are not shared
+            tokens = self.mgr._tokens(sid)
+            self.prefix_index.publish(tokens, min(length, len(tokens)),
+                                      blks, self._host_pin_fn(sid, man))
+        else:
+            if seq.pending_from_gen:
+                return       # the token history lives only in the store
+            tokens = np.concatenate(
+                [np.asarray(seq.request.prompt, np.int64).reshape(-1),
+                 np.asarray(seq.generated, np.int64)])
+            self.prefix_index.publish(tokens, min(length, len(tokens)),
+                                      blks, None)
+
+    def fork_session(self, src: str, new_id: str) -> dict:
+        """Fork ``src``'s conversation as ``new_id``: the stored streams
+        are shared in the store (copied when prefix sharing is off) and,
+        under sharing on the paged backend with the source resident, the
+        saved history's pages are parked for the fork to adopt at
+        admission, which makes its restore a no-op. A resident source is
+        saved first (the dump of a pause, keeping its slot), so the fork
+        point is its history through the last sampled token's
+        predecessor."""
+        seq = self.sessions.get(src)
+        if seq is not None and seq.view is not None:
+            if seq.phase != Phase.DECODE or not seq.generated:
+                raise ValueError(
+                    f"cannot fork {src!r} mid-{seq.phase.value}; fork "
+                    "before admission or once it is decoding")
+            if not self.save_hidden:
+                raise ValueError(
+                    "forking a resident session requires save_hidden "
+                    "(its history lives only in streams it never saved)")
+            self._save_pause(seq)
+        man = self.mgr.fork_session(src, new_id, share=self.prefix_sharing)
+        if (self.prefix_index is not None and seq is not None
+                and seq.view is not None):
+            n_saved = int(man["n_tokens"])
+            pages = -(-n_saved // self.kv.block_size)
+            blocks = [int(b) for b in self.kv.slot_blocks[seq.slot][:pages]]
+            for b in blocks:
+                self.kv.allocator.incref(b)
+            self._fork_pages[new_id] = {
+                "blocks": blocks, "n_tokens": n_saved,
+                "partial": n_saved % self.kv.block_size != 0}
+        self.metrics.forks += 1
+        return man
+
+    def release_fork(self, new_id: str) -> None:
+        """Drop the parked page holds of a fork that will never be
+        submitted (its stored state stays)."""
+        fork = self._fork_pages.pop(new_id, None)
+        if fork is not None:
+            self.kv.release_blocks(fork["blocks"])
 
     # ----------------------------------------------------------- restoration
     def _prefetch_queued(self) -> None:
@@ -526,13 +834,15 @@ class InferenceEngine:
         ad.absorb_prefill(seq.view, out, len(chunk), hist)
         seq.view.set_length(hist + len(chunk))
         if self.save_hidden:
-            self.mgr.save_prefill(seq.request.session_id, np.asarray(chunk),
-                                  out, start=hist)
+            sid = seq.request.session_id
+            self.mgr.save_prefill(sid, np.asarray(chunk), out, start=hist)
+            self._after_save(sid)
         seq.prefill_done += len(chunk)
         if seq.pending_from_gen and self.save_hidden:
             seq.tok_saved += len(chunk)   # resume feed landed in tok blob
         if seq.prefill_done >= len(prompt):
             seq.phase = Phase.DECODE
+            self._publish_slot(seq)
             tok = int(sample(out["logits"], temperature=self.temperature)[0])
             self._emit_token(seq, tok)
 
@@ -594,6 +904,7 @@ class InferenceEngine:
                 continue
             if self.save_hidden:
                 self._save_pause(s)
+            self._publish_slot(s)
             s.phase = Phase.DONE
             s.view.free()
             s.view = None
@@ -604,6 +915,12 @@ class InferenceEngine:
                                      and s.generated[-1] == r.eos_token)
                           else "length")
                 self.on_finish(s, reason)
+
+    def _after_save(self, sid: str) -> None:
+        """On-save capacity hook: a session in the int8 codec whose stream
+        was just extended is a candidate for re-promotion."""
+        if self.capacity is not None:
+            self.capacity.consider_promotion(sid)
 
     # ------------------------------------------------------------ main loop
     def _sample_occupancy(self) -> None:
@@ -620,6 +937,15 @@ class InferenceEngine:
         if occ.reserved_tokens:
             m.occupancy_sum += occ.utilization
             m.occupancy_count += 1
+        if self.prefix_sharing:
+            m.dedup_host_bytes = int(self.mgr.store.dedup_bytes)
+        if self.prefix_index is not None:
+            pi = self.prefix_index
+            m.prefix_lookups = pi.lookups
+            m.prefix_hits = pi.hits
+            m.prefix_hit_tokens = pi.hit_tokens
+            m.cow_copies = self.kv.cow_copies
+            m.shared_pages, m.private_pages = self.kv.shared_page_stats()
         # one device: the pool row, plus the share of completed-restore
         # wall spent inside the projection launches
         util = (int(round(100.0 * m.restore_project_wall
@@ -638,12 +964,22 @@ class InferenceEngine:
         self._admit()
         self._maybe_preempt()
         self._restore_step()
+        prefilled = False
         for s in list(self.slots):
             if s is not None and s.phase == Phase.PREFILL:
                 self._prefill_step(s)
+                prefilled = True
+        decoded_before = self.metrics.decode_steps
         self._decode_batch()
         self._sample_occupancy()
         self._retire()
+        if self.capacity is not None:
+            self.capacity.maintain(self)
+            if not prefilled and self.metrics.decode_steps == decoded_before:
+                # an idle step (at most restores ticked): sweep promotions
+                # so idle int8 sessions recover full fidelity without
+                # waiting for their next save
+                self.capacity.sweep_promotions()
 
     def run(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
@@ -654,7 +990,13 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Stop the two-stage saver's daemon threads (and surface any
-        write error they captured)."""
+        write error they captured), and drop the page holds of the prefix
+        index and of parked forks, so that a pool with no resident
+        session is all free again."""
+        if self.prefix_index is not None:
+            for sid in list(self._fork_pages):
+                self.release_fork(sid)
+            self.prefix_index.clear()
         self.mgr.saver.close()
 
     # --------------------------------------------------------------- output

@@ -38,9 +38,16 @@ hd) shape, so the prefill runs the same launches on both backends.
 Masked attention weights are exactly zero past the live length, so the
 two layouts give the same bits.
 
-Left for the prefix-sharing slice: ``adopt_shared``, the copy-on-write
-barrier and page release of shared prefixes (``BlockAllocator`` keeps
-its refcounts for them already), the sharded pool and the enc-dec
+Prefix sharing: several slots (and the engine's ``PrefixIndex``) may
+map one physical page. ``adopt_shared`` maps an already-populated page
+run as a slot's prefix, and every write path (the views' writes and a
+decode step's batched write) first runs the copy-on-write barrier
+``_ensure_private``, which gives the slot a private copy of each shared
+page it is about to write (one device copy of the page, all layers, per
+pool), so a sibling keeps its bytes. The barrier reads the slots' lengths
+from the host mirror and adds no synchronisation to a decode step.
+Index-held pages are a cache: a reservation short of pages spills them
+(``_alloc_pages``). Not ported: the sharded pool and the enc-dec
 pairings.
 """
 from __future__ import annotations
@@ -386,8 +393,16 @@ class _PagedView(CacheView):
     def write_layer(self, row, k, v, start=0):
         self.write_layer_group((row,), k[None], v[None], start)
 
+    def _private(self, start: int, n: int) -> None:
+        """Copy-on-write barrier for tokens [start, start + n)."""
+        bs = self.b.block_size
+        if n > 0:
+            self.b._ensure_private(
+                self.slot, range(start // bs, (start + n - 1) // bs + 1))
+
     def write_layer_group(self, rows, k, v, start=0):
         b = self.b
+        self._private(start, k.shape[2])
         idx = self._slots(start, k.shape[2])
         kf, vf = b.flat_pools()
         for g, row in enumerate(rows):
@@ -395,6 +410,7 @@ class _PagedView(CacheView):
             vf[row, idx] = v[g, 0]
 
     def write_kv(self, k, v, start):
+        self._private(start, k.shape[2])
         idx = self._slots(start, k.shape[2])
         kf, vf = self.b.flat_pools()
         kf[:, idx] = k[:, 0]
@@ -473,6 +489,10 @@ class PagedBackend(KVCacheBackend):
         self.lengths_np = np.zeros((max_batch,), np.int64)
         self.allocator = BlockAllocator(self.num_blocks)
         self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+        # set by the engine under prefix sharing: pages held by the index
+        # are reclaimable under pressure (``_alloc_pages``)
+        self.prefix_index = None
+        self.cow_copies = 0
 
     def flat_pools(self):
         """The pools as (L, num_blocks·bs, Kv, hd) views."""
@@ -484,6 +504,70 @@ class PagedBackend(KVCacheBackend):
     def view(self, slot):
         return _PagedView(self, slot)
 
+    # ------------------------------------------------- copy-on-write pages
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Allocator grant, spilling least recently used prefix-index
+        pages on a shortfall (index-held pages are never a reservation)."""
+        got = self.allocator.alloc(n)
+        if got is None and self.prefix_index is not None:
+            short = n - self.allocator.free_count
+            if self.prefix_index.release(short) > 0:
+                got = self.allocator.alloc(n)
+        return got
+
+    def _ensure_private(self, slot: int, logical_pages) -> None:
+        """Copy-on-write barrier: each listed logical page of ``slot``
+        that maps a shared physical page (refcount > 1) is copied to a
+        fresh private page before the caller writes through it; the rest
+        of the prefix stays shared."""
+        blks = self.slot_blocks[slot]
+        for lp in sorted(set(int(p) for p in logical_pages)):
+            if lp >= len(blks) or self.allocator.refcount(blks[lp]) <= 1:
+                continue
+            fresh = self._alloc_pages(1)
+            if fresh is None:
+                raise RuntimeError(
+                    "page pool exhausted during copy-on-write divergence "
+                    "(no free page to privatise a shared page); raise "
+                    "cache_blocks or lower concurrency")
+            dst, src = fresh[0], blks[lp]
+            self.k_pool[:, dst] = self.k_pool[:, src]
+            self.v_pool[:, dst] = self.v_pool[:, src]
+            self.allocator.free([src])          # drop this slot's hold
+            blks[lp] = dst
+            self.table_np[slot, lp] = dst
+            self.cow_copies += 1
+
+    def adopt_shared(self, slot: int, blocks: Sequence[int], *,
+                     owned: bool = False) -> None:
+        """Map an already-populated shared page run as the slot's logical
+        prefix (a prefix-index hit or a fork's parked pages).
+        ``owned=False`` adds a hold on each page (the donor keeps its
+        own); ``owned=True`` takes over holds the caller owns. Runs
+        before ``reserve`` tops the row up with private pages."""
+        if self.slot_blocks[slot]:
+            raise RuntimeError(f"adopt_shared on a non-empty slot {slot}")
+        blocks = [int(b) for b in blocks]
+        if not owned:
+            for b in blocks:
+                self.allocator.incref(b)
+        self.slot_blocks[slot] = list(blocks)
+        row = self.table_np[slot]
+        row[:] = self.num_blocks
+        row[:len(blocks)] = blocks
+
+    def release_blocks(self, blocks: Sequence[int]) -> None:
+        """Drop caller-owned holds bound to no slot (a fork's parked pages
+        that will never be adopted)."""
+        self.allocator.free(list(blocks))
+
+    def shared_page_stats(self):
+        """(shared, private) physical page counts: a page is shared when
+        more than one holder maps it."""
+        refs = self.allocator._ref
+        return (sum(1 for r in refs if r > 1),
+                sum(1 for r in refs if r == 1))
+
     def _blocks_needed(self, n_tokens: int) -> int:
         need = max(-(-max(n_tokens, 1) // self.block_size), 1)
         # a session whose worst case exceeds max_seq (or the whole pool)
@@ -493,14 +577,17 @@ class PagedBackend(KVCacheBackend):
         return min(need, self.blocks_per_seq, self.num_blocks)
 
     def can_reserve(self, n_tokens):
-        return self._blocks_needed(n_tokens) <= self.allocator.free_count
+        avail = self.allocator.free_count
+        if self.prefix_index is not None:
+            avail += self.prefix_index.releasable()
+        return self._blocks_needed(n_tokens) <= avail
 
     def reserve(self, slot, n_tokens):
         need = self._blocks_needed(n_tokens)
         have = self.slot_blocks[slot]
         if len(have) >= need:
             return True
-        blocks = self.allocator.alloc(need - len(have))
+        blocks = self._alloc_pages(need - len(have))
         if blocks is None:
             return False
         have.extend(blocks)
@@ -516,6 +603,13 @@ class PagedBackend(KVCacheBackend):
         self.lengths_np[slot] = 0
 
     def decode(self, params, tokens, active=None):
+        # copy-on-write before the batched write: the step writes a token
+        # at every occupied slot's length (the engine rolls the idle ones
+        # back), so each slot's frontier page must be private first
+        bs = self.block_size
+        for slot, blks in enumerate(self.slot_blocks):
+            if blks:
+                self._ensure_private(slot, (int(self.lengths_np[slot]) // bs,))
         rows, slots = paged_write_index(self.table_np, self.lengths_np,
                                         self.num_blocks, self.block_size)
         tok, lengths, table, rows_t, slots_t = self._upload(

@@ -238,9 +238,8 @@ def test_restores_rebuild_the_snapshot_bitwise(checked_runs, backend):
 def test_engine_refuses_unported_parts(pair):
     _, _, _, tm, tparams = pair
     mgr = HCacheManager(tm, ChunkStore(make_array("dram", 1)))
-    for kw, item in ((dict(prefix_sharing=True), "prefix sharing"),
-                     (dict(capacity=object()), "CapacityManager"),
-                     (dict(tp=2), "multi-GPU")):
+    for kw, item in ((dict(tp=2), "multi-GPU"),
+                     (dict(tp=2, prefix_sharing=True), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceEngine(tm, tparams, mgr, **kw)
     mgr.close()
