@@ -42,17 +42,21 @@ Needs one CUDA GPU and the repository checkout around this file. It
      to bf16 can move an element (``flash_p_rounding_bound``). Then
      kernels #1 and #3-#5 at the shapes qwen2-7b (G = 7, K/V 512 wide
      with bias) and gemma2-9b (hd 256, window 4096, softcap 50) give
-     them (``MODEL_RESTORE``, ``MODEL_DECODE``, ``MODEL_FLASH``): each
-     against its plain version, timed beside its bound and SDPA or
-     ``torch.matmul``;
+     them, and at the shapes of granite-moe-1b-a400m (hd 64, G = 2, K/V
+     512 wide), internvl2-26b (D 6144, G = 6, K/V 1024 wide) and
+     grok-1-314b (softcap 30) (``MODEL_RESTORE``, ``MODEL_DECODE``,
+     ``MODEL_FLASH``): each against its plain version, timed beside its
+     bound and SDPA or ``torch.matmul``;
   3. serves the smoke configs (``reduced_for_smoke``: 4 layers, hd 16)
      through ``launch/serve.py`` on the card in bf16, without ``--full``:
      llama2-7b on the contiguous and the paged backend (4 sessions x 2
      rounds), again under ``--budget-kb 8`` (the ladder's actions must be
      printed) and paged with ``--prefix-sharing`` (its hit rate must be
      printed), falcon-mamba-7b (4 sessions, 1 round), and qwen2-7b,
-     qwen2.5-14b, starcoder2-15b and gemma2-9b (2 sessions x 2 rounds;
-     qwen2-7b and gemma2-9b on both backends); then qwen2-7b again on a
+     qwen2.5-14b, starcoder2-15b, gemma2-9b, granite-moe-1b-a400m,
+     grok-1-314b and internvl2-26b (2 sessions x 2 rounds; qwen2-7b,
+     gemma2-9b and granite on both backends, internvl paged); then
+     qwen2-7b again on a
      store of two layer-striped hosts (``--hosts 2``), which must report
      a per-link restore load and give the one-host serve's tokens;
   4. drives the lifecycle path: llama2-7b at full width and depth in
@@ -105,7 +109,21 @@ Needs one CUDA GPU and the repository checkout around this file. It
      gates; frees it and serves gemma2-9b at full width and depth through
      the lifecycle with a 4608-token and a 1024-token session, so that
      the 4096-token window of its local layers cuts the history in
-     prefill, restore, the recompute replay and decode;
+     prefill, restore, the recompute replay and decode; frees it and
+     serves granite-moe-1b-a400m (24 layers, 32 experts top-8) at full
+     size through the lifecycle and the engine on both backends, each
+     request held against a plain computation that follows its session's
+     prefill chunks and one-token decodes (a MoE layer's capacity depends
+     on the segment's length), printing the share of expert assignments
+     the capacity dropped per prefill chunk; frees it and serves
+     internvl2-26b at full size through the lifecycle with 256 seeded
+     patch embeddings at the head of each round-0 prompt (every restore,
+     of recompute layers too, bitwise equal to the K/V prefill emitted)
+     and the paged engine, text only (4 sessions x 2 rounds over 4
+     slots); frees it and serves grok-1-314b at full width and 4 of its
+     64 layers (64 would not fit one card) through a lifecycle of two
+     sessions, its attention softcap through kernels #3-#5; each phase
+     prints its peak allocated device memory;
   8. frees it and drives the ssm path: falcon-mamba-7b at full
      width and depth in bf16 (random weights from a seed) through the
      lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
@@ -153,6 +171,22 @@ SEED = 0
 PROMPTS = (1024, 1536, 2000)      # round 0; 2000 exercises bucket padding
 # gemma2-9b's lifecycle: a prompt past its 4096-token window, a short one
 GEMMA_PROMPTS = (4608, 1024)
+# The MoE and VLM paths, after gemma2-9b, each model freed before the
+# next loads: granite-moe-1b-a400m at full size through the lifecycle and
+# the engine on both backends; internvl2-26b at full size through a
+# lifecycle whose round-0 prompts start with its frontend_dim (256) patch
+# embeddings (seeded normals: the ViT front end is a stub in the
+# reference too), then the paged engine, text only (4 sessions x 2
+# rounds over 4 slots, VLM_ENGINE_PROMPTS then VLM_ROUND1_TOKENS);
+# grok-1-314b at full width and GROK_LAYERS of its 64 layers (64 would
+# not fit one 80 GB card) through a lifecycle of two sessions.
+MOE_ARCH = "granite-moe-1b-a400m"
+VLM_ARCH = "internvl2-26b"
+VLM_ENGINE_PROMPTS = (512, 1024, 768, 896)
+VLM_ROUND1_TOKENS = 128
+VLM_ENGINE_MAX_SEQ = 1280     # 1024 + 16 + 128 + 16 tokens fit, in pages
+GROK_ARCH, GROK_LAYERS = "grok-1-314b", 4
+GROK_PROMPTS = (1024, 1024)
 ROUND1_TOKENS = 256
 DECODE_TOKENS = 16
 MATCH_TOKENS = 8
@@ -968,12 +1002,19 @@ def check_flash(card: str, gen):
 MODEL_RESTORE = {    # name: (G, S, D, KV, hd, bias)
     "qwen2-7b restore": (8, 1024, 3584, 512, 128, True),
     "gemma2-9b restore": (8, 1024, 3584, 2048, 256, False),
+    "internvl2-26b restore": (8, 1024, 6144, 1024, 128, False),
+    "granite-moe-1b restore": (8, 1024, 1024, 512, 64, False),
 }
 MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
     "qwen2-7b engine step": (4, 4, 7, 128, (2300, 1537, 777, 2049), 2560,
                              None, None),
     "gemma2-9b local": (1, 8, 2, 256, (4880,), 4904, 4096, 50.0),
     "gemma2-9b global": (1, 8, 2, 256, (4880,), 4904, None, 50.0),
+    "granite-moe-1b engine step": (4, 8, 2, 64, (2300, 1537, 777, 2049),
+                                   2560, None, None),
+    "internvl2-26b engine step": (4, 8, 6, 128, (1180, 655, 1040, 790),
+                                  1280, None, None),
+    "grok-1-314b step": (1, 8, 6, 128, (1296,), 1304, None, 30.0),
 }
 MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "qwen2-7b 1024 self": (0, 1024, 28, 4, 128, None, None),
@@ -981,6 +1022,9 @@ MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "gemma2-9b 4608 self local": (0, 4608, 16, 8, 256, 4096, 50.0),
     "gemma2-9b 4608 self global": (0, 4608, 16, 8, 256, None, 50.0),
     "gemma2-9b 256 over 4624 local": (4624, 256, 16, 8, 256, 4096, 50.0),
+    "granite-moe-1b 1024 self": (0, 1024, 16, 8, 64, None, None),
+    "internvl2-26b 1024 self": (0, 1024, 48, 8, 128, None, None),
+    "grok-1-314b 1024 self": (0, 1024, 48, 8, 128, None, 30.0),
 }
 
 
@@ -989,8 +1033,8 @@ def time_model_shapes(card):
     MODEL_FLASH: each held against its plain version (paged decode
     bitwise equal to contiguous; a restored row alone bitwise equal to
     its group launch), then timed beside its bound and a PyTorch
-    yardstick (SDPA applies no softcap: its time at gemma2-9b's shapes
-    leaves the softcap out). Draws from a generator of its own, so the
+    yardstick (SDPA applies no softcap: its time at gemma2-9b's and
+    grok-1-314b's shapes leaves the softcap out). Draws from a generator of its own, so the
     earlier phases' data do not change. Returns {kernel name: rows}."""
     import torch
     import torch.nn.functional as F
@@ -1335,17 +1379,23 @@ def write_kv(cache, kv, start):
     cache["v"][:, :, start:start + n] = kv[1]
 
 
-def build_model(arch="llama2-7b"):
-    """A dense model (llama2-7b unless ``arch`` names another) at full
-    width and depth, bf16, random weights from SEED, warmed by one short
-    prefill and decode step (library handles and allocator pools), so the
-    served requests' times exclude that set-up."""
+def build_model(arch="llama2-7b", layers=None):
+    """An ``lm`` model (llama2-7b unless ``arch`` names another) at full
+    width and depth (``layers`` cuts the depth), bf16, random weights from
+    SEED, warmed by one short prefill and decode step (library handles
+    and allocator pools), so the served requests' times exclude that
+    set-up."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
 
     cfg = get_arch(arch)
+    if layers is not None:
+        print(f"{arch}: depth cut from {cfg.n_layers} to {layers} layers "
+              f"({2 * cfg.param_count() / 1e9:.1f} GB of bf16 weights at "
+              "full depth, more than one card holds)")
+        cfg = cfg.scaled(n_layers=layers)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -1357,20 +1407,25 @@ def build_model(arch="llama2-7b"):
                                     device=model.device)
     model.decode_step(params, cache, greedy(out["logits"]))
     n_params = count_params(params)
+    experts = (f" in {cfg.n_experts} experts, top-{cfg.experts_per_token}"
+               if cfg.n_experts else "")
     print(f"{arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{cfg.n_heads}x{cfg.head_dim_} heads over {cfg.n_kv_heads} kv "
-          f"heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"heads, d_ff={cfg.d_ff}{experts}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.2f} B params bf16 "
           f"({2 * n_params / 1e9:.1f} GB); init and warm-up "
           f"{_sync_s(t0):.1f} s on {model.device}")
     return model, params
 
 
-def run_main_path(model, params, prompts=PROMPTS):
+def run_main_path(model, params, prompts=PROMPTS, patches=False):
     """A session per round-0 prompt length of ``prompts``, 2 rounds each,
     through the HCache manager: session 0 all-hidden, the others under
-    the planner."""
+    the planner. ``patches``: each round-0 prompt of a VLM starts with
+    ``frontend_dim`` patch embeddings (seeded normals), and every planned
+    session must have recompute layers, whose replay splices them back."""
     import numpy as np
+    import torch
     from repro_torch.core.hcache import HCacheManager
     from repro_torch.storage import ChunkStore, make_array
 
@@ -1386,7 +1441,18 @@ def run_main_path(model, params, prompts=PROMPTS):
             print(f"{model.cfg.name} session {s}: schedule for {n0} tokens: "
                   f"{plan.summary()}; methods "
                   f"{''.join(m[0].upper() for m in plan.methods)}")
-            serve_session(model, params, mgr, f"s{s}", n0, rng)
+            vis = None
+            if patches:
+                if s and "recompute" not in plan.methods:
+                    raise AssertionError(f"s{s}: the planner gave no "
+                                         "recompute layer to replay patches")
+                c = model.cfg
+                gen = torch.Generator(device=model.device).manual_seed(
+                    SEED + s)
+                vis = torch.randn((1, c.frontend_dim, c.d_model),
+                                  generator=gen, device=model.device).to(
+                                      model.dtype)
+            serve_session(model, params, mgr, f"s{s}", n0, rng, vis)
     finally:
         for m in managers:
             m.close()
@@ -1398,9 +1464,10 @@ def _sync_s(t0):
     return time.perf_counter() - t0
 
 
-def serve_session(model, params, mgr, session, n0, rng):
+def serve_session(model, params, mgr, session, n0, rng, patches=None):
     """Two rounds of one session; raises on any disagreement with the
-    never-evicted cache ``ref``."""
+    never-evicted cache ``ref``. ``patches`` (1, n_vis, D) replace the
+    embeddings of round 0's first n_vis tokens."""
     import torch
     dev = model.device
     n_hist = 0
@@ -1415,8 +1482,10 @@ def serve_session(model, params, mgr, session, n0, rng):
         restore_ms = project_ms = 0.0
         if rnd == 0:
             live = empty_cache(model, cap)
-            out = model.prefill(params, {"tokens": toks[None]},
-                                capture_hidden=True)
+            batch = {"tokens": toks[None]}
+            if patches is not None:
+                batch["patches"] = patches
+            out = model.prefill(params, batch, capture_hidden=True)
         else:
             res = mgr.restore(params, session, capacity=cap)
             restore_ms = res.wall_time * 1e3
@@ -1487,8 +1556,10 @@ def serve_session(model, params, mgr, session, n0, rng):
         seq_r, _, _ = decode(model, params, check.cache, tok, MATCH_TOKENS)
         seq_g, ref, _ = decode(model, params, ref, tok, MATCH_TOKENS)
         verdict = "MATCH" if seq_r == seq_g else "MISMATCH"
-        print(f"{model.cfg.name} {session} round {rnd}: {n_new} new tokens "
-              f"on {n_hist} of "
+        vis = (f" ({patches.shape[1]} patch positions)"
+               if patches is not None and rnd == 0 else "")
+        print(f"{model.cfg.name} {session} round {rnd}: {n_new} new tokens"
+              f"{vis} on {n_hist} of "
               f"history; first token {first}; TTFT {ttft_ms:.1f} ms "
               f"(restore {restore_ms:.1f} ms, projection {project_ms:.1f} "
               f"ms); decode {decode_ms:.2f} ms/token; check restore "
@@ -1618,7 +1689,9 @@ WHOLE_RESTORES = 10_000
 
 # The engine against a plain computation on the same weights (one B=1
 # forward over a session's whole token stream: no chunks, no batch, no
-# restore, no cache): the logits that sampled each generated token
+# restore, no cache; for a MoE model, whose capacity depends on the
+# segment's length, B=1 over the session's own prefill chunks and
+# one-token decodes): the logits that sampled each generated token
 # within PLAIN_REL relative L2 error of the plain ones at its position,
 # and the token within PLAIN_GAP standard deviations (of the plain logits
 # there) of the plain maximum. The two round in bf16 through 32 layers
@@ -1705,6 +1778,9 @@ def engine_classes():
             self.snapshots, self.checked = {}, []
             self.last_logits, self.token_logits = None, {}
             self.prefills = self.decodes = 0
+            # each session's prefill chunks, (start, tokens), for a plain
+            # forward that follows them (MoE capacity depends on them)
+            self.prefill_segs = {}
             self.walls = {"restore": 0.0, "prefill": 0.0, "decode": 0.0}
             # budget and sharing gauges: peak hot bytes and shared pages,
             # sessions ever in the int8 codec, the requests whose restores
@@ -1735,9 +1811,11 @@ def engine_classes():
                 return (ssu.launches if ssm else dec.paged_launches
                         if self.kv.name == "paged" else dec.launches)
 
-            def counted_prefill(params, seq, chunk, *args, **kw):
+            def counted_prefill(params, seq, chunk, hist, *args, **kw):
                 before = prefill_launches()
-                out = prefill(params, seq, chunk, *args, **kw)
+                out = prefill(params, seq, chunk, hist, *args, **kw)
+                self.prefill_segs.setdefault(
+                    seq.request.session_id, []).append((hist, len(chunk)))
                 if prefill_launches() - before != L:
                     raise AssertionError("a prefill did not run its kernel "
                                          "once per layer")
@@ -1890,8 +1968,42 @@ def plain_logits(model, params, toks):
     return tfm.lm_forward(params, toks, model.h)["logits"]
 
 
+def segment_logits(model, params, toks, prefills):
+    """Logits at every position of one B=1 pass over ``toks`` (1, N) that
+    follows a session's own segments: each (start, n) of ``prefills`` a
+    prefill over the history before it, every other position a one-token
+    decode step. A MoE layer's capacity depends on the segment's length,
+    so only this order drops the assignments the engine dropped."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    N = toks.shape[1]
+    starts = dict(prefills)
+    cache = empty_cache(model, N)
+    out, p = [], 0
+    while p < N:
+        if p in starts:
+            n = starts[p]
+            if p + n > N:
+                raise AssertionError(f"a prefill of {n} at {p} runs past "
+                                     f"the {N}-token stream")
+            hist = (cache["k"][:, :, :p], cache["v"][:, :, :p]) if p else None
+            res = tfm.lm_forward(params, toks[:, p:p + n], model.h,
+                                 hist_kv=hist, hist_len=p or None,
+                                 emit_kv=True)
+            write_kv(cache, res["kv"], p)
+            out.append(res["logits"][0])
+            p += n
+            continue
+        cache["lengths"] = torch.tensor([p], dtype=torch.int32,
+                                        device=model.device)
+        lg, cache = model.decode_step(params, cache, toks[:, p:p + 1])
+        out.append(lg[0])
+        p += 1
+    return torch.cat(out)[None]
+
+
 def check_against_plain(model, params, requests, plain, ungated=(),
-                        histories=None):
+                        histories=None, segments=None):
     """Hold an engine run against a plain computation on the same
     weights. ``requests[(rnd, sid)] = (prompt, generated, the logits
     that sampled each generated token)``. The plain logits come from one B=1 forward over the
@@ -1904,10 +2016,16 @@ def check_against_plain(model, params, requests, plain, ungated=(),
     and of decoded ones) and the worst gap. The requests of ``ungated``
     (keys) are compared but not held: their worst error and gap are
     returned as ``ungated`` and ``ungated_gap``. ``histories`` gives the
-    stream a session starts from (a fork's: its source's at the fork)."""
+    stream a session starts from (a fork's: its source's at the fork).
+    ``segments`` (a MoE model's) gives each session's prefill chunks: the
+    plain computation then follows them (``segment_logits``)."""
     import torch
     history = dict(histories or {})
-    worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0}
+    worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0,
+             "tokens": 0, "bitwise": 0}
+    # the vocabulary's padding columns hold -1e30 in both: they would
+    # swamp the spread that the error is measured against
+    V = model.cfg.vocab_size
     for key in sorted(requests):                 # round 0 before round 1
         rnd, sid = key
         prompt, gen, got = requests[key]
@@ -1915,11 +2033,13 @@ def check_against_plain(model, params, requests, plain, ungated=(),
         history[sid] = stream
         if key not in plain:
             toks = torch.tensor(stream, device=model.device)[None]
-            logits = plain_logits(model, params, toks)
-            plain[key] = logits[0, len(stream) - len(gen):].float()
+            logits = (plain_logits(model, params, toks) if segments is None
+                      else segment_logits(model, params, toks,
+                                          segments[sid]))
+            plain[key] = logits[0, len(stream) - len(gen):, :V].float()
             del logits
         ref = plain[key]                         # row i sampled gen[i]
-        got = torch.stack(got)
+        got = torch.stack(got)[:, :V]
         if got.shape != ref.shape or not bool(got.isfinite().all()):
             raise AssertionError(f"{sid}/{rnd}: token logits of shape "
                                  f"{tuple(got.shape)} or not finite")
@@ -1928,6 +2048,9 @@ def check_against_plain(model, params, requests, plain, ungated=(),
         rows = torch.arange(len(gen), device=ref.device)
         picked = ref[rows, torch.tensor(gen, device=ref.device)]
         gap = float(((ref.amax(-1) - picked) / ref.std(-1)).max())
+        if not (bool(rel.isfinite().all()) and gap == gap):
+            raise AssertionError(f"{sid}/{rnd}: the comparison with the "
+                                 "plain forward is not finite")
         if key in ungated:
             worst["ungated"] = max(worst.get("ungated", 0.0),
                                    float(rel.max()))
@@ -1937,6 +2060,8 @@ def check_against_plain(model, params, requests, plain, ungated=(),
         worst[name] = max(worst[name], float(rel[0]))
         worst["decode"] = max(worst["decode"], float(rel[1:].max()))
         worst["gap"] = max(worst["gap"], gap)
+        worst["tokens"] += len(gen)
+        worst["bitwise"] += int((got == ref).all(-1).sum())
         if float(rel.max()) > PLAIN_REL:
             raise AssertionError(
                 f"{sid}/{rnd}: the logits of token {int(rel.argmax())} are "
@@ -1947,6 +2072,36 @@ def check_against_plain(model, params, requests, plain, ungated=(),
                                  f"{gap:.3f} std below the plain forward's "
                                  "best")
     return worst
+
+
+def hold_against_plain(name, model, params, run, plain, segments=None):
+    """``check_against_plain`` on an engine run's requests (popped from
+    ``run``), outside the counted path (the plain forward launches
+    kernels too), printed; frees the run's cache afterwards."""
+    import gc
+
+    import torch
+    t1 = time.perf_counter()
+    requests = run.pop("requests")
+    ungated = run.get("ungated", ())
+    worst = check_against_plain(model, params, requests, plain, ungated,
+                                run.get("histories"), segments)
+    what = ("the plain forward" if segments is None else
+            "the plain forward over each session's segments")
+    print(f"{name} against {what} ({len(requests)} requests, "
+          f"{time.perf_counter() - t1:.1f} s): logits relative error "
+          f"max {worst['cold']:.5f} at cold first tokens, "
+          f"{worst['restored']:.5f} at restored first tokens, "
+          f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}); "
+          f"generated tokens at most {worst['gap']:.4f} std below the "
+          f"plain best (limit {PLAIN_GAP}); {worst['bitwise']} of "
+          f"{worst['tokens']} tokens' logits bitwise equal" + (
+              f"; not held, the {len(ungated)} requests that restored "
+              f"int8 rows: {worst.get('ungated', 0.0):.5f}, "
+              f"{worst.get('ungated_gap', 0.0):.4f} std" if ungated
+              else ""))
+    gc.collect()                 # free this run's cache first
+    torch.cuda.empty_cache()
 
 
 def budget_capacity(mgr, eng, budget):
@@ -2000,10 +2155,13 @@ def budget_capacity(mgr, eng, budget):
 
 
 def run_engine(model, params, backend: str, *, phased=True, profile=None,
-               group=8, restore_tasks=8, budget=None):
-    """6 sessions x 2 rounds through the continuous-batching engine on
-    ``backend``; returns tokens, metrics, what was checked and, per
-    request, what ``check_against_plain`` needs. ``phased`` times each
+               group=8, restore_tasks=8, budget=None,
+               prompts=ENGINE_PROMPTS, round1=ROUND1_TOKENS,
+               max_seq=ENGINE_MAX_SEQ):
+    """A session per round-0 prompt of ``prompts`` (6 unless given) x 2
+    rounds (round 1 ``round1`` tokens) through the continuous-batching
+    engine on ``backend``; returns tokens, metrics, what was checked and,
+    per request, what ``check_against_plain`` needs. ``phased`` times each
     phase between synchronisations; ``profile`` (a ``MeasuredProfile``)
     and ``group`` are the manager's calibration and group plan;
     ``restore_tasks`` the restore tasks each engine step runs; ``budget``
@@ -2017,7 +2175,7 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     mgr = Manager(model, store, restore_group_size=group,
                   **({} if profile is None else {"profile": profile}))
     eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
-                 max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
+                 max_seq=max_seq, prefill_chunk=ENGINE_CHUNK,
                  preempt_quantum=ENGINE_QUANTUM, backend=backend,
                  restore_tasks_per_step=restore_tasks, phased=phased)
     cap = None
@@ -2036,8 +2194,8 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     t0 = time.perf_counter()
     for rnd in range(2):
         seqs = []
-        for s, n0 in enumerate(ENGINE_PROMPTS):
-            n = n0 if rnd == 0 else ROUND1_TOKENS
+        for s, n0 in enumerate(prompts):
+            n = n0 if rnd == 0 else round1
             prompt = rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
             seqs.append(eng.submit(Request(f"s{s}", prompt,
                                            max_new_tokens=DECODE_TOKENS)))
@@ -2084,6 +2242,7 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     methods = set().union(*(c[2] for c in eng.checked)) if eng.checked \
         else set()
     res = {"tokens": tokens, "metrics": m, "wall": wall,
+           "segments": eng.prefill_segs,
            "checked": len(eng.checked), "methods": methods,
            "prefills": eng.prefills, "decodes": eng.decodes,
            "profile": profile, "bytes_peak": eng.bytes_peak,
@@ -2520,7 +2679,10 @@ SMOKE_SERVES = (
     for arch, backends in (("qwen2-7b", ("contiguous", "paged")),
                            ("qwen2.5-14b", ("contiguous",)),
                            ("starcoder2-15b", ("contiguous",)),
-                           ("gemma2-9b", ("contiguous", "paged")))
+                           ("gemma2-9b", ("contiguous", "paged")),
+                           ("granite-moe-1b-a400m", ("contiguous", "paged")),
+                           ("grok-1-314b", ("contiguous",)),
+                           ("internvl2-26b", ("paged",)))
     for backend in backends)
 # what a serve must print: its ladder's actions (the 8 KiB budget is
 # below the smoke trace's first session, so the cold tier fills) or its
@@ -2599,6 +2761,118 @@ def check_hosts_serve(one, two):
           f"{len(two['tokens'])} tokens identical to the one-host serve's")
 
 
+def with_drop_shares(fn):
+    """Run ``fn`` recording, for every prefill of an ``lm`` model (the
+    lifecycle's and the engine's chunks; not the recompute replay), the
+    share of its expert assignments that the MoE capacity dropped, over
+    all layers (from each layer's routing, ``moe.route``). Returns (fn's
+    result, the shares by chunk length)."""
+    import torch
+    from repro_torch.models import adapter as ad
+    from repro_torch.models.layers import moe
+    chunks, log = [], None
+    route, prefill = moe.route, ad.LMAdapter.prefill
+
+    def recorded_route(p, x, h):
+        weight, slot = route(p, x, h)
+        if log is not None:
+            dropped = h.n_experts * moe.capacity(x.shape[1], h)
+            log.append((slot.numel(), (slot == dropped).sum()))
+        return weight, slot
+
+    def recorded_prefill(self, params, batch, **kw):
+        nonlocal log
+        log = []
+        try:
+            out = prefill(self, params, batch, **kw)
+        finally:
+            entries, log = log, None
+        chunks.append((batch["tokens"].shape[1], sum(n for n, _ in entries),
+                       torch.stack([d for _, d in entries]).sum()))
+        return out
+
+    moe.route, ad.LMAdapter.prefill = recorded_route, recorded_prefill
+    try:
+        out = fn()
+    finally:
+        moe.route, ad.LMAdapter.prefill = route, prefill
+    by_len = {}
+    for S, n, d in chunks:
+        by_len.setdefault(S, []).append(int(d) / n)
+    return out, by_len
+
+
+def print_drop_shares(name, by_len):
+    shares = [x for xs in by_len.values() for x in xs]
+    print(f"{name}: expert assignments dropped by the capacity, over "
+          f"{len(shares)} prefill chunks: mean {statistics.mean(shares):.4f},"
+          f" max {max(shares):.4f}; by chunk length (tokens: chunks, mean, "
+          "max): " + ", ".join(
+              f"{S}: {len(xs)}, {statistics.mean(xs):.4f}, {max(xs):.4f}"
+              for S, xs in sorted(by_len.items())))
+
+
+def serve_moe_vlm(drive):
+    """The MoE and VLM paths, each model freed before the next loads
+    (``drive`` runs a path with its launch counts): granite-moe-1b-a400m
+    at full width and depth through the lifecycle and the engine on both
+    backends, the engine's requests against a plain computation that
+    follows each session's prefill chunks, with the share of expert
+    assignments dropped per prefill chunk; internvl2-26b at full width
+    and depth through a lifecycle whose round-0 prompts start with patch
+    embeddings, restored bitwise on recompute layers too (the replay
+    splices the stored patches back), then the paged engine, text only;
+    grok-1-314b at full width and GROK_LAYERS of its 64 layers through a
+    lifecycle (the attention softcap through kernels #3-#5, 8 experts
+    top-2)."""
+    import gc
+
+    import torch
+    lm_needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
+    paged_needs = ("restore_kv_grouped", "decode_attention_paged",
+                   "flash_attention")
+    model, params = build_model(MOE_ARCH)
+    _, shares = with_drop_shares(lambda: drive(
+        f"{MOE_ARCH} lifecycle", lambda: run_main_path(model, params),
+        lm_needs))
+    print_drop_shares(f"{MOE_ARCH} lifecycle", shares)
+    runs = {}
+    for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                   ("paged", "decode_attention_paged")):
+        runs[backend], shares = with_drop_shares(lambda b=backend: drive(
+            f"{MOE_ARCH} engine {b}", lambda: run_engine(model, params, b),
+            ("restore_kv_grouped", decode_kernel, "flash_attention")))
+        print_drop_shares(f"{MOE_ARCH} engine {backend}", shares)
+        hold_against_plain(f"{MOE_ARCH} engine {backend}", model, params,
+                           runs[backend], {},
+                           segments=runs[backend]["segments"])
+    check_engine(runs["contiguous"], runs["paged"], f"{MOE_ARCH} ")
+    del model, params, runs                            # free granite
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_model(VLM_ARCH)
+    drive(f"{VLM_ARCH} lifecycle",
+          lambda: run_main_path(model, params, patches=True), lm_needs)
+    run = drive(f"{VLM_ARCH} engine paged", lambda: run_engine(
+        model, params, "paged", prompts=VLM_ENGINE_PROMPTS,
+        round1=VLM_ROUND1_TOKENS, max_seq=VLM_ENGINE_MAX_SEQ), paged_needs)
+    if run["checked"] <= 0 or "recompute" not in run["methods"]:
+        raise AssertionError(f"{VLM_ARCH} engine: no restore with "
+                             "recompute layers was checked")
+    hold_against_plain(f"{VLM_ARCH} engine paged", model, params, run, {})
+    del model, params, run                             # free internvl2-26b
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_model(GROK_ARCH, layers=GROK_LAYERS)
+    _, shares = with_drop_shares(lambda: drive(
+        f"{GROK_ARCH} lifecycle ({GROK_LAYERS} layers)",
+        lambda: run_main_path(model, params, GROK_PROMPTS), lm_needs))
+    print_drop_shares(f"{GROK_ARCH} lifecycle", shares)
+    del model, params                                  # free grok-1-314b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def flash_shape_classes(counter):
     """Launches by (new tokens, self-prefill or over history)."""
     out = {}
@@ -2651,6 +2925,7 @@ def main() -> None:
         ssu.launches = 0
         rkv.shapes.clear()
         fa.shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
 
     def read():
         return {"restore_kv_grouped": rkv.launches,
@@ -2668,7 +2943,8 @@ def main() -> None:
         out = fn()
         got = read()
         phase_s[name] = time.perf_counter() - t0
-        print(f"{name} done in {phase_s[name]:.1f} s; kernel "
+        print(f"{name} done in {phase_s[name]:.1f} s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; kernel "
               f"launches {got}")
         for k in needs:
             if got[k] <= 0:
@@ -2709,25 +2985,7 @@ def main() -> None:
     lm_needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
 
     def against_plain(name, run, plain):
-        # outside the counted path: the plain forward launches kernels too
-        t1 = time.perf_counter()
-        requests = run.pop("requests")
-        ungated = run.get("ungated", ())
-        worst = check_against_plain(model, params, requests, plain,
-                                    ungated, run.get("histories"))
-        print(f"{name} against the plain forward ({len(requests)} requests, "
-              f"{time.perf_counter() - t1:.1f} s): logits relative error "
-              f"max {worst['cold']:.5f} at cold first tokens, "
-              f"{worst['restored']:.5f} at restored first tokens, "
-              f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}); "
-              f"generated tokens at most {worst['gap']:.4f} std below the "
-              f"plain best (limit {PLAIN_GAP})" + (
-                  f"; not held, the {len(ungated)} requests that restored "
-                  f"int8 rows: {worst.get('ungated', 0.0):.5f}, "
-                  f"{worst.get('ungated_gap', 0.0):.4f} std" if ungated
-                  else ""))
-        gc.collect()                 # free this run's cache first
-        torch.cuda.empty_cache()
+        hold_against_plain(name, model, params, run, plain)
 
     for backend, decode_kernel in (("contiguous", "decode_attention"),
                                    ("paged", "decode_attention_paged")):
@@ -2813,6 +3071,7 @@ def main() -> None:
     del model, params                                  # free gemma2-9b
     gc.collect()
     torch.cuda.empty_cache()
+    serve_moe_vlm(drive)
     model, params = build_ssm_model()
     drive("ssm lifecycle", lambda: run_ssm_lifecycle(model, params),
           ("ssm_update",))

@@ -1,6 +1,7 @@
 """Architecture registry: the paper's own evaluation models (§6), the
-dense assigned models (qwen2-7b, qwen2.5-14b, starcoder2-15b, gemma2-9b)
-and falcon-mamba-7b (the ``ssm`` family)."""
+dense assigned models (qwen2-7b, qwen2.5-14b, starcoder2-15b, gemma2-9b),
+the MoE models (granite-moe-1b-a400m, grok-1-314b), the VLM backbone
+(internvl2-26b) and falcon-mamba-7b (the ``ssm`` family)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,6 +9,9 @@ from typing import Dict
 from repro_torch.config.arch import ArchConfig
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B
+from repro_torch.configs.granite_moe_1b import CONFIG as GRANITE_MOE_1B
+from repro_torch.configs.grok1_314b import CONFIG as GROK1_314B
+from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2_26B
 from repro_torch.configs.paper_models import LLAMA2_13B, LLAMA2_7B, OPT_30B
 from repro_torch.configs.qwen2_7b import CONFIG as QWEN2_7B
 from repro_torch.configs.qwen2p5_14b import CONFIG as QWEN2P5_14B
@@ -15,7 +19,8 @@ from repro_torch.configs.starcoder2_15b import CONFIG as STARCODER2_15B
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (LLAMA2_7B, LLAMA2_13B, OPT_30B, FALCON_MAMBA_7B,
-                        QWEN2_7B, QWEN2P5_14B, STARCODER2_15B, GEMMA2_9B)
+                        QWEN2_7B, QWEN2P5_14B, STARCODER2_15B, GEMMA2_9B,
+                        GRANITE_MOE_1B, GROK1_314B, INTERNVL2_26B)
 }
 
 

@@ -276,6 +276,7 @@ class HCacheManager:
         self.store.put_blob(session, "tok", 0, toks if start == 0 else
                             np.concatenate([self._tokens(session)[:start],
                                             toks]))
+        self._save_patches(session, prefill_out.get("patches"), start)
         kinds = self.cfg.block_kinds()
         for li, method in enumerate(methods):
             if kinds[li] != BlockKind.ATTENTION:
@@ -300,6 +301,21 @@ class HCacheManager:
             "n_tokens": int(start + toks.shape[0]), "methods": methods,
             "segments": segments, "arch": self.cfg.name,
             "compress": self._compress_for(session)})
+
+    def _save_patches(self, session: str, patches, start: int) -> None:
+        """A VLM prefill's patch embeddings (1, n_vis, D) as the session's
+        "patches" blob, which the recompute replay splices back in (the
+        reference keeps only the tokens, so its recompute layers see token
+        embeddings there). Patches enter at start 0 only; a fresh
+        text-only session drops a stale blob of its id."""
+        if patches is None:
+            if start == 0 and self.store.has_blob(session, "patches", 0):
+                self.store.drop_stream(session, "patches")
+            return
+        if start:
+            raise ValueError(f"{session}: patch embeddings enter a "
+                             f"session's first prefill only, not at {start}")
+        self.store.put_blob(session, "patches", 0, to_host(patches[0]))
 
     def _append_hidden(self, session: str, layer: int, start: int,
                        h: torch.Tensor) -> None:

@@ -1156,14 +1156,22 @@ class RestorationExecutor:
     def _exec_recompute(self, t: Task) -> None:
         """The recompute prefix is rebuilt once, at its first task, by
         replaying the session's prefill and decode segments
-        (``transformer.lm_replay_kv``); each task emits its layer. The
-        replay's seconds are shared evenly among the prefix's tasks."""
+        (``transformer.lm_replay_kv``), with a VLM session's stored patch
+        embeddings where its first prefill had them; each task emits its
+        layer. The replay's seconds are shared evenly among the prefix's
+        tasks."""
         from repro_torch.models import transformer as tfm
         t0 = time.perf_counter()
         if self._re_kv is None:
-            model = self.model
-            toks = np.asarray(self.mgr.store.get_blob(
+            model, store = self.model, self.mgr.store
+            toks = np.asarray(store.get_blob(
                 self.session, "tok", 0))[:self.n_tokens]
+            patches = None
+            if store.has_blob(self.session, "patches", 0):
+                a = np.asarray(store.get_blob(self.session, "patches", 0))
+                patches = self._upload(
+                    a.shape, a.dtype, [lambda buf, a=a: np.copyto(buf, a)],
+                    model.dtype)
             n_re = len(self._re_layers)
             samples = [(i, "recompute", self._task_work(rt), 1.0 / n_re, True)
                        for i, rt in enumerate(self.tasks)
@@ -1173,7 +1181,8 @@ class RestorationExecutor:
                 toks = toks.pin_memory()
             toks = toks.to(model.device, non_blocking=True)
             self._re_kv = self._timed(lambda: tfm.lm_replay_kv(
-                self.params, toks, self.segments, model.h, n_re), samples)
+                self.params, toks, self.segments, model.h, n_re, patches),
+                samples)
         k, v = self._re_kv
         self._emit("put_kv", self._row_of[t.layer], k[t.layer], v[t.layer])
         self._re_next += 1

@@ -7,6 +7,8 @@ conversation trace.
         --full                                      # llama2-7b, bf16, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         falcon-mamba-7b --rounds 1 --full           # ssm family, GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        granite-moe-1b-a400m --full                 # MoE family, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --hw-profile p.json --restore-group-size auto   # calibrated
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -24,7 +26,10 @@ under a ``CapacityManager`` (its ladder's actions are printed);
 (the paged backend's index; host chunk sharing on either backend).
 An ``ssm`` model (falcon-mamba-7b) runs on the contiguous backend for one
 round per session: its prefill starts from zero state, so a second round
-is refused.
+is refused. The MoE (granite-moe-1b-a400m, grok-1-314b) and VLM
+(internvl2-26b) models are served text-only, as the reference serves
+them; ``--full`` refuses a model whose bf16 weights exceed one card's
+memory (grok-1-314b, 633 GB).
 """
 from __future__ import annotations
 
@@ -47,6 +52,10 @@ from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving import BACKENDS, InferenceEngine, Request
 from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
                                  make_shards)
+
+# device memory of the card the port serves on (one H100), against which
+# --full is checked when the run is not on a card
+CARD_BYTES = 80e9
 
 # flags of the JAX package's serve.py whose parts are not ported yet, and
 # the ROADMAP item that brings each
@@ -155,6 +164,21 @@ def _refuse_unported(p: argparse.ArgumentParser, args):
                 "integer, 'auto' or 'fetch'")
 
 
+def _refuse_oversized(p: argparse.ArgumentParser, cfg, device) -> None:
+    """Refuse a published size whose bf16 weights exceed one card's
+    memory (the card's own, or an H100's 80 GB off the card): serving
+    it needs its weights sharded over several cards."""
+    need = 2 * cfg.param_count()
+    have = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else CARD_BYTES)
+    if need > have:
+        p.error(f"--full {cfg.name}: its {cfg.n_layers} layers hold "
+                f"{cfg.param_count() / 1e9:.1f} B parameters, "
+                f"{need / 1e9:.1f} GB in bf16, more than the "
+                f"{have / 1e9:.1f} GB of one card's memory; sharding them "
+                f"over cards ({NOT_PORTED['--tp']}) is not ported yet")
+
+
 def main(argv=None) -> None:
     p = _parser()
     args = p.parse_args(argv)
@@ -163,7 +187,9 @@ def main(argv=None) -> None:
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     cfg = get_arch(args.arch)
-    if not args.full:
+    if args.full:
+        _refuse_oversized(p, cfg, device)
+    else:
         cfg = reduced_for_smoke(cfg)
     model = Model(cfg, dtype=dtype, device=device)
     if args.rounds > 1 and not model.adapter.supports_resume:

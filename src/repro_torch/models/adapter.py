@@ -2,8 +2,9 @@
 manager and serving engine: how a prefill, a prefill chunk and a decode
 step are invoked, how a prefill's output lands in a ``CacheView``, and
 which pieces of a prefill output are persisted. ``LMAdapter`` serves the
-dense ``lm`` family, ``SSMAdapter`` the attention-free ``ssm`` family
-(falcon-mamba); the hybrid, MoE and enc-dec adapters are not ported yet.
+``lm`` families (dense, MoE and VLM), ``SSMAdapter`` the attention-free
+``ssm`` family (falcon-mamba); the hybrid and enc-dec adapters are not
+ported yet.
 
 The adapter does not import ``repro_torch.serving``: the serving seam
 methods are duck-typed over the engine's ``SequenceState`` and the
@@ -70,11 +71,19 @@ class LMAdapter(FamilyAdapter):
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):
+        """A VLM batch's ``patches`` (B, n_vis, D) replace the embeddings
+        of its first n_vis tokens; the output carries them, so that the
+        manager persists them with the session."""
         from repro_torch.models import transformer as tfm
-        return tfm.lm_forward(params, batch["tokens"], self.model.h,
-                              hist_kv=hist_kv, hist_len=hist_len,
-                              capture_hidden=capture_hidden, emit_kv=True,
-                              final_logits_only=True)
+        patches = batch.get("patches")
+        out = tfm.lm_forward(params, batch["tokens"], self.model.h,
+                             patch_embeds=patches, hist_kv=hist_kv,
+                             hist_len=hist_len,
+                             capture_hidden=capture_hidden, emit_kv=True,
+                             final_logits_only=True)
+        if patches is not None:
+            out["patches"] = patches
+        return out
 
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import transformer as tfm
@@ -92,7 +101,8 @@ class LMAdapter(FamilyAdapter):
     # -------------------------------------------------- serving: prefill
     def prefill_chunk(self, params, seq, chunk, hist, *, capture_hidden):
         """One prefill chunk of a resident sequence: ``chunk`` a 1-D token
-        array, ``hist`` the tokens already in its ``CacheView``."""
+        array, ``hist`` the tokens already in its ``CacheView``. Text only,
+        as in the reference: the engine's requests carry no patches."""
         hist_kv = seq.view.gather_hist(hist) if hist else None
         return self.prefill(params, {"tokens": self._tokens(chunk)},
                             capture_hidden=capture_hidden, hist_kv=hist_kv,

@@ -3,8 +3,9 @@
 ``from_jax_params`` takes the JAX package's own ``split(model.init(...))``
 value tree as numpy arrays (or anything ``np.asarray`` takes) and returns
 the port's parameter dict: same tree, layer stacks kept stacked, the table
-with its padded vocabulary. Both the dense ``lm`` tree and the ``ssm``
-(Mamba1) tree are taken; ``a_log`` stays fp32 whatever the model dtype,
+with its padded vocabulary. The ``lm`` tree (dense blocks' ``mlp``, or
+the MoE blocks' ``moe``: router (L, D, E), w_up and w_gate (L, E, D, F),
+w_down (L, E, F, D)) and the ``ssm`` (Mamba1) tree are taken; ``a_log`` stays fp32 whatever the model dtype,
 as the JAX package initialises it. Missing keys raise."""
 from __future__ import annotations
 
@@ -76,14 +77,21 @@ def _dense_blocks(take, norm, cfg: ArchConfig) -> dict:
                    "wo": (L, qd, D)}
     if cfg.qkv_bias:
         attn_shapes.update(bq=(L, qd), bk=(L, kvd), bv=(L, kvd))
-    mlp_shapes = {"w_up": (L, D, F), "w_down": (L, F, D)}
-    if cfg.ffn_glu:
-        mlp_shapes["w_gate"] = (L, D, F)
+    if cfg.n_experts:
+        E = cfg.n_experts
+        ffn, ffn_shapes = "moe", {"router": (L, D, E), "w_up": (L, E, D, F),
+                                  "w_down": (L, E, F, D)}
+        if cfg.ffn_glu:
+            ffn_shapes["w_gate"] = (L, E, D, F)
+    else:
+        ffn, ffn_shapes = "mlp", {"w_up": (L, D, F), "w_down": (L, F, D)}
+        if cfg.ffn_glu:
+            ffn_shapes["w_gate"] = (L, D, F)
     norms = ["ln1", "ln2"] + (["post_ln1", "post_ln2"]
                               if cfg.post_attn_norm else [])
     blocks = {n: norm(("blocks", n), (L,)) for n in norms}
     blocks["attn"] = {k: take(("blocks", "attn", k), s)
                       for k, s in attn_shapes.items()}
-    blocks["mlp"] = {k: take(("blocks", "mlp", k), s)
-                     for k, s in mlp_shapes.items()}
+    blocks[ffn] = {k: take(("blocks", ffn, k), s)
+                   for k, s in ffn_shapes.items()}
     return blocks

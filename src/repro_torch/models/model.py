@@ -1,5 +1,9 @@
-"""Model facade for the dense ``lm`` family (the main path of this port)
-and the attention-free ``ssm`` family (falcon-mamba).
+"""Model facade for the ``lm`` families (the main path of this port):
+dense, MoE (granite-moe, grok-1: routed expert FFNs) and VLM (internvl2:
+patch embeddings at the head of a prompt, ``batch["patches"]``), all
+served by the transformer stack and ``LMAdapter``; and for the
+attention-free ``ssm`` family (falcon-mamba). The hybrid and
+encoder-decoder families are not ported and raise.
 
 ``Model`` resolves the device and hyper-parameters and delegates compute
 to its family adapter (models/adapter.py):
@@ -30,7 +34,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.adapter import LMAdapter, SSMAdapter
 from repro_torch.models.ssm import SSMHyper
 
-LM_FAMILIES = ("dense",)
+LM_FAMILIES = ("dense", "moe", "vlm")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:

@@ -1,4 +1,5 @@
-"""Decoder-only LM stack (dense / GQA) over layer-stacked parameters.
+"""Decoder-only LM stack (dense / GQA / MoE / VLM) over layer-stacked
+parameters.
 
 Entry points (functions over the parameter dict):
 
@@ -19,6 +20,11 @@ kernel (``kernels.ops.restore_kv_grouped``) over the whole weight stack,
 with the batch folded into the kernel's token axis. Restored K/V therefore
 equals prefill K/V by construction.
 
+A MoE stack (``cfg.n_experts``) replaces each block's FFN by the routed
+experts of ``layers/moe.py``; a VLM (internvl2) takes precomputed patch
+embeddings (``patch_embeds``, (B, n_vis, D)) in place of the token
+embeddings at positions [0, n_vis) of a prefill that starts at 0.
+
 The JAX package scans over the layer stack; here the stack is walked by a
 Python loop, since PyTorch runs eagerly.
 """
@@ -37,6 +43,7 @@ from repro_torch.models.layers.attention import AttnHyper
 from repro_torch.models.layers.embedding import (embed_tokens, init_embedding,
                                                  logits as embed_logits)
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
+from repro_torch.models.layers.moe import MoEHyper, apply_moe, init_moe
 from repro_torch.models.layers.norm import apply_norm, init_norm
 from repro_torch.models.layers.rope import rope_table
 from repro_torch.models.module import stacked_init
@@ -55,6 +62,15 @@ class LMHyper:
             qkv_bias=c.qkv_bias, use_rope=c.use_rope,
             rope_theta=c.rope_theta, attn_softcap=c.attn_softcap)
 
+    @functools.cached_property
+    def moe(self) -> Optional[MoEHyper]:
+        c = self.cfg
+        if not c.n_experts:
+            return None
+        return MoEHyper(n_experts=c.n_experts, top_k=c.experts_per_token,
+                        d_model=c.d_model, d_ff=c.d_ff,
+                        activation=c.ffn_activation, glu=c.ffn_glu)
+
 
 # ------------------------------------------------------------------- params
 def init_block(gen: torch.Generator, h: LMHyper, device) -> dict:
@@ -64,8 +80,12 @@ def init_block(gen: torch.Generator, h: LMHyper, device) -> dict:
         "attn": attn_lib.init_attention(gen, c.d_model, h.attn, h.dtype,
                                         device),
         "ln2": init_norm(c.norm, c.d_model, h.dtype, device),
-        "mlp": init_mlp(gen, c.d_model, c.d_ff, c.ffn_glu, h.dtype, device),
     }
+    if h.moe is not None:
+        p["moe"] = init_moe(gen, h.moe, h.dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, c.d_model, c.d_ff, c.ffn_glu, h.dtype,
+                            device)
     if c.post_attn_norm:
         p["post_ln1"] = init_norm(c.norm, c.d_model, h.dtype, device)
         p["post_ln2"] = init_norm(c.norm, c.d_model, h.dtype, device)
@@ -154,6 +174,12 @@ def _attn_qkv(blocks, li, x, h: LMHyper, cos, sin):
     return q, k.reshape(kv_shape), v.reshape(kv_shape)
 
 
+def _ffn(p: dict, x, h: LMHyper):
+    if h.moe is not None:
+        return apply_moe(p["moe"], x, h.moe)
+    return apply_mlp(p["mlp"], x, h.cfg.ffn_activation)
+
+
 def _block_tail(p: dict, x, attn_out, h: LMHyper):
     c = h.cfg
     attn_out = attn_lib.attn_output(p["attn"], attn_out)
@@ -161,7 +187,7 @@ def _block_tail(p: dict, x, attn_out, h: LMHyper):
         attn_out = apply_norm(p["post_ln1"], attn_out, c.norm, c.norm_eps)
     x = x + attn_out
     normed2 = apply_norm(p["ln2"], x, c.norm, c.norm_eps)
-    ff = apply_mlp(p["mlp"], normed2, c.ffn_activation)
+    ff = _ffn(p, normed2, h)
     if c.post_attn_norm:
         ff = apply_norm(p["post_ln2"], ff, c.norm, c.norm_eps)
     return x + ff
@@ -233,10 +259,18 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
 
 
 # ------------------------------------------------------------ full forward
-def _embed_input(params: dict, h: LMHyper, tokens):
+def _embed_input(params: dict, h: LMHyper, tokens, patch_embeds=None):
+    """Token embeddings (B, S, D); ``patch_embeds`` (B, n_vis, D) replace
+    those of the first n_vis positions."""
     c = h.cfg
     x = embed_tokens(params["embed"], tokens, scale=c.embedding_scale,
                      d_model=c.d_model)
+    if patch_embeds is not None:
+        n_vis = patch_embeds.shape[1]
+        if n_vis > x.shape[1]:
+            raise ValueError(f"{n_vis} patch positions in a segment of "
+                             f"{x.shape[1]} tokens")
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
     return x.to(h.dtype)
 
 
@@ -248,12 +282,14 @@ def _final_logits(params: dict, x, h: LMHyper):
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
-               hist_kv=None, hist_len: Optional[int] = None,
-               capture_hidden: bool = False, emit_kv: bool = False,
+               patch_embeds=None, hist_kv=None,
+               hist_len: Optional[int] = None, capture_hidden: bool = False,
+               emit_kv: bool = False,
                final_logits_only: bool = False) -> dict:
-    """Prefill forward. tokens (B,S) int; hist_kv optional restored
-    history, a stacked (L,B,Sh,Kv,hd) pair, with ``hist_len`` live
-    positions. Returns dict(logits, kv, hidden): kv a (k, v) pair of
+    """Prefill forward. tokens (B,S) int; patch_embeds optional (B,n_vis,D)
+    in place of the first n_vis tokens' embeddings; hist_kv optional
+    restored history, a stacked (L,B,Sh,Kv,hd) pair, with ``hist_len``
+    live positions. Returns dict(logits, kv, hidden): kv a (k, v) pair of
     (L,B,S,Kv,hd) when ``emit_kv``, hidden (L,B,S,D) when
     ``capture_hidden``, else None."""
     B, S = tokens.shape
@@ -261,7 +297,7 @@ def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
     positions = base + torch.arange(S, device=tokens.device)[None, :]
     positions = positions.expand(B, S)
     cos, sin = rope_at(h.attn, positions)
-    x = _embed_input(params, h, tokens)
+    x = _embed_input(params, h, tokens, patch_embeds)
     windows = layer_windows(h)
     blocks = params["blocks"]
     ks, vs, hidden = [], [], []
@@ -353,7 +389,7 @@ def lm_restore_kv(params: dict, hidden: torch.Tensor, h: LMHyper, *,
 
 
 def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
-                 n_layers: int):
+                 n_layers: int, patches: Optional[torch.Tensor] = None):
     """K/V of layers [0, n_layers) rebuilt from tokens by replaying the
     session's history segment by segment, the way it was first computed.
 
@@ -369,7 +405,9 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
     on one card: a library product picks its algorithm from the batch
     width, so a B=4 step need not give a B=1 step's bits). Rebuilding the
     whole stream in one prefill would instead sum attention in another
-    order and drift from the decoded history. Returns (k, v):
+    order and drift from the decoded history. ``patches`` (n_vis, D), a
+    VLM session's patch embeddings, enter the prefill segment that starts
+    at 0, as they entered its first prefill. Returns (k, v):
     (n_layers, 1, N, Kv, hd)."""
     N = tokens.shape[0]
     a = h.attn
@@ -388,7 +426,9 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
         if kind == "prefill":
             positions = start + torch.arange(n, device=dev)[None]
             cos, sin = rope_at(a, positions, start + n)
-            x = _embed_input(params, h, tokens[None, start:start + n])
+            x = _embed_input(params, h, tokens[None, start:start + n],
+                             patches[None] if patches is not None
+                             and start == 0 else None)
             for li in range(n_layers):
                 hist = ((k[li][:, :start], v[li][:, :start])
                         if start else None)
