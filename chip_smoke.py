@@ -52,7 +52,8 @@ Needs one CUDA GPU and the repository checkout around this file. It
      llama2-7b on the contiguous and the paged backend (4 sessions x 2
      rounds), again under ``--budget-kb 8`` (the ladder's actions must be
      printed) and paged with ``--prefix-sharing`` (its hit rate must be
-     printed), falcon-mamba-7b (4 sessions, 1 round), and qwen2-7b,
+     printed), falcon-mamba-7b and zamba2-2.7b (4 sessions, 1 round),
+     and qwen2-7b,
      qwen2.5-14b, starcoder2-15b, gemma2-9b, granite-moe-1b-a400m,
      grok-1-314b and internvl2-26b (2 sessions x 2 rounds; qwen2-7b,
      gemma2-9b and granite on both backends, internvl paged); then
@@ -134,7 +135,20 @@ Needs one CUDA GPU and the repository checkout around this file. It
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire, every prefill
      and decode step one scan launch per layer);
-  9. checks that each path launched its kernels (counts reset before and
+  9. frees it and drives the hybrid path: zamba2-2.7b (54 layers: 9
+     super-blocks of 5 Mamba2 blocks and an attention block) at full
+     width and depth in bf16 through the lifecycle (3 sessions of 1024,
+     1536 and 2000 tokens, 16 decode tokens saved row by row, pause,
+     evict, restore: the attention blocks' restored K/V bitwise equal to
+     the live cache on every token, prefill and decode rows alike, the
+     Mamba2 states bitwise equal, 16 more tokens MATCH against the
+     never-evicted cache; session 0 all-hidden, the others planned) and
+     through the engine on the contiguous backend (6 single-round
+     sessions over 4 slots: every token's logits bitwise equal to a B=1
+     pass over its session's own prompt and tokens, so every token is that
+     pass's greedy choice; every retired session's restore bitwise equal
+     to its K/V and states at retire);
+ 10. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
      the card, the kernels' JSON line and the device line last.
@@ -1004,6 +1018,7 @@ MODEL_RESTORE = {    # name: (G, S, D, KV, hd, bias)
     "gemma2-9b restore": (8, 1024, 3584, 2048, 256, False),
     "internvl2-26b restore": (8, 1024, 6144, 1024, 128, False),
     "granite-moe-1b restore": (8, 1024, 1024, 512, 64, False),
+    "zamba2-2.7b restore": (9, 1024, 2560, 2560, 80, False),
 }
 MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
     "qwen2-7b engine step": (4, 4, 7, 128, (2300, 1537, 777, 2049), 2560,
@@ -1015,6 +1030,8 @@ MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
     "internvl2-26b engine step": (4, 8, 6, 128, (1180, 655, 1040, 790),
                                   1280, None, None),
     "grok-1-314b step": (1, 8, 6, 128, (1296,), 1304, None, 30.0),
+    "zamba2-2.7b engine step": (4, 32, 1, 80, (1040, 272, 784, 528), 1088,
+                                None, None),
 }
 MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "qwen2-7b 1024 self": (0, 1024, 28, 4, 128, None, None),
@@ -1025,6 +1042,7 @@ MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "granite-moe-1b 1024 self": (0, 1024, 16, 8, 64, None, None),
     "internvl2-26b 1024 self": (0, 1024, 48, 8, 128, None, None),
     "grok-1-314b 1024 self": (0, 1024, 48, 8, 128, None, 30.0),
+    "zamba2-2.7b 1024 self": (0, 1024, 32, 32, 80, None, None),
 }
 
 
@@ -1360,7 +1378,9 @@ def decode(model, params, cache, tok, steps, *, save=None):
         lengths = cache["lengths"]
         lg, cache, hidden = model.decode_step_full(params, cache, tok)
         if save is not None:
-            save[0].save_decode_hidden([save[1]], hidden, lengths.cpu())
+            save[0].save_decode_hidden([save[1]],
+                                       model.adapter.decode_hidden(hidden),
+                                       lengths.cpu())
         tok = greedy(lg)
     return inputs, cache, tok
 
@@ -1747,12 +1767,13 @@ def engine_classes():
     """The engine and manager of the port, instrumented for this phase:
     session s0 is planned all-hidden, the rest under the PAPER_H800
     planner (recompute prefix + hidden); every pause or retire snapshots
-    the session's K/V [0, n) on the card (an ssm session's conv and ssm
-    states), and every completed restore is held against the last
+    the session's K/V [0, n) on the card and its conv and ssm states (ssm,
+    hybrid), and every completed restore is held against the last
     snapshot bitwise; every prefill and decode step counts its kernel
-    launches: the flash and decode kernels (lm) or the state-update scan
-    (ssm), once per layer."""
+    launches: the flash and decode kernels once per attention layer (lm,
+    hybrid) or the state-update scan once per layer (ssm)."""
     import torch
+    from repro_torch.config.arch import BlockKind
     from repro_torch.core.hcache import HCacheManager
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -1790,7 +1811,9 @@ def engine_classes():
             self.walls_by_codec = {"none": [], "int8": [], "recompute": []}
             self.int8_worst = {"rel": 0.0, "plain": 0.0, "rows": 0,
                                "restores": 0}
-            L = self.model.cfg.n_layers
+            kinds = self.model.cfg.block_kinds()
+            L = (sum(k == BlockKind.ATTENTION for k in kinds)
+                 or len(kinds))
             save = self.mgr.save_session_pause
             prefill = self.adapter.prefill_chunk
             decode = self.kv.decode
@@ -1798,10 +1821,12 @@ def engine_classes():
             ssm = self.model.kind == "ssm"
 
             def save_and_snapshot(session, cache, n_tokens, **kw):
-                self.snapshots[session] = (
-                    (cache["conv"].clone(), cache["ssm"].clone()) if ssm
-                    else (cache["k"][:, 0, :n_tokens].clone(),
-                          cache["v"][:, 0, :n_tokens].clone()))
+                # (k, v) of the attention layers, then (conv, ssm)
+                snap = tuple(cache[name][:, 0, :n_tokens].clone()
+                             for name in self.model.adapter.kv_names or ())
+                if "ssm" in cache:
+                    snap += (cache["conv"].clone(), cache["ssm"].clone())
+                self.snapshots[session] = snap
                 return save(session, cache, n_tokens, **kw)
 
             def prefill_launches():
@@ -2652,6 +2677,246 @@ def run_ssm_engine(model, params):
     return requests
 
 
+# ------------------------------------------------------------ hybrid path
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_ENGINE_PROMPTS = (1024, 256, 768, 512, 896, 640)
+HYBRID_ENGINE_MAX_SEQ = 1088     # 1024 + 16 tokens fit
+
+
+def build_hybrid_model():
+    """zamba2-2.7b at full width and depth, bf16, random weights from
+    SEED, warmed by one short prefill and decode step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.module import count_params
+
+    cfg = get_arch(HYBRID_ARCH)
+    model = Model(cfg, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    out = model.prefill(params, {"tokens": torch.arange(
+        64, device=model.device)[None]})
+    model.decode_step(params, hybrid_cache(model, out, 65),
+                      greedy(out["logits"]))
+    h, m = model.h, model.h.mamba
+    n_params = count_params(params)
+    print(f"{HYBRID_ARCH}: {cfg.n_layers} layers ({h.n_super} super-blocks "
+          f"of {h.k - 1} Mamba2 blocks and an attention block), "
+          f"d={cfg.d_model}, {cfg.n_heads}x{cfg.head_dim_} heads over "
+          f"{cfg.n_kv_heads} kv heads, d_ff={cfg.d_ff}, Mamba2 {m.n_heads} "
+          f"heads of {m.head_dim}, state {m.d_state}, conv channels "
+          f"{m.conv_channels}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} "
+          f"B params bf16 ({2 * n_params / 1e9:.2f} GB; dt_bias, a_log and "
+          f"d_skip fp32); init and warm-up {_sync_s(t0):.1f} s on "
+          f"{model.device}")
+    return model, params
+
+
+def hybrid_cache(model, out, capacity):
+    """A B=1 decode cache of ``capacity`` positions holding a hybrid
+    prefill's attention K/V and Mamba2 states."""
+    import torch
+    cache = model.init_cache(1, capacity)
+    n = out["kv"][0].shape[2]
+    cache["attn_k"][:, :, :n] = out["kv"][0]
+    cache["attn_v"][:, :, :n] = out["kv"][1]
+    cache["conv"].copy_(out["mamba_states"][0])
+    cache["ssm"].copy_(out["mamba_states"][1])
+    cache["lengths"] = torch.tensor([n], dtype=torch.int32,
+                                    device=model.device)
+    return cache
+
+
+def run_hybrid_lifecycle(model, params):
+    """A session per prompt of PROMPTS through the HCache manager: prefill
+    -> save -> DECODE_TOKENS decode steps, each step's attention hidden
+    states saved -> pause dump -> evict -> restore. The restored attention
+    K/V equal the live cache bitwise on every token (prefill and decode
+    rows), the Mamba2 states bitwise; DECODE_TOKENS more tokens from the
+    restored cache against the never-evicted one (MATCH). Session 0 is
+    all-hidden, the others planned."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.storage import ChunkStore, make_array
+
+    store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
+    managers = [HCacheManager(model, store, schedule_override="hidden",
+                              restore_group_size=8),
+                HCacheManager(model, store, restore_group_size=8)]
+    kinds = model.cfg.block_kinds()
+    rng = np.random.default_rng(SEED)
+    dev = model.device
+    try:
+        for s, n0 in enumerate(PROMPTS):
+            session, mgr = f"z{s}", managers[0 if s == 0 else 1]
+            plan = mgr.plan(n0)
+            by_kind = collections.Counter(
+                f"{kinds[li].value} {m}" for li, m in enumerate(plan.methods))
+            print(f"{HYBRID_ARCH} {session}: schedule for {n0} tokens: "
+                  f"{plan.summary()}; methods by block kind "
+                  f"{dict(sorted(by_kind.items()))}; the Mamba2 blocks' "
+                  f"states restore as {model.adapter.n_state_blobs} blob")
+            toks = torch.from_numpy(
+                rng.integers(0, model.cfg.vocab_size, n0)).to(dev)
+            cap = n0 + 2 * DECODE_TOKENS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.prefill(params, {"tokens": toks[None]},
+                                capture_hidden=True)
+            tok = greedy(out["logits"])
+            ttft_ms = _sync_s(t0) * 1e3
+            mgr.save_prefill(session, toks.cpu().numpy(), out)
+            live = hybrid_cache(model, out, cap)
+            del out
+            t1 = time.perf_counter()
+            inputs, live, tok = decode(model, params, live, tok,
+                                       DECODE_TOKENS, save=(mgr, session))
+            decode_ms = _sync_s(t1) * 1e3 / DECODE_TOKENS
+            n_total = n0 + DECODE_TOKENS
+            mgr.save_session_pause(session, live, n_total,
+                                   tokens_tail=inputs)
+            ref = {name: t.clone() for name, t in live.items()}
+            del live                            # evict the device state
+            res = mgr.restore(params, session, capacity=cap)
+            for name in ("attn_k", "attn_v"):
+                if not torch_equal(res.cache[name][:, :, :n_total],
+                                   ref[name][:, :, :n_total]):
+                    raise AssertionError(
+                        f"{session}: restored {name} differs from the live "
+                        f"cache on [0, {n_total})")
+            for name in ("conv", "ssm"):
+                if not torch_equal(res.cache[name], ref[name]):
+                    raise AssertionError(f"{session}: restored {name} state "
+                                         "differs from the live one")
+            seq_r, _, _ = decode(model, params, res.cache, tok,
+                                 DECODE_TOKENS)
+            seq_g, _, _ = decode(model, params, ref, tok, DECODE_TOKENS)
+            verdict = "MATCH" if seq_r == seq_g else "MISMATCH"
+            n_attn = len(model.adapter.decode_layers(model.h.n_super))
+            h_mb = n_attn * n_total * model.cfg.d_model * 2 / 1e6
+            blob_mb = (ref["conv"].numel() * 2 + ref["ssm"].numel() * 4) / 1e6
+            print(f"{HYBRID_ARCH} {session}: {n0} prompt tokens; TTFT "
+                  f"(prefill) {ttft_ms:.1f} ms; decode {decode_ms:.2f} "
+                  f"ms/token; restore of {n_total} tokens "
+                  f"{res.wall_time * 1e3:.1f} ms (projection "
+                  f"{res.project_wall * 1e3:.2f} ms; host " + ", ".join(
+                      f"{k} {v * 1e3:.1f}" for k, v in res.host_split.items())
+                  + f" ms; virtual {res.timeline.makespan * 1e3:.3f} ms; "
+                  f"uploads {h_mb:.1f} MB of hidden states for {n_attn} "
+                  f"attention layers and a {blob_mb:.1f} MB state blob); "
+                  f"attn_k/attn_v bitwise equal on all {n_total} tokens, "
+                  f"conv and ssm bitwise equal; {verdict}")
+            if verdict != "MATCH":
+                raise AssertionError(f"{session}: {seq_r} != {seq_g}")
+            del res, ref
+    finally:
+        for m in managers:
+            m.close()
+
+
+def run_hybrid_engine(model, params):
+    """6 single-round sessions over 4 slots of the contiguous backend
+    (session s0 all-hidden, the rest planned); then every retired
+    session's restore against the K/V and states the engine held at
+    retire, bitwise. Returns {session: (prompt, generated, the logits
+    that sampled each token)}."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request
+    from repro_torch.storage import ChunkStore, make_array
+    Manager, Engine = engine_classes()
+    mgr = Manager(model, ChunkStore(make_array("ssd", 4), chunk_tokens=64),
+                  restore_group_size=8)
+    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+                 max_seq=HYBRID_ENGINE_MAX_SEQ, backend="contiguous")
+    rng = np.random.default_rng(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs = [eng.submit(Request(f"s{s}", rng.integers(
+        0, model.cfg.vocab_size, n).astype(np.int32),
+        max_new_tokens=DECODE_TOKENS))
+        for s, n in enumerate(HYBRID_ENGINE_PROMPTS)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics
+    walls = dict(eng.walls)
+    walls["other"] = wall - sum(walls.values())
+    for seq in seqs:
+        sid = seq.request.session_id
+        res = mgr.restore(params, sid)
+        k, v, conv, ssm = eng.snapshots[sid]
+        n = k.shape[1]
+        if not (res.n_tokens == n
+                and torch_equal(res.cache["attn_k"][:, 0, :n], k)
+                and torch_equal(res.cache["attn_v"][:, 0, :n], v)
+                and torch_equal(res.cache["conv"], conv)
+                and torch_equal(res.cache["ssm"], ssm)):
+            raise AssertionError(f"{HYBRID_ARCH} engine: the restore of "
+                                 f"{sid} differs from its state at retire")
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    print(f"{HYBRID_ARCH} engine contiguous: {wall:.1f} s for "
+          f"{len(seqs)} requests; TTFT mean {mean(m.ttft_wall):.0f} ms (max "
+          f"{1e3 * max(m.ttft_wall, default=0):.0f}); {eng.prefills} "
+          f"prefills (whole prompts); decode "
+          f"{1e3 * walls['decode'] / max(m.decode_steps, 1):.1f} ms per step "
+          f"over {m.decode_steps} steps; peak concurrency "
+          f"{m.concurrent_peak}; {len(seqs)} restores bitwise equal to the "
+          "K/V and states at retire")
+    print(f"{HYBRID_ARCH} engine wall by phase (synchronised): " + ", ".join(
+        f"{k} {v:.2f} s ({v / wall:.0%})" for k, v in walls.items()))
+    if m.concurrent_peak != ENGINE_BATCH or m.decode_steps <= 0:
+        raise AssertionError(f"{HYBRID_ARCH} engine: the batch never filled")
+    requests = {s.request.session_id: (
+        s.request.prompt, list(s.generated), eng.token_logits[id(s)])
+        for s in seqs}
+    eng.close()
+    return requests
+
+
+def check_hybrid_engine(model, params, requests):
+    """Each engine request against a B=1 pass over its own prompt (one
+    prefill) and its generated tokens (one-token decode steps): the
+    logits that sampled each token bitwise equal to the pass's, so every
+    token is the pass's greedy choice. Each row's arithmetic does not
+    depend on the batch it runs in (the SSD's decode sums run in a fixed
+    order; the products, kernels and norms are per row). Outside the
+    counted path. Returns the counts of tokens checked."""
+    import torch
+    V = model.cfg.vocab_size
+    n = 0
+    for sid in sorted(requests):
+        prompt, gen, got = requests[sid]
+        toks = torch.from_numpy(prompt.astype("int64")).to(model.device)
+        out = model.prefill(params, {"tokens": toks[None]})
+        cache = hybrid_cache(model, out, len(prompt) + len(gen))
+        rows = [out["logits"][0, -1]]
+        for t in gen[:-1]:
+            lg, cache = model.decode_step(params, cache, torch.tensor(
+                [[t]], device=model.device))
+            rows.append(lg[0, -1])
+        ref = torch.stack(rows)[:, :V].float()
+        got = torch.stack(got)[:, :V]
+        same = (got == ref).all(-1)
+        if not bool(same.all()):
+            i = int((~same).nonzero()[0, 0])
+            rel = float((got[i] - ref[i]).norm()
+                        / (ref[i] - ref[i].mean()).norm())
+            raise AssertionError(
+                f"{HYBRID_ARCH} engine {sid}: the logits of token {i} differ "
+                f"from the B=1 pass's (relative L2 {rel:.3g})")
+        if ref.argmax(-1).tolist() != list(gen):
+            raise AssertionError(f"{HYBRID_ARCH} engine {sid}: tokens differ "
+                                 "from the B=1 pass's greedy choices")
+        n += len(gen)
+        del cache, out
+    return n
+
+
 # the smoke configs (reduced_for_smoke: 4 layers, hd 16) through
 # launch/serve.py's path on the card, bf16, without --full:
 # (name, arguments, kernels that must run)
@@ -2670,6 +2935,8 @@ SMOKE_SERVES = (
      ("restore_kv_grouped", "decode_attention_paged", "flash_attention")),
     ("serve falcon-mamba-7b smoke", ["--arch", "falcon-mamba-7b",
                                      "--rounds", "1"], ("ssm_update",)),
+    ("serve zamba2-2.7b smoke", ["--arch", "zamba2-2.7b", "--rounds", "1"],
+     ("restore_kv_grouped", "decode_attention", "flash_attention")),
 ) + tuple(
     (f"serve {arch} smoke {backend}", ["--arch", arch, "--sessions", "2",
                                        "--rounds", "2", "--backend",
@@ -3084,6 +3351,25 @@ def main() -> None:
           f"{worst['cold']:.5f} at first tokens, {worst['decode']:.5f} at "
           f"decoded tokens (limit {PLAIN_REL}); generated tokens at most "
           f"{worst['gap']:.4f} std below the plain best (limit {PLAIN_GAP})")
+    del model, params                                  # free falcon-mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = build_hybrid_model()
+    hybrid_needs = ("restore_kv_grouped", "decode_attention",
+                    "flash_attention")
+    drive("hybrid lifecycle", lambda: run_hybrid_lifecycle(model, params),
+          hybrid_needs)
+    requests = drive("hybrid engine contiguous",
+                     lambda: run_hybrid_engine(model, params), hybrid_needs)
+    t1 = time.perf_counter()
+    n = check_hybrid_engine(model, params, requests)
+    print(f"{HYBRID_ARCH} engine against a B=1 pass over each request "
+          f"({len(requests)} requests, {time.perf_counter() - t1:.1f} s): "
+          f"the logits of all {n} tokens bitwise equal, every token the "
+          "pass's greedy choice")
+    del model, params, requests                        # free zamba2-2.7b
+    gc.collect()
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = counts[k["name"]]
     kernels[0]["launches_by_regime"] = regimes

@@ -1,5 +1,5 @@
-"""HCacheManager — the paper's system glued together (``lm`` and ``ssm``
-families).
+"""HCacheManager — the paper's system glued together (``lm``, ``ssm`` and
+``hybrid`` families).
 
   * plan: the per-layer restoration schedule (bubble-free scheduler),
     priced under the paper's Hopper profile by default, or under a
@@ -16,7 +16,12 @@ An attention-free (``ssm``) stack has no per-token state: the planner
 gives its layers the ``kv`` method, whose per-layer pieces are skipped,
 and the session's whole recurrent state (conv and ssm of every layer) is
 stored as two blobs, at prefill and at every pause or retire, and
-restored by the graph's ``blob`` task.
+restored by the graph's ``blob`` task. A ``hybrid`` stack (zamba2) does
+both: its attention blocks save and restore per token like an ``lm``
+stack's layers, its Mamba2 blocks' states go to the two blobs. A decode
+step's hidden stack holds the attention blocks only; the adapter's
+``decode_layers`` names the global layer of each of its rows, under which
+the rows are filed.
 
 Stored hidden states and states keep their dtype bit for bit: fp32 as
 float32, bf16 as its raw 2-byte words (numpy has no bfloat16), so a
@@ -62,8 +67,10 @@ from repro_torch.storage.two_stage import SnapshotTask, TwoStageSaver
 
 @dataclasses.dataclass
 class RestoreResult:
-    cache: dict                      # dict(k, v, lengths), or for ssm
-    #                                  dict(conv, ssm, lengths); B = 1
+    cache: dict                      # dict(k, v, lengths); for ssm
+    #                                  dict(conv, ssm, lengths); for hybrid
+    #                                  dict(attn_k, attn_v, conv, ssm,
+    #                                  lengths); B = 1
     schedule: Schedule
     timeline: Timeline               # virtual restoration timing
     wall_time: float                 # seconds, synchronised with the device
@@ -135,8 +142,9 @@ class HCacheManager:
             self._ring.close()
 
     def param_pack(self, params):
-        """Restoration weights for ``params``, built once and reused; None
-        for an attention-free stack."""
+        """Restoration weights for ``params`` (a hybrid stack's attention
+        blocks), built once and reused; None for an attention-free
+        stack."""
         if self.model.kind == "ssm":
             return None
         if self._pack is None or self._pack_params is not params:
@@ -290,8 +298,9 @@ class HCacheManager:
                                          to_host(k.reshape(k.shape[0], -1)))
                 self.store.append_tokens(session, "kvv", li, start,
                                          to_host(v.reshape(v.shape[0], -1)))
-        if prefill_out.get("states") is not None:
-            self._save_states(session, *prefill_out["states"])
+        states = prefill_out.get("states") or prefill_out.get("mamba_states")
+        if states is not None:
+            self._save_states(session, *states)
         # the history as it was computed, for the recompute replay
         segments = (list(prev.get("segments", [[0, start, "prefill"]]))
                     if prev else [])
@@ -336,15 +345,16 @@ class HCacheManager:
     def save_decode_hidden(self, session_ids: Sequence[Optional[str]],
                            hidden: torch.Tensor, lengths) -> float:
         """Two-stage save of one decode step's hidden states: one
-        layer-stacked (L, B, 1, D) snapshot; the saver's daemon splits it
-        per (layer, sequence). ``lengths`` (B,) are the new tokens'
-        positions. Returns the virtual stage-1 cost in seconds.
+        layer-stacked (R, B, 1, D) snapshot; the saver's daemon splits it
+        per (layer, sequence), row r going to the adapter's
+        ``decode_layers(R)[r]`` (a hybrid stack's rows are its attention
+        blocks, global layers k-1, 2k-1, ...). ``lengths`` (B,) are the new
+        tokens' positions. Returns the virtual stage-1 cost in seconds.
 
         The rows of sessions in the int8 codec are quantized on the host
         after the copy (per token, so a row at a time gives the bulk
         codec's bits) and go to "h" and "hs" in snapshots of their own."""
-        L = hidden.shape[0]
-        layers = list(range(L))
+        layers = list(self.model.adapter.decode_layers(hidden.shape[0]))
         starts = [int(x) for x in np.asarray(lengths)]
         ids = list(session_ids)
         h = to_host(hidden)
@@ -375,8 +385,8 @@ class HCacheManager:
                            batch_row: int = 0) -> None:
         """After decoding: drain the saver, append the decoded tokens and
         the K/V of ``kv``-method layers from the live cache (row 0), dump
-        the recurrent states of an ``ssm`` cache whole, and mark the store
-        restorable at ``n_tokens``. The decode segment is
+        the recurrent states of an ``ssm`` or ``hybrid`` cache whole, and
+        mark the store restorable at ``n_tokens``. The decode segment is
         recorded with the batch it ran in (``batch_width`` rows, the
         session at ``batch_row``) when that is wider than one, so the
         recompute replay runs the same shapes."""
@@ -413,8 +423,9 @@ class HCacheManager:
 
     def _save_states(self, session: str, conv: torch.Tensor,
                      ssm: torch.Tensor) -> None:
-        """The recurrent states of every layer, (L, 1, W-1, I) and (L, 1,
-        I, N), as two whole blobs."""
+        """The recurrent states of every recurrent layer as two whole
+        blobs: ssm (L, 1, W-1, I) and (L, 1, I, N); hybrid (n_super, k-1,
+        1, W-1, C) and (n_super, k-1, 1, H, P, N)."""
         self.store.put_blob(session, "state_conv", 0, to_host(conv))
         self.store.put_blob(session, "state_ssm", 0, to_host(ssm))
 
@@ -452,8 +463,8 @@ class HCacheManager:
     def restore(self, params, session: str, *,
                 capacity: Optional[int] = None) -> RestoreResult:
         """Rebuild the session's cache (B = 1) from the store: K/V in a
-        buffer of at least ``capacity`` positions, or an ssm session's
-        states."""
+        buffer of at least ``capacity`` positions, and a recurrent
+        session's states."""
         self.saver.drain()
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)

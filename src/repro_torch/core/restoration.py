@@ -1,11 +1,11 @@
-"""Pipelined restoration executor (paper §4.1) for the ``lm`` and ``ssm``
-families.
+"""Pipelined restoration executor (paper §4.1) for the ``lm``, ``ssm``
+and ``hybrid`` families.
 
 A ``Schedule`` compiles into an ordered task graph (``compile_tasks``) of
 per-layer steps: chunk-store reads of hidden states (``io_h``) and of raw
-K/V (``io_kv``), whole-object reads (``blob``: an ``ssm`` session's
-recurrent states), grouped hidden→K/V projections (``project``) and
-recompute-prefix layers (``recompute``). Per-layer tasks of a layer that
+K/V (``io_kv``), whole-object reads (``blob``: an ``ssm`` or ``hybrid``
+session's recurrent states), grouped hidden→K/V projections
+(``project``) and recompute-prefix layers (``recompute``). Per-layer tasks of a layer that
 is not an attention layer do nothing: such a layer is restored by the
 state blob. The same graph serves:
 
@@ -549,8 +549,9 @@ class RestoreSink:
             self.put_kv(row, k[g], v[g], start)
 
     def put_states(self, conv, ssm) -> None:
-        """An ssm session's recurrent states, (L, 1, W-1, I) and (L, 1,
-        I, N)."""
+        """A recurrent session's states, whole: ssm (L, 1, W-1, I) and
+        (L, 1, I, N); hybrid (n_super, k-1, 1, W-1, C) and (n_super, k-1,
+        1, H, P, N)."""
         raise NotImplementedError
 
     def finish(self, n_tokens: int) -> None:
@@ -558,10 +559,12 @@ class RestoreSink:
 
 
 class CacheAssembler(RestoreSink):
-    """Builds a B=1 decode cache: dict(k, v (L,1,capacity,Kv,hd), lengths)
-    for lm, whose pieces are written straight into a buffer of
-    ``capacity`` positions (at least the restored length), so decoding
-    can continue in it; dict(conv, ssm, lengths) for ssm."""
+    """Builds a B=1 decode cache: the stacked K/V of the attention layers
+    under the adapter's ``kv_names`` (lm k/v (L,1,capacity,Kv,hd), hybrid
+    attn_k/attn_v (n_super,1,capacity,Kv,hd)), whose pieces are written
+    straight into a buffer of ``capacity`` positions (at least the
+    restored length), so decoding can continue in it; the recurrent
+    states conv/ssm of an ssm or hybrid session; and lengths."""
 
     def __init__(self, model, capacity: Optional[int] = None):
         self.model = model
@@ -574,8 +577,9 @@ class CacheAssembler(RestoreSink):
     def _buffers(self, n: int):
         if self.k is None:
             c = self.model.cfg
-            shape = (c.n_layers, 1, max(self.capacity or 0, n),
-                     c.n_kv_heads, c.head_dim_)
+            rows = sum(k == BlockKind.ATTENTION for k in c.block_kinds())
+            shape = (rows, 1, max(self.capacity or 0, n), c.n_kv_heads,
+                     c.head_dim_)
             self.k = torch.zeros(shape, dtype=self.model.dtype,
                                  device=self.model.device)
             self.v = torch.zeros_like(self.k)
@@ -593,12 +597,13 @@ class CacheAssembler(RestoreSink):
     def finish(self, n_tokens):
         lengths = torch.tensor([n_tokens], dtype=torch.int32,
                                device=self.model.device)
-        if self.model.kind == "ssm":
-            conv, ssm = self.states
-            self.cache = {"conv": conv, "ssm": ssm, "lengths": lengths}
-            return
-        kb, vb = self._buffers(n_tokens)
-        self.cache = {"k": kb, "v": vb, "lengths": lengths}
+        self.cache = {}
+        names = self.model.adapter.kv_names
+        if names is not None:
+            self.cache.update(zip(names, self._buffers(n_tokens)))
+        if self.model.adapter.n_state_blobs:
+            self.cache["conv"], self.cache["ssm"] = self.states
+        self.cache["lengths"] = lengths
 
 
 # ---------------------------------------------------------- param packing
@@ -612,14 +617,17 @@ def s_bucket(n: int, minimum: int = 16) -> int:
 
 
 class RestoreParamPack:
-    """The restoration weights of every layer: references to the model's
-    layer-stacked parameters (no copy), and RoPE tables cut from the
+    """The restoration weights of every attention layer: references to the
+    model's layer-stacked parameters (no copy; a hybrid stack's attention
+    blocks, row ``s`` for block ``s``), and RoPE tables cut from the
     shared table that prefill and decode gather from too."""
 
     def __init__(self, model, params):
         self.model = model
-        self.blocks = params["blocks"]
-        self.attn = model.h.attn
+        if model.kind == "hybrid":
+            self.blocks, self.attn = params["attn"], model.h.lm.attn
+        else:
+            self.blocks, self.attn = params["blocks"], model.h.attn
         self._tables: Dict[Tuple[int, int],
                            Tuple[torch.Tensor, torch.Tensor]] = {}
         self._rows: Dict[Tuple[int, ...], torch.Tensor] = {}
@@ -1142,7 +1150,7 @@ class RestorationExecutor:
         self.host_split["launch"] += time.perf_counter() - t0
 
     def _exec_blob(self, t: Task) -> None:
-        """An ssm session's recurrent states, bit for bit as stored."""
+        """A recurrent session's states, bit for bit as stored."""
         store, sess, model = self.mgr.store, self.session, self.model
         states = []
         for name, dtype in (("state_conv", model.dtype),

@@ -8,6 +8,8 @@ conversation trace.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         falcon-mamba-7b --rounds 1 --full           # ssm family, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        zamba2-2.7b --rounds 1 --full               # hybrid family, GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         granite-moe-1b-a400m --full                 # MoE family, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --hw-profile p.json --restore-group-size auto   # calibrated
@@ -24,9 +26,9 @@ not ported yet are refused with a message that names the missing part.
 under a ``CapacityManager`` (its ladder's actions are printed);
 ``--prefix-sharing`` turns on shared prefixes and copy-on-write pages
 (the paged backend's index; host chunk sharing on either backend).
-An ``ssm`` model (falcon-mamba-7b) runs on the contiguous backend for one
-round per session: its prefill starts from zero state, so a second round
-is refused. The MoE (granite-moe-1b-a400m, grok-1-314b) and VLM
+An ``ssm`` model (falcon-mamba-7b) or a ``hybrid`` one (zamba2-2.7b)
+runs on the contiguous backend for one round per session: its prefill
+starts from zero state, so a second round is refused. The MoE (granite-moe-1b-a400m, grok-1-314b) and VLM
 (internvl2-26b) models are served text-only, as the reference serves
 them; ``--full`` refuses a model whose bf16 weights exceed one card's
 memory (grok-1-314b, 633 GB).

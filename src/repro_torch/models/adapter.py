@@ -3,8 +3,8 @@ manager and serving engine: how a prefill, a prefill chunk and a decode
 step are invoked, how a prefill's output lands in a ``CacheView``, and
 which pieces of a prefill output are persisted. ``LMAdapter`` serves the
 ``lm`` families (dense, MoE and VLM), ``SSMAdapter`` the attention-free
-``ssm`` family (falcon-mamba); the hybrid and enc-dec adapters are not
-ported yet.
+``ssm`` family (falcon-mamba), ``HybridAdapter`` the ``hybrid`` family
+(zamba2); the enc-dec adapter is not ported yet.
 
 The adapter does not import ``repro_torch.serving``: the serving seam
 methods are duck-typed over the engine's ``SequenceState`` and the
@@ -15,8 +15,9 @@ Capability flags (as the JAX package's ``FamilyAdapter`` has them):
 ``supports_resume`` (a paused session resumes by prefilling over its
 restored history), ``supports_paged`` (the block-table backend applies),
 ``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V),
-``kv_row`` (a layer's row in that stack) and ``n_state_blobs`` (whole
-recurrent-state blobs in the restore graph).
+``kv_row`` (a layer's row in that stack), ``decode_layers`` (the global
+layer of each row of a decode step's hidden stack) and ``n_state_blobs``
+(whole recurrent-state blobs in the restore graph).
 """
 from __future__ import annotations
 
@@ -43,6 +44,21 @@ class FamilyAdapter:
     def decode_hidden(self, hidden):
         """The (L, B, 1, D) hidden stack a decode step persists."""
         return hidden
+
+    def decode_layers(self, n_rows: int):
+        """The global layer id of each of the ``n_rows`` rows of
+        ``decode_hidden``'s stack, under which the manager files them."""
+        return list(range(n_rows))
+
+    def kv_row(self, li: int) -> int:
+        """Stacked-K/V row of global layer ``li`` (every layer of the lm
+        families is an attention layer)."""
+        return li
+
+    def prefill_kv(self, out: dict, li: int):
+        """Layer ``li``'s (k, v), each (S, Kv, hd), from a B=1 prefill."""
+        row = self.kv_row(li)
+        return out["kv"][0][row][0], out["kv"][1][row][0]
 
     def decode_step_paged(self, params, cache, tokens):
         raise NotImplementedError(
@@ -114,20 +130,9 @@ class LMAdapter(FamilyAdapter):
         k, v = out["kv"]
         view.write_kv(k, v, hist)
 
-    # ------------------------------------------------ serving: save naming
-    def kv_row(self, li: int) -> int:
-        """Stacked-K/V row of global layer ``li`` (every layer of the
-        dense family is an attention layer)."""
-        return li
-
     def prefill_hidden(self, out: dict, li: int) -> torch.Tensor:
         """Layer ``li``'s hidden states (S, D) from a B=1 prefill output."""
         return out["hidden"][li][0]
-
-    def prefill_kv(self, out: dict, li: int):
-        """Layer ``li``'s (k, v), each (S, Kv, hd), from a B=1 prefill."""
-        row = self.kv_row(li)
-        return out["kv"][0][row][0], out["kv"][1][row][0]
 
 
 class SSMAdapter(FamilyAdapter):
@@ -170,3 +175,69 @@ class SSMAdapter(FamilyAdapter):
     def prefill_kv(self, out: dict, li: int):
         raise ValueError(f"{self.model.cfg.name}: attention-free arch has "
                          "no K/V to persist")
+
+
+class HybridAdapter(FamilyAdapter):
+    """Mamba2 + attention stacks (zamba2): the prefill runs the whole
+    prompt from zero state (not chunkable, no resume, as ``ssm``); the
+    attention blocks' K/V sit in ``attn_k``/``attn_v`` (row ``li // k`` for
+    global layer ``li``) and restore from hidden states, the Mamba2
+    blocks' states as one blob. Contiguous backend only; no recompute (an
+    attention block's replay would need the Mamba2 blocks between)."""
+
+    kind = "hybrid"
+    kv_names = ("attn_k", "attn_v")
+    n_state_blobs = 1
+
+    def init(self, generator: torch.Generator) -> dict:
+        from repro_torch.models import hybrid
+        return hybrid.init_hybrid(generator, self.model.h, self.model.device)
+
+    def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
+                hist_len=None):
+        from repro_torch.models import hybrid
+        return hybrid.hybrid_forward(params, batch["tokens"], self.model.h,
+                                     capture_hidden=capture_hidden,
+                                     emit_state=True, final_logits_only=True)
+
+    def decode_step_full(self, params, cache, tokens):
+        from repro_torch.models import hybrid
+        return hybrid.hybrid_decode_step(params, cache, tokens, self.model.h)
+
+    def restore_kv_from_hidden(self, params, hidden, *, positions):
+        from repro_torch.models import hybrid
+        return hybrid.hybrid_restore_attn_kv(params, hidden, self.model.h,
+                                             positions=positions)
+
+    def restore_ssm_states(self, params, hidden):
+        from repro_torch.models import hybrid
+        return hybrid.hybrid_restore_mamba_states(params, hidden,
+                                                  self.model.h)
+
+    def prefill_chunk(self, params, seq, chunk, hist, *, capture_hidden):
+        return self.prefill(params, {"tokens": self._tokens(chunk)},
+                            capture_hidden=capture_hidden)
+
+    def absorb_prefill(self, view, out, n, hist) -> None:
+        """Write the attention K/V at offset ``hist`` and the Mamba2
+        blocks' final states into the view's slot."""
+        k, v = out["kv"]
+        view.write_kv(k, v, hist)
+        conv, ssm = out["mamba_states"]
+        view.write_states({"conv": conv, "ssm": ssm})
+
+    def decode_hidden(self, hidden):
+        """The attention blocks' stack (n_super, B, 1, D) of a decode
+        step's (mamba_hidden, attn_hidden)."""
+        return hidden[1]
+
+    def decode_layers(self, n_rows: int):
+        """Row ``s`` of the attention stack is global layer s·k + k-1."""
+        k = self.model.h.k
+        return [s * k + k - 1 for s in range(n_rows)]
+
+    def kv_row(self, li: int) -> int:
+        return li // self.model.h.k
+
+    def prefill_hidden(self, out: dict, li: int) -> torch.Tensor:
+        return out["attn_hidden"][self.kv_row(li)][0]

@@ -5,8 +5,11 @@ value tree as numpy arrays (or anything ``np.asarray`` takes) and returns
 the port's parameter dict: same tree, layer stacks kept stacked, the table
 with its padded vocabulary. The ``lm`` tree (dense blocks' ``mlp``, or
 the MoE blocks' ``moe``: router (L, D, E), w_up and w_gate (L, E, D, F),
-w_down (L, E, F, D)) and the ``ssm`` (Mamba1) tree are taken; ``a_log`` stays fp32 whatever the model dtype,
-as the JAX package initialises it. Missing keys raise."""
+w_down (L, E, F, D)), the ``ssm`` (Mamba1) tree and the ``hybrid``
+tree (``mamba`` stacked (n_super, k-1, ...), ``attn`` blocks stacked
+(n_super, ...)) are taken; ``a_log`` (and Mamba2's ``dt_bias`` and
+``d_skip``) stay fp32 whatever the model dtype, as the JAX package
+initialises them. Missing keys raise."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,13 +50,19 @@ def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
     embed = {"table": take(("embed", "table"), (vp, D))}
     if not cfg.tie_embeddings:
         embed["unembed"] = take(("embed", "unembed"), (D, vp))
+    out = {"embed": embed, "final_norm": norm(("final_norm",), ())}
     if cfg.family == "ssm":
-        blocks = {"ln": norm(("blocks", "ln"), (L,)),
-                  "m": _mamba1(take, cfg)}
+        out["blocks"] = {"ln": norm(("blocks", "ln"), (L,)),
+                         "m": _mamba1(take, cfg)}
+    elif cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        lead = (L // k, k - 1)
+        out["mamba"] = {"ln": norm(("mamba", "ln"), lead),
+                        "m": _mamba2(take, cfg, lead)}
+        out["attn"] = _dense_blocks(take, norm, cfg, "attn", L // k)
     else:
-        blocks = _dense_blocks(take, norm, cfg)
-    return {"embed": embed, "blocks": blocks,
-            "final_norm": norm(("final_norm",), ())}
+        out["blocks"] = _dense_blocks(take, norm, cfg, "blocks", L)
+    return out
 
 
 def _mamba1(take, cfg: ArchConfig) -> dict:
@@ -69,8 +78,21 @@ def _mamba1(take, cfg: ArchConfig) -> dict:
     return m
 
 
-def _dense_blocks(take, norm, cfg: ArchConfig) -> dict:
-    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+def _mamba2(take, cfg: ArchConfig, lead: tuple) -> dict:
+    D, N = cfg.d_model, cfg.ssm_state
+    I = cfg.ssm_expand * D
+    H = I // cfg.ssm_headdim
+    C = I + 2 * N
+    shapes = {"in_proj": (D, 2 * I + 2 * N + H), "conv_w": (C, cfg.ssm_conv),
+              "conv_b": (C,), "gate_norm": (I,), "out_proj": (I, D)}
+    m = {k: take(("mamba", "m", k), lead + s) for k, s in shapes.items()}
+    for k in ("dt_bias", "a_log", "d_skip"):
+        m[k] = take(("mamba", "m", k), lead + (H,), torch.float32)
+    return m
+
+
+def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
     hd = cfg.head_dim_
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn_shapes = {"wq": (L, D, qd), "wk": (L, D, kvd), "wv": (L, D, kvd),
@@ -89,9 +111,9 @@ def _dense_blocks(take, norm, cfg: ArchConfig) -> dict:
             ffn_shapes["w_gate"] = (L, D, F)
     norms = ["ln1", "ln2"] + (["post_ln1", "post_ln2"]
                               if cfg.post_attn_norm else [])
-    blocks = {n: norm(("blocks", n), (L,)) for n in norms}
-    blocks["attn"] = {k: take(("blocks", "attn", k), s)
+    blocks = {n: norm((root, n), (L,)) for n in norms}
+    blocks["attn"] = {k: take((root, "attn", k), s)
                       for k, s in attn_shapes.items()}
-    blocks[ffn] = {k: take(("blocks", ffn, k), s)
+    blocks[ffn] = {k: take((root, ffn, k), s)
                    for k, s in ffn_shapes.items()}
     return blocks

@@ -1,4 +1,7 @@
-"""Mamba1 block (falcon-mamba), the ``ssm`` family's mixer.
+"""Mamba1 (falcon-mamba, the ``ssm`` family's mixer) and Mamba2/SSD
+(zamba2, the ``hybrid`` family's) blocks.
+
+Mamba1:
 
 The JAX package evaluates the selective scan as a chunked ``lax.scan``
 over materialised ``dA`` and ``dBx`` of shape (B, S, I, N). Here ``dt``,
@@ -10,8 +13,18 @@ in place, so nothing of size S·I·N exists (on the CPU the plain version
 steps token by token). Decode is the same call at S = 1 on the cache's
 state.
 
-The Mamba2 half of the JAX module (zamba2) belongs to the hybrid family
-and is not ported yet.
+Mamba2 is the SSD chunked form, as the JAX package computes it in jnp
+(no Pallas kernel there, so none here): within a chunk of ``chunk``
+tokens an attention-like product of C, B and the decay matrix L, then the
+chunks' states, a recurrence of length S/chunk over them, and their
+contribution to the outputs; a gated RMSNorm (eps 1e-6) closes the block.
+``dt``, ``A``, ``B``, ``C``, the states and the gate stay in fp32 whatever
+the model dtype. Decode is the same function at S = 1 on the cache's
+states, where the SSD's two sums over the state axis run as a fixed tree
+of elementwise adds (``norm.row_sum``) and its other products have a
+single term: a batched product picks its algorithm by the batch count,
+so a row decoded in a batch of four would not get the bits of the same
+row alone.
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers.norm import row_mean, row_sum
 from repro_torch.models.module import bias_param, dense_param, normal_init
 
 
@@ -111,3 +125,140 @@ def decode_mamba1_step(p: dict, x, h: Mamba1Hyper, *, conv_state,
     """Single-token decode. x (B,1,D); states as ``apply_mamba1`` returns
     them (``ssm_state`` is updated in place)."""
     return apply_mamba1(p, x, h, init_state=ssm_state, conv_state=conv_state)
+
+
+# ==================================================================== Mamba 2
+@dataclasses.dataclass(frozen=True)
+class Mamba2Hyper:
+    d_model: int
+    d_state: int
+    head_dim: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 128
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+def init_mamba2(gen: torch.Generator, h: Mamba2Hyper, dtype, device) -> dict:
+    """The JAX package's init: dt_bias the inverse softplus of 0.01,
+    a_log = log(1..H) and d_skip ones, all three fp32 whatever the model
+    dtype; the gate norm's scale ones."""
+    I, N, H, G = h.d_inner, h.d_state, h.n_heads, h.n_groups
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_param(gen, h.d_model, 2 * I + 2 * G * N + H, dtype,
+                               device),
+        "conv_w": normal_init(gen, (h.conv_channels, h.d_conv), dtype,
+                              h.d_conv ** -0.5, device),
+        "conv_b": bias_param(h.conv_channels, dtype, device),
+        "dt_bias": torch.log(torch.expm1(torch.full((H,), 0.01, **f32))),
+        "a_log": torch.log(torch.arange(1, H + 1, **f32)),
+        "d_skip": torch.ones((H,), **f32),
+        "gate_norm": torch.ones((I,), dtype=dtype, device=device),
+        "out_proj": dense_param(gen, I, h.d_model, dtype, device),
+    }
+
+
+def _ssd_chunk_tensors(xh, dt, Bm, Cm, Q: int):
+    """(B, S, ...) tensors -> per-chunk (B, S/Q, Q, ...) views for SSD."""
+    B, S = dt.shape[:2]
+    nc = S // Q
+    return (xh.reshape(B, nc, Q, *xh.shape[2:]), dt.reshape(B, nc, Q, -1),
+            Bm.reshape(B, nc, Q, *Bm.shape[2:]),
+            Cm.reshape(B, nc, Q, *Cm.shape[2:]), nc)
+
+
+def apply_mamba2(p: dict, x, h: Mamba2Hyper, *,
+                 init_state: Optional[torch.Tensor] = None,
+                 conv_state: Optional[torch.Tensor] = None):
+    """SSD chunked forward. x (B,S,D) -> (out (B,S,D), (conv_state
+    (B, W-1, I+2GN) in x's dtype, ssm_state (B, H, P, N) fp32)), from
+    ``init_state``/``conv_state`` when given, else from zero."""
+    B, S, _ = x.shape
+    I, N, H, P, G = h.d_inner, h.d_state, h.n_heads, h.head_dim, h.n_groups
+    proj = torch.matmul(x, p["in_proj"])
+    z, xBC, dt_raw = (proj[..., :I], proj[..., I:2 * I + 2 * G * N],
+                      proj[..., 2 * I + 2 * G * N:])
+    xBC, new_conv = causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC = F.silu(xBC)
+    xi, Bm, Cm = xBC[..., :I], xBC[..., I:I + G * N], xBC[..., I + G * N:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])              # (B,S,H)
+    A = -torch.exp(p["a_log"])                                  # (H,)
+
+    Q = min(h.chunk, S)
+    padS = (Q - S % Q) % Q
+    if padS:
+        xi, Bm, Cm, dt = (F.pad(t, (0, 0, 0, padS)) for t in (xi, Bm, Cm, dt))
+    Sp = S + padS
+    xh = xi.reshape(B, Sp, H, P)
+    Bg = Bm.reshape(B, Sp, G, N).float()
+    Cg = Cm.reshape(B, Sp, G, N).float()
+    xh_c, dt_c, B_c, C_c, nc = _ssd_chunk_tensors(xh, dt, Bg, Cg, Q)
+
+    a = dt_c * A                                          # (B,nc,Q,H) <= 0
+    a_cs = torch.cumsum(a, dim=2)
+    a_total = a_cs[:, :, -1, :]                           # (B,nc,H)
+
+    # intra-chunk: L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j
+    seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]  # (B,nc,Q,Q,H)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                    torch.zeros((), device=x.device))
+    if Q == 1:          # decode: the sum over n in a fixed order
+        scores = row_sum(C_c * B_c)[:, :, :, None, :]
+    else:
+        scores = torch.einsum("bcqgn,bckgn->bcqkg", C_c, B_c)  # (B,nc,Q,Q,G)
+    dx = dt_c[..., None] * xh_c.float()                    # (B,nc,Q,H,P)
+    M = torch.repeat_interleave(scores, H // G, dim=-1) * L
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", M, dx)
+
+    # chunk states and the inter-chunk recurrence
+    decay_to_end = torch.exp(a_total[:, :, None, :] - a_cs)  # (B,nc,Q,H)
+    state_c = torch.einsum("bcqgn,bcqhp->bchpn", B_c,
+                           dx * decay_to_end[..., None])    # (B,nc,H,P,N)
+    hs = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    decay = torch.exp(a_total)
+    prev = []
+    for c in range(nc):
+        prev.append(hs)
+        hs = decay[:, c, :, None, None] * hs + state_c[:, c]
+    h_prev = torch.stack(prev, dim=1)                      # (B,nc,H,P,N)
+
+    if Q == 1:          # the sum over (g, n) in a fixed order
+        Cf = C_c.reshape(B, nc, 1, 1, 1, G * N)
+        hf = h_prev[:, :, None, :, :, None, :].expand(
+            B, nc, 1, H, P, G, N).reshape(B, nc, 1, H, P, G * N)
+        y_inter = row_sum(Cf * hf)
+    else:
+        y_inter = torch.einsum("bcqgn,bchpn->bcqhp", C_c, h_prev)
+    y_inter = y_inter * torch.exp(a_cs)[..., None]
+    y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
+    y = y + xh[:, :S].float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(B, S, I)
+    # gated RMSNorm (mamba2's norm before the gate)
+    y = y * F.silu(z.float())
+    var = row_mean(torch.square(y))
+    y = (y * torch.reciprocal(torch.sqrt(var + 1e-6))
+         * p["gate_norm"].float())
+    out = torch.matmul(y.to(x.dtype), p["out_proj"])
+    return out, (new_conv, hs)
+
+
+def decode_mamba2_step(p: dict, x, h: Mamba2Hyper, *, conv_state,
+                       ssm_state):
+    """Single-token decode. x (B,1,D); states as ``apply_mamba2`` returns
+    them. Returns (out, (conv_state, ssm_state)), new tensors."""
+    return apply_mamba2(p, x, h, init_state=ssm_state, conv_state=conv_state)

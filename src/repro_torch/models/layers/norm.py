@@ -13,12 +13,12 @@ def init_norm(kind: str, d: int, dtype, device) -> dict:
     return p
 
 
-def row_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the last axis by a fixed pairwise tree of elementwise
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a fixed pairwise tree of elementwise
     adds. A library reduction picks its summation order from the whole
     tensor's shape (how many rows share a launch), so the same row could
-    round differently in prefill, decode and restoration; this order
-    depends on the row alone."""
+    round differently in prefill, decode and restoration, or alone and in
+    a batch; this order depends on the row alone."""
     n = x.shape[-1]
     width = 1 << max(n - 1, 0).bit_length()
     if width != n:
@@ -26,7 +26,13 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     while x.shape[-1] > 1:
         half = x.shape[-1] // 2
         x = x[..., :half] + x[..., half:]
-    return x / n
+    return x[..., 0]
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis (keeping it, of size 1) in ``row_sum``'s
+    order."""
+    return row_sum(x)[..., None] / x.shape[-1]
 
 
 def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float):

@@ -1,9 +1,10 @@
 """Model facade for the ``lm`` families (the main path of this port):
 dense, MoE (granite-moe, grok-1: routed expert FFNs) and VLM (internvl2:
 patch embeddings at the head of a prompt, ``batch["patches"]``), all
-served by the transformer stack and ``LMAdapter``; and for the
-attention-free ``ssm`` family (falcon-mamba). The hybrid and
-encoder-decoder families are not ported and raise.
+served by the transformer stack and ``LMAdapter``; for the
+attention-free ``ssm`` family (falcon-mamba); and for the ``hybrid``
+family (zamba2: Mamba2 blocks with an attention block every k). The
+encoder-decoder family is not ported and raises.
 
 ``Model`` resolves the device and hyper-parameters and delegates compute
 to its family adapter (models/adapter.py):
@@ -15,8 +16,9 @@ to its family adapter (models/adapter.py):
     decode_step_full(...)               -> (logits, cache, hidden states)
     decode_step_paged(...)              -> the same over a paged KV pool
                                            (lm only)
-    restore_kv_from_hidden(...)         -> the paper's restoration op (lm)
-    restore_ssm_states(...)             -> ssm-rescan (ssm)
+    restore_kv_from_hidden(...)         -> the paper's restoration op (lm,
+                                           hybrid's attention blocks)
+    restore_ssm_states(...)             -> ssm-rescan (ssm, hybrid)
     init_cache / init_paged_cache       -> zeroed serving caches
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; with no
@@ -31,7 +33,8 @@ import torch
 
 from repro_torch.config.arch import ArchConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.adapter import LMAdapter, SSMAdapter
+from repro_torch.models.adapter import HybridAdapter, LMAdapter, SSMAdapter
+from repro_torch.models.hybrid import HybridHyper
 from repro_torch.models.ssm import SSMHyper
 
 LM_FAMILIES = ("dense", "moe", "vlm")
@@ -61,6 +64,10 @@ class Model:
             self.h = SSMHyper(cfg=cfg, dtype=dtype)
             self.kind = "ssm"
             self.adapter = SSMAdapter(self)
+        elif cfg.family == "hybrid":
+            self.h = HybridHyper(cfg=cfg, dtype=dtype)
+            self.kind = "hybrid"
+            self.adapter = HybridAdapter(self)
         else:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet")
@@ -104,9 +111,27 @@ class Model:
     def init_cache(self, batch: int, ctx_len: int) -> dict:
         """Zeroed contiguous decode cache with lengths (batch,) int32: lm
         k/v (L, batch, ctx_len, Kv, hd); ssm conv (L, batch, W-1, I) in
-        the model dtype and ssm (L, batch, I, N) fp32 (no token axis)."""
+        the model dtype and ssm (L, batch, I, N) fp32 (no token axis);
+        hybrid attn_k/attn_v (n_super, batch, ctx_len, Kv, hd), conv
+        (n_super, k-1, batch, W-1, I+2N) in the model dtype and ssm
+        (n_super, k-1, batch, H, P, N) fp32."""
         c = self.cfg
         lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        if self.kind == "hybrid":
+            h, m = self.h, self.h.mamba
+            kv = torch.zeros((h.n_super, batch, ctx_len, c.n_kv_heads,
+                              c.head_dim_), dtype=self.dtype,
+                             device=self.device)
+            lead = (h.n_super, h.k - 1, batch)
+            return {"attn_k": kv, "attn_v": torch.zeros_like(kv),
+                    "conv": torch.zeros(lead + (m.d_conv - 1,
+                                                m.conv_channels),
+                                        dtype=self.dtype, device=self.device),
+                    "ssm": torch.zeros(lead + (m.n_heads, m.head_dim,
+                                               m.d_state),
+                                       dtype=torch.float32,
+                                       device=self.device),
+                    "lengths": lengths}
         if self.kind == "ssm":
             m = self.h.mamba
             return {"conv": torch.zeros((c.n_layers, batch, m.d_conv - 1,

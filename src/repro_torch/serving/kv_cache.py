@@ -6,7 +6,10 @@ in a ``KVCacheBackend``:
   * ``ContiguousBackend`` — every batch slot owns ``max_seq`` contiguous
     positions of a stacked ``(L, B, Smax, Kv, hd)`` buffer; for an ``ssm``
     model, a row of the recurrent-state buffers ``conv (L, B, W-1, I)``
-    and ``ssm (L, B, I, N)`` instead;
+    and ``ssm (L, B, I, N)`` instead; for a ``hybrid`` model both: the
+    attention blocks' ``attn_k``/``attn_v`` (n_super, B, Smax, Kv, hd) and
+    the Mamba2 blocks' ``conv``/``ssm`` (n_super, k-1, B, ...), whose
+    batch axis is the third;
   * ``PagedBackend``      — block tables over a physical page pool
     ``(L, num_blocks, block_size, Kv, hd)`` plus a ``BlockAllocator``
     free list. A slot reserves only the pages its session can use, so
@@ -17,7 +20,7 @@ Consumers all go through a slot-bound ``CacheView`` handle:
     view.write_layer(row, k, v, start)        one restored layer
     view.write_layer_group(rows, k, v, start) a restoration group
     view.write_kv(k, v, start)                stacked prefill K/V
-    view.write_states(piece)                  ssm conv/ssm states
+    view.write_states(piece)                  recurrent conv/ssm states
     view.gather_hist(hist)                    history K/V for a prefill
     view.snapshot()                           B=1 dict for a pause dump
     view.set_length(n)                        live-length bookkeeping
@@ -163,8 +166,10 @@ class CacheView:
         raise NotImplementedError
 
     def write_states(self, piece: dict) -> None:
-        """Whole recurrent states of an ssm model into this view's slot:
-        ``conv`` (L, 1, W-1, I) and ``ssm`` (L, 1, I, N)."""
+        """Whole recurrent states into this view's slot: ``conv`` and
+        ``ssm`` with a batch axis of one where the backend's buffers have
+        their batch axis (ssm (L, 1, ...), hybrid (n_super, k-1, 1,
+        ...))."""
         raise NotImplementedError(
             f"the {type(self).__name__} holds no recurrent states")
 
@@ -287,8 +292,9 @@ class _ContiguousView(CacheView):
         self.slot = slot
 
     def write_states(self, piece):
+        at = (slice(None),) * self.b.state_axis
         for key in ("conv", "ssm"):
-            self.b.state[key][:, self.slot] = piece[key][:, 0]
+            self.b.state[key][at + (self.slot,)] = piece[key][at + (0,)]
 
     def write_layer(self, row, k, v, start=0):
         n = k.shape[1]
@@ -306,7 +312,10 @@ class _ContiguousView(CacheView):
 
     def snapshot(self):
         i = self.slot
-        return {name: t[:, i:i + 1] for name, t in self.b.bufs.items()}
+        out = {name: t[:, i:i + 1] for name, t in self.b.bufs.items()}
+        at = (slice(None),) * self.b.state_axis + (slice(i, i + 1),)
+        out.update((key, t[at]) for key, t in self.b.state.items())
+        return out
 
     def set_length(self, n):
         self.b.set_length(self.slot, n)
@@ -319,7 +328,9 @@ class ContiguousBackend(KVCacheBackend):
     """``max_seq`` contiguous positions per slot; a reservation always
     costs ``max_seq`` capacity, whatever the session's true length. An
     ``ssm`` model's slot holds its recurrent states (``state``) instead of
-    K/V; a decode step leaves the states of inactive slots as they were."""
+    K/V, a ``hybrid`` model's both (its states' batch axis is
+    ``state_axis``, 2, behind the super-block and block axes); a decode
+    step leaves the states of inactive slots as they were."""
 
     name = "contiguous"
 
@@ -328,11 +339,13 @@ class ContiguousBackend(KVCacheBackend):
         self.max_batch = max_batch
         self.max_seq = max_seq
         cache = model.init_cache(max_batch, max_seq)
-        self.bufs = {name: t for name, t in cache.items()
-                     if name != "lengths"}
-        self.k, self.v = cache.get("k"), cache.get("v")
         self.state = {key: cache[key] for key in ("conv", "ssm")
                       if key in cache}
+        self.state_axis = 2 if model.kind == "hybrid" else 1
+        self.bufs = {name: t for name, t in cache.items()
+                     if name != "lengths" and name not in self.state}
+        k_name, v_name = model.adapter.kv_names or (None, None)
+        self.k, self.v = cache.get(k_name), cache.get(v_name)
         self.lengths_np = np.zeros((max_batch,), np.int64)
         self._reserved = [0] * max_batch
 
@@ -353,13 +366,15 @@ class ContiguousBackend(KVCacheBackend):
 
     def decode(self, params, tokens, active=None):
         tok, lengths = self._upload(tokens, self.lengths_np)
-        cache = dict(self.bufs, lengths=lengths.to(torch.int32))
+        cache = dict(self.bufs, **self.state,
+                     lengths=lengths.to(torch.int32))
         idle = ([] if active is None or not self.state
                 else np.nonzero(~np.asarray(active, bool))[0].tolist())
-        kept = {key: t[:, idle] for key, t in self.state.items() if idle}
+        at = (slice(None),) * self.state_axis + (idle,)
+        kept = {key: t[at] for key, t in self.state.items() if idle}
         lg, _, hidden = self.model.decode_step_full(params, cache, tok)
         for key, t in kept.items():
-            self.state[key][:, idle] = t
+            self.state[key][at] = t
         self.lengths_np += 1
         return lg, hidden
 
