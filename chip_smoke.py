@@ -44,9 +44,13 @@ Needs one CUDA GPU and the repository checkout around this file. It
      with bias) and gemma2-9b (hd 256, window 4096, softcap 50) give
      them, and at the shapes of granite-moe-1b-a400m (hd 64, G = 2, K/V
      512 wide), internvl2-26b (D 6144, G = 6, K/V 1024 wide) and
-     grok-1-314b (softcap 30) (``MODEL_RESTORE``, ``MODEL_DECODE``,
-     ``MODEL_FLASH``): each against its plain version, timed beside its
-     bound and SDPA or ``torch.matmul``;
+     grok-1-314b (softcap 30), and whisper-medium's (#1 the cross
+     projection G=24 S=4096 D=KV=1024 without RoPE, #3/#4 a cross step
+     over 750-4096 keys per row, #5 non-causal: the encoder at 1500 and
+     4096 frames, a 448-token chunk over 1500) (``MODEL_RESTORE``,
+     ``MODEL_DECODE``, ``MODEL_FLASH``, ``MODEL_FLASH_FULL``): each
+     against its plain version, timed beside its bound and SDPA or
+     ``torch.matmul``;
   3. serves the smoke configs (``reduced_for_smoke``: 4 layers, hd 16)
      through ``launch/serve.py`` on the card in bf16, without ``--full``:
      llama2-7b on the contiguous and the paged backend (4 sessions x 2
@@ -56,7 +60,9 @@ Needs one CUDA GPU and the repository checkout around this file. It
      and qwen2-7b,
      qwen2.5-14b, starcoder2-15b, gemma2-9b, granite-moe-1b-a400m,
      grok-1-314b and internvl2-26b (2 sessions x 2 rounds; qwen2-7b,
-     gemma2-9b and granite on both backends, internvl paged); then
+     gemma2-9b and granite on both backends, internvl paged) and
+     whisper-medium (``--enc-seq 64``, 2 sessions x 2 rounds, both
+     backends); then
      qwen2-7b again on a
      store of two layer-striped hosts (``--hosts 2``), which must report
      a per-link restore load and give the one-host serve's tokens;
@@ -148,7 +154,25 @@ Needs one CUDA GPU and the repository checkout around this file. It
      pass over its session's own prompt and tokens, so every token is that
      pass's greedy choice; every retired session's restore bitwise equal
      to its K/V and states at retire);
- 10. checks that each path launched its kernels (counts reset before and
+ 10. frees it and drives the enc-dec path: whisper-medium (24 encoder
+     and 24 decoder layers, d=1024) at full size in bf16 through the
+     lifecycle (sessions of 1500, 3000 and 4096 frames with 448-, 256-
+     and 128-token prompts: 16 decode tokens saved, pause, evict,
+     restore: the self K/V bitwise equal to the live cache on every
+     token, the cross K/V bitwise equal to the prefill's, 8 tokens MATCH
+     against the never-evicted cache, then a 64-token round 1 over each
+     cache giving the same tokens; session 0 all-hidden, the others
+     planned; the enc blob's bytes printed beside the cross K/V's) and
+     through the engine on both backends (6 sessions x 2 rounds over 4
+     slots, ``enc_seq`` 4096, frames of 750/1500/3000/4096 positions in
+     turn, prompts of 128-448 tokens, mid-stream preemption): the same
+     tokens on both, every restore's self K/V bitwise equal to its
+     snapshot and its cross K/V to its prefill's, every prefill running
+     the flash kernel twice per decoder layer (and once per encoder
+     layer on a first chunk) and every decode step the decode kernels
+     twice per decoder layer (self and cross), every request against the
+     encoder and one plain decoder forward over its stream;
+ 11. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
      the card, the kernels' JSON line and the device line last.
@@ -1019,6 +1043,9 @@ MODEL_RESTORE = {    # name: (G, S, D, KV, hd, bias)
     "internvl2-26b restore": (8, 1024, 6144, 1024, 128, False),
     "granite-moe-1b restore": (8, 1024, 1024, 512, 64, False),
     "zamba2-2.7b restore": (9, 1024, 2560, 2560, 80, False),
+    # the cross projection: every decoder layer's cross K/V from one
+    # 4096-frame encoder output, copied to the 24 group rows
+    "whisper-medium cross projection": (24, 4096, 1024, 1024, 64, False),
 }
 MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
     "qwen2-7b engine step": (4, 4, 7, 128, (2300, 1537, 777, 2049), 2560,
@@ -1032,6 +1059,9 @@ MODEL_DECODE = {     # name: (B, Kv, G, hd, lens, Smax, window, softcap)
     "grok-1-314b step": (1, 8, 6, 128, (1296,), 1304, None, 30.0),
     "zamba2-2.7b engine step": (4, 32, 1, 80, (1040, 272, 784, 528), 1088,
                                 None, None),
+    # cross-attention at decode: each row's enc_len live, enc_seq 4096
+    "whisper-medium cross step": (4, 16, 1, 64, (750, 1500, 3000, 4096),
+                                  4096, None, None),
 }
 MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "qwen2-7b 1024 self": (0, 1024, 28, 4, 128, None, None),
@@ -1044,11 +1074,17 @@ MODEL_FLASH = {      # name: (history, Sq, H, Kv, hd, window, softcap)
     "grok-1-314b 1024 self": (0, 1024, 48, 8, 128, None, 30.0),
     "zamba2-2.7b 1024 self": (0, 1024, 32, 32, 80, None, None),
 }
+MODEL_FLASH_FULL = {  # name: (Sq, Skv, H, Kv, hd); non-causal, no offset
+    "whisper-medium encoder 1500": (1500, 1500, 16, 16, 64),
+    "whisper-medium encoder 4096": (4096, 4096, 16, 16, 64),
+    "whisper-medium cross prefill 448 over 1500": (448, 1500, 16, 16, 64),
+}
 
 
 def time_model_shapes(card):
-    """Kernels #1, #3, #4 and #5 at MODEL_RESTORE, MODEL_DECODE and
-    MODEL_FLASH: each held against its plain version (paged decode
+    """Kernels #1, #3, #4 and #5 at MODEL_RESTORE, MODEL_DECODE,
+    MODEL_FLASH and (#5 non-causal) MODEL_FLASH_FULL: each held against
+    its plain version (paged decode
     bitwise equal to contiguous; a restored row alone bitwise equal to
     its group launch), then timed beside its bound and a PyTorch
     yardstick (SDPA applies no softcap: its time at gemma2-9b's and
@@ -1066,22 +1102,24 @@ def time_model_shapes(card):
     for name, (G, S, D, KV, hd, bias) in MODEL_RESTORE.items():
         args = restore_case(G, S, D, KV, hd, G, list(range(G)), bias,
                             torch.bfloat16, gen)
-        k, v = rkv.restore_kv_grouped_cuda(*args, head_dim=hd)
+        # the cross projection applies no RoPE
+        kw = dict(head_dim=hd, use_rope=not name.endswith("cross projection"))
+        k, v = rkv.restore_kv_grouped_cuda(*args, **kw)
         torch.cuda.synchronize()
-        pk, pv = rkv.restore_kv_grouped_plain(*args, head_dim=hd)
+        pk, pv = rkv.restore_kv_grouped_plain(*args, **kw)
         err = max(check_close(f"{name} K", k, pk, "bf16"),
                   check_close(f"{name} V", v, pv, "bf16"))
-        check_row_invariance(rkv, args, (k, v), hd)
+        check_row_invariance(rkv, args, (k, v), hd, kw["use_rope"])
         del pk, pv
         w_cat = torch.cat([args[1], args[2]], -1)
-        ms = time_ms(lambda: rkv.restore_kv_grouped_cuda(*args, head_dim=hd),
-                     20)
+        ms = time_ms(lambda: rkv.restore_kv_grouped_cuda(*args, **kw), 20)
         lib_ms = time_ms(lambda: torch.matmul(args[0], w_cat), 20)
         bound_ms, bound_by = bound(
             2 * G * S * D * 2 * KV,
             2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV
                  + (2 * G * KV if bias else 0)) + 2 * 4 * S * hd // 2, card)
-        print(f"{name} G={G} S={S} D={D} KV={KV} hd={hd} bias={bias} bf16: "
+        print(f"{name} G={G} S={S} D={D} KV={KV} hd={hd} bias={bias} "
+              f"rope={kw['use_rope']} bf16: "
               f"max_abs_err {err:.3g}, rows alone bitwise equal; kernel "
               f"{ms:.4f} ms (CUDA events), torch.matmul K|V yardstick "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -1178,6 +1216,39 @@ def time_model_shapes(card):
             "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
         del q, k, v, qs, ks, vs, mask
+    for name, (Sq, Skv, H, Kv, hd) in MODEL_FLASH_FULL.items():
+        q, k, v = flash_case(1, Sq, Skv, H, Kv, hd, torch.bfloat16, gen)
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kl = torch.tensor([Skv], dtype=torch.int32, device="cuda")
+        kw = dict(causal=False)
+        got = fa.flash_attention_cuda(q, k, v, off, kl, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"flash {name}", got,
+                          fa.flash_attention_plain(q, k, v, off, kl, **kw),
+                          "bf16", fa.flash_p_rounding_bound(q, k, v, off, kl,
+                                                            **kw))
+        if not torch_equal(got, fa.flash_attention_cuda(q, k, v, off, kl,
+                                                        **kw)):
+            raise AssertionError(f"flash {name}: not deterministic")
+        ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl,
+                                                      **kw), n=10)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=False), n=10)
+        flops = 4 * hd * H * Sq * Skv
+        nbytes = 2 * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8
+        bound_ms, bound_by = bound(flops, nbytes, card)
+        print(f"flash {name} H={H} Kv={Kv} hd={hd} non-causal bf16: "
+              f"max_abs_err {err:.3g}, deterministic; kernel {ms:.4f} ms, "
+              f"SDPA (is_causal=False) {lib_ms:.4f} ms (CUDA graphs of 10), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} "
+              "GFLOP)")
+        out["flash_attention"].append({
+            "shape": name, "hist": 0, "Sq": Sq, "Skv": Skv, "H": H,
+            "Kv": Kv, "hd": hd, "causal": False, "max_abs_err": err,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+        del q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
     return out
 
@@ -1769,9 +1840,14 @@ def engine_classes():
     planner (recompute prefix + hidden); every pause or retire snapshots
     the session's K/V [0, n) on the card and its conv and ssm states (ssm,
     hybrid), and every completed restore is held against the last
-    snapshot bitwise; every prefill and decode step counts its kernel
-    launches: the flash and decode kernels once per attention layer (lm,
-    hybrid) or the state-update scan once per layer (ssm)."""
+    snapshot bitwise (an enc-dec session's cross K/V also against what
+    its first prefill wrote); every prefill and decode step counts its
+    kernel launches: the flash and decode kernels once per attention
+    layer (lm, hybrid), the state-update scan once per layer (ssm), or
+    for an enc-dec model the flash kernel twice per decoder layer (self
+    and cross) plus once per encoder layer on a first chunk, and the
+    decode kernels twice per decoder layer (self: #3, or #4 paged; cross:
+    #3)."""
     import torch
     from repro_torch.config.arch import BlockKind
     from repro_torch.core.hcache import HCacheManager
@@ -1779,6 +1855,7 @@ def engine_classes():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_update as ssu
     from repro_torch.serving import InferenceEngine, Phase
+    from repro_torch.serving.kv_cache import PagedBackend
 
     class Manager(HCacheManager):
         all_hidden = False
@@ -1819,6 +1896,15 @@ def engine_classes():
             decode = self.kv.decode
 
             ssm = self.model.kind == "ssm"
+            encdec = self.model.adapter.has_cross
+            paged = isinstance(self.kv, PagedBackend)
+            # decode launches (contiguous #3, paged #4) of one step
+            per_step = ((L,) if ssm else (L, L) if encdec and paged
+                        else (2 * L, 0) if encdec else (0, L) if paged
+                        else (L, 0))
+            # an enc-dec session's cross K/V as its first prefill wrote
+            # them, against which its restores are held
+            self.cross_refs = {}
 
             def save_and_snapshot(session, cache, n_tokens, **kw):
                 # (k, v) of the attention layers, then (conv, ssm)
@@ -1833,17 +1919,25 @@ def engine_classes():
                 return ssu.launches if ssm else fa.launches
 
             def decode_launches():
-                return (ssu.launches if ssm else dec.paged_launches
-                        if self.kv.name == "paged" else dec.launches)
+                return ((ssu.launches,) if ssm
+                        else (dec.launches, dec.paged_launches))
 
             def counted_prefill(params, seq, chunk, hist, *args, **kw):
                 before = prefill_launches()
                 out = prefill(params, seq, chunk, hist, *args, **kw)
                 self.prefill_segs.setdefault(
                     seq.request.session_id, []).append((hist, len(chunk)))
-                if prefill_launches() - before != L:
-                    raise AssertionError("a prefill did not run its kernel "
-                                         "once per layer")
+                want = L
+                if encdec:
+                    want = 2 * L + (0 if hist else
+                                    self.model.cfg.encoder_layers)
+                if encdec and not hist:
+                    self.cross_refs[seq.request.session_id] = tuple(
+                        t.clone() for t in out["cross_kv"])
+                if prefill_launches() - before != want:
+                    raise AssertionError(f"a prefill launched its kernel "
+                                         f"{prefill_launches() - before} "
+                                         f"times, not {want}")
                 self.last_logits = out["logits"][0, -1:]
                 self.prefills += 1
                 return out
@@ -1851,9 +1945,11 @@ def engine_classes():
             def counted_decode(*args, **kw):
                 before = decode_launches()
                 out = decode(*args, **kw)
-                if decode_launches() - before != L:
-                    raise AssertionError(f"a {self.kv.name} decode step did "
-                                         "not run its kernel once per layer")
+                got = tuple(a - b for a, b in zip(decode_launches(), before))
+                if got != per_step:
+                    raise AssertionError(f"a {self.kv.name} decode step "
+                                         f"launched {got} (contiguous, "
+                                         f"paged), not {per_step}")
                 self.last_logits = out[0][:, -1]
                 self.decodes += 1
                 return out
@@ -1942,6 +2038,13 @@ def engine_classes():
                                 f"{self.kv.name}: restored {m} layer {li} "
                                 f"of {sid} ({s.history_len} tokens) "
                                 "differs from its K/V before the pause")
+                if sid in self.cross_refs:
+                    ck, cv, _ = s.view.cross_state()
+                    rk, rv = self.cross_refs[sid]
+                    if not (torch.equal(ck, rk) and torch.equal(cv, rv)):
+                        raise AssertionError(
+                            f"{self.kv.name}: the restored cross K/V of "
+                            f"{sid} differ from its prefill's")
                 self.checked.append((sid, s.history_len, set(methods)))
 
     return Manager, Engine
@@ -1984,12 +2087,19 @@ def check_int8_restore(mgr, params, sid, methods, n, k, v):
     return err, len(idx)
 
 
-def plain_logits(model, params, toks):
-    """Logits at every position of one B=1 forward over ``toks``."""
-    from repro_torch.models import ssm
+def plain_logits(model, params, toks, frames=None):
+    """Logits at every position of one B=1 forward over ``toks``; for an
+    enc-dec model the encoder over ``frames`` (numpy (S_enc, D)) first."""
+    import torch
+    from repro_torch.models import encdec, ssm
     from repro_torch.models import transformer as tfm
     if model.kind == "ssm":
         return ssm.ssm_forward(params, toks, model.h)["logits"]
+    if model.kind == "encdec":
+        f = torch.from_numpy(frames).to(model.device)[None]
+        enc_out, _ = encdec.encode(params, f, model.h)
+        return encdec.decode_prefill(params, toks, enc_out,
+                                     model.h)["logits"]
     return tfm.lm_forward(params, toks, model.h)["logits"]
 
 
@@ -2028,7 +2138,7 @@ def segment_logits(model, params, toks, prefills):
 
 
 def check_against_plain(model, params, requests, plain, ungated=(),
-                        histories=None, segments=None):
+                        histories=None, segments=None, frames=None):
     """Hold an engine run against a plain computation on the same
     weights. ``requests[(rnd, sid)] = (prompt, generated, the logits
     that sampled each generated token)``. The plain logits come from one B=1 forward over the
@@ -2043,7 +2153,9 @@ def check_against_plain(model, params, requests, plain, ungated=(),
     returned as ``ungated`` and ``ungated_gap``. ``histories`` gives the
     stream a session starts from (a fork's: its source's at the fork).
     ``segments`` (a MoE model's) gives each session's prefill chunks: the
-    plain computation then follows them (``segment_logits``)."""
+    plain computation then follows them (``segment_logits``). ``frames``
+    gives an enc-dec session's frame embeddings, which the plain forward
+    encodes first."""
     import torch
     history = dict(histories or {})
     worst = {"cold": 0.0, "restored": 0.0, "decode": 0.0, "gap": 0.0,
@@ -2058,7 +2170,9 @@ def check_against_plain(model, params, requests, plain, ungated=(),
         history[sid] = stream
         if key not in plain:
             toks = torch.tensor(stream, device=model.device)[None]
-            logits = (plain_logits(model, params, toks) if segments is None
+            logits = (plain_logits(model, params, toks,
+                                   None if frames is None else frames[sid])
+                      if segments is None
                       else segment_logits(model, params, toks,
                                           segments[sid]))
             plain[key] = logits[0, len(stream) - len(gen):, :V].float()
@@ -2110,7 +2224,8 @@ def hold_against_plain(name, model, params, run, plain, segments=None):
     requests = run.pop("requests")
     ungated = run.get("ungated", ())
     worst = check_against_plain(model, params, requests, plain, ungated,
-                                run.get("histories"), segments)
+                                run.get("histories"), segments,
+                                run.get("frames"))
     what = ("the plain forward" if segments is None else
             "the plain forward over each session's segments")
     print(f"{name} against {what} ({len(requests)} requests, "
@@ -2182,7 +2297,7 @@ def budget_capacity(mgr, eng, budget):
 def run_engine(model, params, backend: str, *, phased=True, profile=None,
                group=8, restore_tasks=8, budget=None,
                prompts=ENGINE_PROMPTS, round1=ROUND1_TOKENS,
-               max_seq=ENGINE_MAX_SEQ):
+               max_seq=ENGINE_MAX_SEQ, frames=None, enc_seq=None):
     """A session per round-0 prompt of ``prompts`` (6 unless given) x 2
     rounds (round 1 ``round1`` tokens) through the continuous-batching
     engine on ``backend``; returns tokens, metrics, what was checked and,
@@ -2190,7 +2305,9 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     phase between synchronisations; ``profile`` (a ``MeasuredProfile``)
     and ``group`` are the manager's calibration and group plan;
     ``restore_tasks`` the restore tasks each engine step runs; ``budget``
-    the hot-tier bytes of a ``CapacityManager`` (``budget_capacity``)."""
+    the hot-tier bytes of a ``CapacityManager`` (``budget_capacity``);
+    ``frames`` an enc-dec model's frame embeddings per session (numpy,
+    round 0 only) and ``enc_seq`` its slots' encoder positions."""
     import numpy as np
     import torch
     from repro_torch.serving import Request
@@ -2202,7 +2319,8 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
                  max_seq=max_seq, prefill_chunk=ENGINE_CHUNK,
                  preempt_quantum=ENGINE_QUANTUM, backend=backend,
-                 restore_tasks_per_step=restore_tasks, phased=phased)
+                 restore_tasks_per_step=restore_tasks, phased=phased,
+                 enc_seq=enc_seq)
     cap = None
     if budget is not None:
         cap = budget_capacity(mgr, eng, budget)
@@ -2222,8 +2340,10 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
         for s, n0 in enumerate(prompts):
             n = n0 if rnd == 0 else round1
             prompt = rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
-            seqs.append(eng.submit(Request(f"s{s}", prompt,
-                                           max_new_tokens=DECODE_TOKENS)))
+            seqs.append(eng.submit(Request(
+                f"s{s}", prompt, max_new_tokens=DECODE_TOKENS,
+                frames=frames[s] if frames is not None and rnd == 0
+                else None)))
         eng.run()
         for seq in seqs:
             sid = seq.request.session_id
@@ -2267,7 +2387,9 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     methods = set().union(*(c[2] for c in eng.checked)) if eng.checked \
         else set()
     res = {"tokens": tokens, "metrics": m, "wall": wall,
-           "segments": eng.prefill_segs,
+           "segments": eng.prefill_segs, "crosses": len(eng.cross_refs),
+           "frames": (None if frames is None else
+                      {f"s{i}": f for i, f in enumerate(frames)}),
            "checked": len(eng.checked), "methods": methods,
            "prefills": eng.prefills, "decodes": eng.decodes,
            "profile": profile, "bytes_peak": eng.bytes_peak,
@@ -2477,8 +2599,10 @@ def label(model) -> str:
     return "" if name == "llama2-7b" else f"{name} "
 
 
-def check_engine(con, pag, prefix=""):
-    """Both backends' runs agree and exercised what the phase is for."""
+def check_engine(con, pag, prefix="", methods=("hidden", "recompute")):
+    """Both backends' runs agree and exercised what the phase is for:
+    preemption, restores, and restores of layers under each of
+    ``methods`` checked."""
     if con["tokens"] != pag["tokens"]:
         bad = [k for k in con["tokens"] if con["tokens"][k] != pag["tokens"][k]]
         raise AssertionError(f"paged and contiguous tokens differ for {bad}")
@@ -2486,9 +2610,9 @@ def check_engine(con, pag, prefix=""):
         m = r["metrics"]
         if m.preemptions <= 0 or m.restored_tokens <= 0:
             raise AssertionError(f"{name}: no preemption or no restore")
-        if r["checked"] <= 0 or not {"hidden", "recompute"} <= r["methods"]:
-            raise AssertionError(f"{name}: restores of hidden and recompute "
-                                 "layers were not both checked")
+        if r["checked"] <= 0 or not set(methods) <= r["methods"]:
+            raise AssertionError(f"{name}: restores of {methods} layers "
+                                 "were not all checked")
     if not (pag["metrics"].reserved_tokens_peak
             < con["metrics"].reserved_tokens_peak):
         raise AssertionError("paged reserved no less than contiguous")
@@ -2917,6 +3041,218 @@ def check_hybrid_engine(model, params, requests):
     return n
 
 
+# ------------------------------------------------------------ enc-dec path
+ENCDEC_ARCH = "whisper-medium"
+# (encoder frames, decoder prompt tokens) of the lifecycle's sessions:
+# whisper's 30 s window, twice it, and the cell's longest context
+ENCDEC_SESSIONS = ((1500, 448), (3000, 256), (4096, 128))
+ENCDEC_ROUND1 = 64
+ENCDEC_ENC_SEQ = 4096
+# the engine's sessions: encoder lengths cycle over 750/1500/3000/4096,
+# so that every decode batch mixes enc_len; decoder prompts of 128-448
+ENCDEC_ENGINE_FRAMES = (750, 1500, 3000, 4096, 750, 1500)
+ENCDEC_ENGINE_PROMPTS = (448, 128, 256, 384, 192, 320)
+ENCDEC_ENGINE_MAX_SEQ = 576      # 448 + 16 + 64 + 16 tokens fit, in pages
+
+
+def encdec_frames(model, n: int, seed: int):
+    """(n, D) frame embeddings on the host: seeded normals x 0.1, fp32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, model.cfg.d_model)) * 0.1).astype(
+        np.float32)
+
+
+def encdec_cache(model, out, capacity):
+    """A B=1 decode cache of ``capacity`` decoder positions holding an
+    enc-dec prefill's self K/V and its cross K/V (enc_seq = its encoder
+    length)."""
+    import torch
+    ck, cv = out["cross_kv"]
+    cache = model.init_cache(1, capacity, enc_seq=ck.shape[2])
+    n = out["kv"][0].shape[2]
+    cache["self_k"][:, :, :n] = out["kv"][0]
+    cache["self_v"][:, :, :n] = out["kv"][1]
+    cache["cross_k"].copy_(ck)
+    cache["cross_v"].copy_(cv)
+    cache["enc_len"][:] = ck.shape[2]
+    cache["lengths"] = torch.tensor([n], dtype=torch.int32,
+                                    device=model.device)
+    return cache
+
+
+def build_encdec_model():
+    """whisper-medium at full width and depth, bf16, random weights from
+    SEED, warmed by one short prefill (64 frames, 16 tokens) and decode
+    step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.module import count_params
+
+    cfg = get_arch(ENCDEC_ARCH)
+    model = Model(cfg, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    frames = torch.from_numpy(encdec_frames(model, 64, SEED)).to(
+        model.device)
+    out = model.prefill(params, {"tokens": torch.arange(
+        16, device=model.device)[None], "frames": frames[None]})
+    model.decode_step(params, encdec_cache(model, out, 17),
+                      greedy(out["logits"]))
+    n_params = count_params(params)
+    print(f"{ENCDEC_ARCH}: {cfg.encoder_layers} encoder and {cfg.n_layers} "
+          f"decoder layers, d={cfg.d_model}, {cfg.n_heads}x{cfg.head_dim_} "
+          f"heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e6:.1f} M params bf16 ({2 * n_params / 1e9:.2f} "
+          f"GB, the learned position table of 8192 rows included); init "
+          f"and warm-up {_sync_s(t0):.1f} s on {model.device}")
+    return model, params
+
+
+def run_encdec_lifecycle(model, params):
+    """A session per (frames, prompt) of ENCDEC_SESSIONS through the HCache
+    manager: prefill -> save (decoder hidden states, the encoder output
+    as the "enc" blob) -> DECODE_TOKENS decode steps, each step's hidden
+    states saved -> pause dump -> evict -> restore. The restored self K/V
+    equal the live cache bitwise on every token, the restored cross K/V
+    the prefill's bitwise; MATCH_TOKENS more tokens from the restored
+    cache against the never-evicted one (MATCH); then round 1,
+    ENCDEC_ROUND1 new tokens prefilled over each cache's history and cross
+    state and DECODE_TOKENS decoded, the same tokens from both. Session 0
+    is all-hidden, the others planned."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hcache import HCacheManager
+    from repro_torch.models import encdec
+    from repro_torch.storage import ChunkStore, make_array
+
+    store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
+    managers = [HCacheManager(model, store, schedule_override="hidden",
+                              restore_group_size=8),
+                HCacheManager(model, store, restore_group_size=8)]
+    rng = np.random.default_rng(SEED)
+    dev, c = model.device, model.cfg
+
+    def round1(cache, n_hist, toks):
+        return encdec.decode_prefill(
+            params, toks[None], None, model.h, capture_hidden=True,
+            emit_kv=True, final_logits_only=True,
+            hist_kv=(cache["self_k"][:, :, :n_hist],
+                     cache["self_v"][:, :, :n_hist]),
+            hist_len=n_hist, cross=(cache["cross_k"], cache["cross_v"]),
+            pos_offset=n_hist)
+
+    try:
+        for s, (n_enc, n0) in enumerate(ENCDEC_SESSIONS):
+            session, mgr = f"w{s}", managers[0 if s == 0 else 1]
+            plan = mgr.plan(n0)
+            toks = torch.from_numpy(rng.integers(0, c.vocab_size, n0)).to(dev)
+            frames = torch.from_numpy(
+                encdec_frames(model, n_enc, SEED + 1 + s)).to(dev)
+            n_total = n0 + DECODE_TOKENS
+            cap = n_total + ENCDEC_ROUND1 + DECODE_TOKENS + MATCH_TOKENS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.prefill(params, {"tokens": toks[None],
+                                         "frames": frames[None]},
+                                capture_hidden=True)
+            tok = greedy(out["logits"])
+            ttft_ms = _sync_s(t0) * 1e3
+            mgr.save_prefill(session, toks.cpu().numpy(), out)
+            live = encdec_cache(model, out, cap)
+            cross_ref = tuple(t.clone() for t in out["cross_kv"])
+            del out
+            t1 = time.perf_counter()
+            inputs, live, tok = decode(model, params, live, tok,
+                                       DECODE_TOKENS, save=(mgr, session))
+            decode_ms = _sync_s(t1) * 1e3 / DECODE_TOKENS
+            mgr.save_session_pause(session, live, n_total,
+                                   tokens_tail=inputs)
+            ref = {name: t.clone() for name, t in live.items()}
+            del live                            # evict the device state
+            res = mgr.restore(params, session, capacity=cap)
+            for name in ("self_k", "self_v"):
+                if not torch_equal(res.cache[name][:, :, :n_total],
+                                   ref[name][:, :, :n_total]):
+                    raise AssertionError(
+                        f"{session}: restored {name} differs from the live "
+                        f"cache on [0, {n_total})")
+            if not (torch_equal(res.cache["cross_k"], cross_ref[0])
+                    and torch_equal(res.cache["cross_v"], cross_ref[1])
+                    and res.cache["enc_len"].tolist() == [n_enc]):
+                raise AssertionError(f"{session}: restored cross K/V differ "
+                                     "from the prefill's")
+            seq_r, _, _ = decode(model, params, {k: t.clone() for k, t in
+                                                 res.cache.items()},
+                                 tok, MATCH_TOKENS)
+            seq_g, _, _ = decode(model, params, {k: t.clone() for k, t in
+                                                 ref.items()},
+                                 tok, MATCH_TOKENS)
+            verdict = "MATCH" if seq_r == seq_g else "MISMATCH"
+            if verdict != "MATCH":
+                raise AssertionError(f"{session}: {seq_r} != {seq_g}")
+            # round 1 over the restored and the never-evicted cache
+            new = torch.from_numpy(
+                rng.integers(0, c.vocab_size, ENCDEC_ROUND1)).to(dev)
+            toks1 = []
+            for cache in (res.cache, ref):
+                out = round1(cache, n_total, new)
+                if cache is res.cache:
+                    mgr.save_prefill(session, new.cpu().numpy(), out,
+                                     start=n_total)
+                n_live = n_total + ENCDEC_ROUND1
+                cache["self_k"][:, :, n_total:n_live] = out["kv"][0]
+                cache["self_v"][:, :, n_total:n_live] = out["kv"][1]
+                cache["lengths"] = torch.tensor([n_live], dtype=torch.int32,
+                                                device=dev)
+                got, _, _ = decode(model, params, cache, greedy(
+                    out["logits"]), DECODE_TOKENS)
+                toks1.append(got)
+                del out
+            if toks1[0] != toks1[1]:
+                raise AssertionError(f"{session} round 1: {toks1[0]} over "
+                                     f"the restored cache, {toks1[1]} over "
+                                     "the never-evicted one")
+            enc_mb = store.get_blob(session, "enc", 0).nbytes / 1e6
+            cross_mb = (2 * cross_ref[0].numel()
+                        * cross_ref[0].element_size() / 1e6)
+            methods = "".join(m[0].upper() for m in plan.methods)
+            print(f"{ENCDEC_ARCH} {session}: {n_enc} frames, {n0} prompt "
+                  f"tokens (methods {methods}); TTFT (encoder and decoder "
+                  f"prefill) {ttft_ms:.1f} ms; decode {decode_ms:.2f} "
+                  f"ms/token; restore of {n_total} tokens "
+                  f"{res.wall_time * 1e3:.1f} ms (projection "
+                  f"{res.project_wall * 1e3:.2f} ms; host " + ", ".join(
+                      f"{k} {v * 1e3:.1f}" for k, v in res.host_split.items())
+                  + f" ms; virtual {res.timeline.makespan * 1e3:.3f} ms); "
+                  f"enc blob {enc_mb:.2f} MB beside {cross_mb:.1f} MB of "
+                  f"cross K/V ({cross_mb / enc_mb:.0f}x); self K/V bitwise "
+                  f"on all {n_total} tokens, cross K/V bitwise; {verdict}; "
+                  f"round 1 ({ENCDEC_ROUND1} new tokens) gives the "
+                  f"never-evicted cache's {DECODE_TOKENS} tokens")
+            del res, ref, cross_ref
+    finally:
+        for m in managers:
+            m.close()
+
+
+def run_encdec_engine(model, params, backend):
+    """6 sessions x 2 rounds over 4 slots (``run_engine``) with frames of
+    ENCDEC_ENGINE_FRAMES on round 0 and ENCDEC_ENC_SEQ encoder positions
+    per slot."""
+    frames = [encdec_frames(model, n, SEED + 10 + i)
+              for i, n in enumerate(ENCDEC_ENGINE_FRAMES)]
+    run = run_engine(model, params, backend, prompts=ENCDEC_ENGINE_PROMPTS,
+                     round1=ENCDEC_ROUND1, max_seq=ENCDEC_ENGINE_MAX_SEQ,
+                     frames=frames, enc_seq=ENCDEC_ENC_SEQ)
+    if run["crosses"] != len(frames):
+        raise AssertionError(f"{ENCDEC_ARCH} engine {backend}: "
+                             f"{run['crosses']} first prefills recorded "
+                             f"their cross K/V, not {len(frames)}")
+    return run
+
+
 # the smoke configs (reduced_for_smoke: 4 layers, hd 16) through
 # launch/serve.py's path on the card, bf16, without --full:
 # (name, arguments, kernels that must run)
@@ -2950,7 +3286,13 @@ SMOKE_SERVES = (
                            ("granite-moe-1b-a400m", ("contiguous", "paged")),
                            ("grok-1-314b", ("contiguous",)),
                            ("internvl2-26b", ("paged",)))
-    for backend in backends)
+    for backend in backends) + tuple(
+    (f"serve whisper-medium smoke {backend}",
+     ["--arch", "whisper-medium", "--enc-seq", "64", "--sessions", "2",
+      "--rounds", "2", "--backend", backend],
+     ("restore_kv_grouped", "flash_attention", "decode_attention")
+     + (("decode_attention_paged",) if backend == "paged" else ()))
+    for backend in ("contiguous", "paged"))
 # what a serve must print: its ladder's actions (the 8 KiB budget is
 # below the smoke trace's first session, so the cold tier fills) or its
 # prefix-sharing line
@@ -3368,6 +3710,27 @@ def main() -> None:
           f"the logits of all {n} tokens bitwise equal, every token the "
           "pass's greedy choice")
     del model, params, requests                        # free zamba2-2.7b
+    gc.collect()
+    torch.cuda.empty_cache()
+    # whisper-medium at full size: the lifecycle, then the engine on both
+    # backends (phased), every request against the plain forward
+    model, params = build_encdec_model()
+    encdec_needs = ("restore_kv_grouped", "decode_attention",
+                    "flash_attention")
+    drive(f"{ENCDEC_ARCH} lifecycle",
+          lambda: run_encdec_lifecycle(model, params), encdec_needs)
+    runs, plain = {}, {}
+    for backend in ("contiguous", "paged"):
+        runs[backend] = drive(
+            f"{ENCDEC_ARCH} engine {backend}",
+            lambda b=backend: run_encdec_engine(model, params, b),
+            encdec_needs + (("decode_attention_paged",)
+                            if backend == "paged" else ()))
+        hold_against_plain(f"{ENCDEC_ARCH} engine {backend}", model, params,
+                           runs[backend], plain)
+    check_engine(runs["contiguous"], runs["paged"], f"{ENCDEC_ARCH} ",
+                 methods=("hidden",))
+    del model, params, runs, plain                     # free whisper-medium
     gc.collect()
     torch.cuda.empty_cache()
     for k in kernels:

@@ -27,17 +27,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.cost_model import layer_costs, link_priced_times
-from repro_torch.core.restoration import (compile_tasks,
+from repro_torch.core.restoration import (compile_tasks, cross_restore_times,
                                           measured_dispatch_overhead, replay,
                                           task_links)
 
 
 # ----------------------------------------------------- restore-cost estimate
 def restore_makespan(mgr, n_tokens: int,
-                     methods: Optional[Sequence[str]] = None) -> float:
+                     methods: Optional[Sequence[str]] = None, *,
+                     enc_len: int = 0) -> float:
     """Estimated restoration makespan (seconds) for a session of
     ``n_tokens``: the two-stream replay of the task graph the executor
-    would run, under the group plan it would resolve
+    would run (with an enc-dec session's ``io_enc``/``project_cross``
+    pair priced at its ``enc_len`` stored encoder positions), under the
+    group plan it would resolve
     (``mgr.resolve_group_size``), priced under the manager's
     ``MeasuredProfile`` where it has samples (``mgr.hw`` elsewhere) and
     with the IO legs stretched by the engine-reported restore
@@ -53,13 +56,16 @@ def restore_makespan(mgr, n_tokens: int,
         layer_costs(mgr.cfg, n_tokens, mgr.dtype_bytes), mgr.hw,
         profile=mgr.profile, io_streams=mgr.io_streams,
         topology=mgr.store.shard_topology(), link_load=mgr.link_load)
-    tasks = compile_tasks(tuple(methods),
-                          n_blobs=mgr.model.adapter.n_state_blobs,
-                          group_size=mgr.resolve_group_size(n_tokens,
-                                                            methods))
+    adapter = mgr.model.adapter
+    tasks = compile_tasks(tuple(methods), n_blobs=adapter.n_state_blobs,
+                          group_size=mgr.resolve_group_size(
+                              n_tokens, methods, enc_len=enc_len),
+                          cross=adapter.has_cross)
     return replay(tasks, times,
                   dispatch_overhead=measured_dispatch_overhead(mgr.hw,
                                                                mgr.profile),
+                  cross_times=(cross_restore_times(mgr, enc_len)
+                               if adapter.has_cross else None),
                   links=task_links(tasks, layer_links)).makespan
 
 
@@ -70,7 +76,8 @@ def session_restore_cost(mgr, session_id: str) -> float:
     if not man:
         return 0.0
     return restore_makespan(mgr, int(man.get("n_tokens", 0)),
-                            man.get("methods"))
+                            man.get("methods"),
+                            enc_len=int(man.get("enc_len", 0)))
 
 
 # ------------------------------------------------------------- admission
@@ -166,7 +173,11 @@ class RestoreCostAwareEviction(EvictionPolicy):
             return None
 
         def key(s):
-            return (restore_makespan(engine.mgr, max(s.total_len - 1, 0)),
+            # an enc-dec session's cross side is priced as admission
+            # prices it, at the encoder length its manifest stores
+            man = engine.mgr.store.get_manifest(s.request.session_id) or {}
+            return (restore_makespan(engine.mgr, max(s.total_len - 1, 0),
+                                     enc_len=int(man.get("enc_len", 0))),
                     s.request.request_id)
 
         return min(candidates, key=key)

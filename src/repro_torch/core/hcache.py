@@ -1,5 +1,5 @@
-"""HCacheManager — the paper's system glued together (``lm``, ``ssm`` and
-``hybrid`` families).
+"""HCacheManager — the paper's system glued together (``lm``, ``ssm``,
+``hybrid`` and ``encdec`` families).
 
   * plan: the per-layer restoration schedule (bubble-free scheduler),
     priced under the paper's Hopper profile by default, or under a
@@ -21,7 +21,11 @@ both: its attention blocks save and restore per token like an ``lm``
 stack's layers, its Mamba2 blocks' states go to the two blobs. A decode
 step's hidden stack holds the attention blocks only; the adapter's
 ``decode_layers`` names the global layer of each of its rows, under which
-the rows are filed.
+the rows are filed. An ``encdec`` session (whisper) saves its decoder's
+hidden states like an ``lm`` stack's and, at its first prefill, the
+encoder output as the "enc" blob (its length in the manifest's
+``enc_len``): the restore rebuilds the cross K/V of every decoder layer
+from that one tensor.
 
 Stored hidden states and states keep their dtype bit for bit: fp32 as
 float32, bf16 as its raw 2-byte words (numpy has no bfloat16), so a
@@ -70,6 +74,8 @@ class RestoreResult:
     cache: dict                      # dict(k, v, lengths); for ssm
     #                                  dict(conv, ssm, lengths); for hybrid
     #                                  dict(attn_k, attn_v, conv, ssm,
+    #                                  lengths); for encdec dict(self_k,
+    #                                  self_v, cross_k, cross_v, enc_len,
     #                                  lengths); B = 1
     schedule: Schedule
     timeline: Timeline               # virtual restoration timing
@@ -216,19 +222,23 @@ class HCacheManager:
                 topology=self.store.shard_topology(), link_load=self.link_load)
         return self._plans[key]
 
-    def resolve_group_size(self, n_tokens: int, methods):
+    def resolve_group_size(self, n_tokens: int, methods, *,
+                           enc_len: int = 0):
         """The projection group plan of one restore: the fixed width or
         tuple, or under ``"auto"``/``"fetch"`` the plan priced at the
-        restore's S-bucket (``choose_group_size``, or the forced
-        fetch-aligned partition). Returns an int width or a tuple of
-        widths, memoized per (S-bucket, methods, ``_price_key``): a
-        profile-epoch bump or a multiplicity change re-plans, a converged
-        profile reuses. The one resolution point for the executor and
-        ``capacity.restore_makespan``."""
+        restore's S-bucket (``choose_group_size``, with an enc-dec
+        session's cross pair at the bucket of its ``enc_len``, or the
+        forced fetch-aligned partition). Returns an int width or a tuple
+        of widths, memoized per (S-bucket, methods, enc-bucket,
+        ``_price_key``): a profile-epoch bump or a multiplicity change
+        re-plans, a converged profile reuses. The one resolution point
+        for the executor and ``capacity.restore_makespan``."""
         if self.restore_group_size not in ("auto", "fetch"):
             return self.restore_group_size
+        adapter = self.model.adapter
+        cross = adapter.has_cross and enc_len > 0
         key = (s_bucket(max(int(n_tokens), 1)), tuple(methods),
-               self._price_key())
+               s_bucket(enc_len) if cross else 0, self._price_key())
         got = self._group_plans.get(key)
         if got is None:
             if self.restore_group_size == "fetch":
@@ -237,7 +247,8 @@ class HCacheManager:
                 got = choose_group_size(
                     self.cfg, self.hw, n_tokens, methods,
                     dtype_bytes=self.dtype_bytes,
-                    n_blobs=self.model.adapter.n_state_blobs,
+                    n_blobs=adapter.n_state_blobs,
+                    cross=adapter.has_cross, enc_len=enc_len,
                     profile=self.profile, io_streams=self.io_streams,
                     topology=self.store.shard_topology(),
                     link_load=self.link_load, fetch_aligned=True)
@@ -305,11 +316,22 @@ class HCacheManager:
         segments = (list(prev.get("segments", [[0, start, "prefill"]]))
                     if prev else [])
         segments.append([start, int(toks.shape[0]), "prefill"])
+        manifest = {"n_tokens": int(start + toks.shape[0]),
+                    "methods": methods, "segments": segments,
+                    "arch": self.cfg.name,
+                    "compress": self._compress_for(session)}
+        if adapter.has_cross:
+            if "enc_out" in prefill_out:
+                # the encoder output, bit for bit: one (S_enc, D) tensor
+                # from which the restore projects every layer's cross K/V
+                enc = prefill_out["enc_out"][0]
+                self.store.put_blob(session, "enc", 0, to_host(enc))
+                manifest["enc_len"] = int(enc.shape[0])
+            elif prev:
+                # a resume prefill runs no encoder: keep the stored length
+                manifest["enc_len"] = int(prev.get("enc_len", 0))
         self.store.flush(session)
-        self.store.put_manifest(session, {
-            "n_tokens": int(start + toks.shape[0]), "methods": methods,
-            "segments": segments, "arch": self.cfg.name,
-            "compress": self._compress_for(session)})
+        self.store.put_manifest(session, manifest)
 
     def _save_patches(self, session: str, patches, start: int) -> None:
         """A VLM prefill's patch embeddings (1, n_vis, D) as the session's

@@ -1,13 +1,17 @@
-"""Pipelined restoration executor (paper §4.1) for the ``lm``, ``ssm``
-and ``hybrid`` families.
+"""Pipelined restoration executor (paper §4.1) for the ``lm``, ``ssm``,
+``hybrid`` and ``encdec`` families.
 
 A ``Schedule`` compiles into an ordered task graph (``compile_tasks``) of
 per-layer steps: chunk-store reads of hidden states (``io_h``) and of raw
 K/V (``io_kv``), whole-object reads (``blob``: an ``ssm`` or ``hybrid``
 session's recurrent states), grouped hidden→K/V projections
-(``project``) and recompute-prefix layers (``recompute``). Per-layer tasks of a layer that
-is not an attention layer do nothing: such a layer is restored by the
-state blob. The same graph serves:
+(``project``) and recompute-prefix layers (``recompute``), and for an
+enc-dec session the read of its encoder-output blob (``io_enc``) and the
+cross projection (``project_cross``: the cross K/V of every decoder layer
+from that one tensor, ``models.encdec.cross_kv``, as its prefill made
+them), priced by ``CrossTimes``. Per-layer tasks of a layer that is not
+an attention layer do nothing: such a layer is restored by the state
+blob. The same graph serves:
 
   * ``replay``              — virtual two-stream replay of a task order
                               under a hardware profile → ``Timeline``;
@@ -46,7 +50,7 @@ import torch
 
 from repro_torch.config.arch import BlockKind
 from repro_torch.core.cost_model import (MethodTimes, layer_costs,
-                                         link_priced_times)
+                                         link_priced_times, method_times)
 from repro_torch.core.scheduler import Schedule
 from repro_torch.models.layers.rope import rope_table
 
@@ -260,6 +264,24 @@ def replay(tasks: Sequence[Task], times: Sequence[MethodTimes],
     return Timeline(max(io_t, comp_t), io_busy, comp_busy, io_t, comp_t)
 
 
+def _cross_times_at(cfg, hw, dtype_bytes: int, enc_len: int, *,
+                    profile=None, io_streams: int = 1)\
+        -> Optional[CrossTimes]:
+    if not enc_len:
+        return None
+    tms = [method_times(c, hw, profile=profile, io_streams=io_streams)
+           for c in layer_costs(cfg, int(enc_len), dtype_bytes)]
+    return CrossTimes(io=tms[0].io_h, compute=sum(t.c_h for t in tms))
+
+
+def cross_restore_times(mgr, enc_len: int) -> Optional[CrossTimes]:
+    """CrossTimes of an enc-dec session with ``enc_len`` stored encoder
+    positions (None when zero or unknown): IO one (S_enc, D) blob, compute
+    the K/V projection of that blob for every decoder layer."""
+    return _cross_times_at(mgr.cfg, mgr.hw, mgr.dtype_bytes, enc_len,
+                           profile=mgr.profile, io_streams=mgr.io_streams)
+
+
 # ------------------------------------------------------------ group plans
 GROUP_SIZE_CANDIDATES = (1, 2, 4, 8)
 
@@ -337,6 +359,7 @@ def measured_dispatch_overhead(hw, profile) -> float:
 
 def choose_group_size(cfg, hw, n_tokens: int, methods: Sequence[str], *,
                       dtype_bytes: int = 2, n_blobs: int = 0,
+                      cross: bool = False, enc_len: int = 0,
                       profile=None, io_streams: int = 1,
                       fetch_aligned: bool = False,
                       topology=None, link_load=None):
@@ -351,8 +374,9 @@ def choose_group_size(cfg, hw, n_tokens: int, methods: Sequence[str], *,
 
     ``profile``/``io_streams`` price the replay with measured rates and
     the current restore multiplicity. The choice is computed at the
-    ``s_bucket`` of ``n_tokens``, not the exact length, as the JAX
-    package does: every session in a bucket picks the same plan."""
+    ``s_bucket`` of ``n_tokens`` (and an enc-dec session's cross pair at
+    that of ``enc_len``), not the exact lengths, as the JAX package does:
+    every session in a bucket picks the same plan."""
     n_hidden = sum(1 for m in methods if m == "hidden")
     if n_hidden <= 1:
         return 1
@@ -360,14 +384,18 @@ def choose_group_size(cfg, hw, n_tokens: int, methods: Sequence[str], *,
     times, layer_links = link_priced_times(
         layer_costs(cfg, n_bucket, dtype_bytes), hw, profile=profile,
         io_streams=io_streams, topology=topology, link_load=link_load)
+    cross_times = (_cross_times_at(cfg, hw, dtype_bytes, s_bucket(enc_len),
+                                   profile=profile, io_streams=io_streams)
+                   if cross and enc_len else None)
     overhead = measured_dispatch_overhead(hw, profile)
     cands = sorted({g for g in GROUP_SIZE_CANDIDATES if g < n_hidden}
                    | {n_hidden})
 
     def makespan(g):
         tasks = compile_tasks(tuple(methods), n_blobs=n_blobs,
-                              group_size=g)
+                              group_size=g, cross=cross)
         return replay(tasks, times, dispatch_overhead=overhead,
+                      cross_times=cross_times,
                       links=task_links(tasks, layer_links)).makespan
 
     best = min(cands, key=lambda g: (makespan(g), -g))
@@ -554,6 +582,11 @@ class RestoreSink:
         1, H, P, N)."""
         raise NotImplementedError
 
+    def put_cross(self, ck, cv, enc_len: int) -> None:
+        """An enc-dec session's cross K/V, whole: (L, 1, enc_len, Kv, hd)
+        each."""
+        raise NotImplementedError
+
     def finish(self, n_tokens: int) -> None:
         raise NotImplementedError
 
@@ -564,7 +597,8 @@ class CacheAssembler(RestoreSink):
     attn_k/attn_v (n_super,1,capacity,Kv,hd)), whose pieces are written
     straight into a buffer of ``capacity`` positions (at least the
     restored length), so decoding can continue in it; the recurrent
-    states conv/ssm of an ssm or hybrid session; and lengths."""
+    states conv/ssm of an ssm or hybrid session; an enc-dec session's
+    cross_k/cross_v and enc_len (1,); and lengths."""
 
     def __init__(self, model, capacity: Optional[int] = None):
         self.model = model
@@ -572,6 +606,7 @@ class CacheAssembler(RestoreSink):
         self.k: Optional[torch.Tensor] = None
         self.v: Optional[torch.Tensor] = None
         self.states: Optional[tuple] = None
+        self.cross: Optional[tuple] = None
         self.cache: Optional[dict] = None
 
     def _buffers(self, n: int):
@@ -594,6 +629,9 @@ class CacheAssembler(RestoreSink):
     def put_states(self, conv, ssm):
         self.states = (conv, ssm)
 
+    def put_cross(self, ck, cv, enc_len):
+        self.cross = (ck, cv, enc_len)
+
     def finish(self, n_tokens):
         lengths = torch.tensor([n_tokens], dtype=torch.int32,
                                device=self.model.device)
@@ -603,6 +641,10 @@ class CacheAssembler(RestoreSink):
             self.cache.update(zip(names, self._buffers(n_tokens)))
         if self.model.adapter.n_state_blobs:
             self.cache["conv"], self.cache["ssm"] = self.states
+        if self.model.adapter.has_cross:
+            ck, cv, enc_len = self.cross
+            self.cache.update(cross_k=ck, cross_v=cv, enc_len=torch.tensor(
+                [enc_len], dtype=torch.int32, device=self.model.device))
         self.cache["lengths"] = lengths
 
 
@@ -619,13 +661,18 @@ def s_bucket(n: int, minimum: int = 16) -> int:
 class RestoreParamPack:
     """The restoration weights of every attention layer: references to the
     model's layer-stacked parameters (no copy; a hybrid stack's attention
-    blocks, row ``s`` for block ``s``), and RoPE tables cut from the
-    shared table that prefill and decode gather from too."""
+    blocks, row ``s`` for block ``s``; an enc-dec decoder's ``ln1`` and
+    ``self_attn``), and RoPE tables cut from the shared table that prefill
+    and decode gather from too."""
 
     def __init__(self, model, params):
+        from repro_torch.models import encdec
         self.model = model
         if model.kind == "hybrid":
             self.blocks, self.attn = params["attn"], model.h.lm.attn
+        elif model.kind == "encdec":
+            self.blocks = encdec.self_view(params["dec_blocks"])
+            self.attn = model.h.attn
         else:
             self.blocks, self.attn = params["blocks"], model.h.attn
         self._tables: Dict[Tuple[int, int],
@@ -742,7 +789,15 @@ class RestorationExecutor:
         kinds = mgr.cfg.block_kinds()
         self._row_of = {li: r for r, li in enumerate(
             i for i, k in enumerate(kinds) if k == BlockKind.ATTENTION)}
-        gs = mgr.resolve_group_size(self.n_eff, self.methods)
+        # an enc-dec session restores its cross state through two tasks of
+        # its own (io_enc + project_cross), priced at its encoder length
+        adapter = self.model.adapter
+        self.has_cross = adapter.has_cross
+        self.enc_len = int(manifest.get("enc_len", 0))
+        self.cross_times = (cross_restore_times(mgr, self.enc_len)
+                            if self.has_cross else None)
+        gs = mgr.resolve_group_size(self.n_eff, self.methods,
+                                    enc_len=self.enc_len)
         # int = uniform width; tuple = non-uniform partition
         self.group_size = (tuple(int(w) for w in gs)
                            if isinstance(gs, (tuple, list))
@@ -752,8 +807,8 @@ class RestorationExecutor:
         self.dispatch_overhead = measured_dispatch_overhead(mgr.hw,
                                                             self.profile)
         self.tasks = compile_tasks(
-            self.methods, n_blobs=self.model.adapter.n_state_blobs,
-            group_size=self.group_size)
+            self.methods, n_blobs=adapter.n_state_blobs,
+            group_size=self.group_size, cross=self.has_cross)
         self.costs = layer_costs(mgr.cfg, self.n_eff, mgr.dtype_bytes)
         # a multi-host store prices each layer's IO on the links its
         # stripes occupy, under the restores in flight on each link
@@ -799,12 +854,14 @@ class RestorationExecutor:
         self.host_split = dict.fromkeys(HOST_SPLIT, 0.0)
         self.observed: Dict[int, float] = {}
         self._bucket = s_bucket(max(self.n_eff, 1))
+        self._enc_bucket = s_bucket(self.enc_len) if self.enc_len else 0
+        self._encio = None           # (task, ticket) awaiting project_cross
         self._n_timed = mgr.store.n_timed_devices()
         # the plan this graph was compiled under, for the engine's
         # predicted-vs-measured gauge (list order == compiled priority)
         self.predicted_makespan = replay(
             self.tasks, self.times, dispatch_overhead=self.dispatch_overhead,
-            links=self._task_links).makespan
+            cross_times=self.cross_times, links=self._task_links).makespan
 
     # ------------------------------------------------------------- plumbing
     @property
@@ -845,7 +902,7 @@ class RestorationExecutor:
         """Timeline derived from the order tasks actually executed in."""
         return replay(self.tasks, self.times, self._order(),
                       dispatch_overhead=self.dispatch_overhead,
-                      links=self._task_links)
+                      cross_times=self.cross_times, links=self._task_links)
 
     def measured_timeline(self):
         """``timeline()`` with each task's duration replaced by what it
@@ -853,7 +910,8 @@ class RestorationExecutor:
         measured side of the engine's predicted-vs-measured gauge."""
         return replay(self.tasks, self.times, self._order(),
                       dispatch_overhead=self.dispatch_overhead,
-                      durations=self.observed, links=self._task_links)
+                      cross_times=self.cross_times, durations=self.observed,
+                      links=self._task_links)
 
     def _ready(self, idx: int) -> bool:
         t = self.tasks[idx]
@@ -925,7 +983,18 @@ class RestorationExecutor:
         if t.kind == "project":
             return sum(self.costs[li].c_hidden for li in t.members
                        if li in self._row_of)
+        if t.kind in ("io_enc", "project_cross") and self.enc_len:
+            costs = layer_costs(self.mgr.cfg, self.enc_len,
+                                self.mgr.dtype_bytes)
+            return (costs[0].io_hidden if t.kind == "io_enc"
+                    else sum(c.c_hidden for c in costs))
         return 0.0
+
+    def _bucket_of(self, kind: str) -> int:
+        """The profile bucket of a task: the encoder length's for the
+        cross pair, the restore's token count's for the rest."""
+        return (self._enc_bucket if kind in ("io_enc", "project_cross")
+                else self._bucket)
 
     def _run_profiled(self, idx: int, t: Task) -> None:
         """Execute an IO task with its read service folded into the
@@ -944,7 +1013,7 @@ class RestorationExecutor:
                      / self._n_timed)
             if delta > 0.0:
                 self.observed[idx] = delta
-                self.profile.record(t.kind, self._bucket,
+                self.profile.record(t.kind, self._bucket_of(t.kind),
                                     self._task_work(t), delta)
 
     def _observe_read(self, idx: int, kind: str, tickets) -> None:
@@ -960,7 +1029,7 @@ class RestorationExecutor:
         shard_ids = {tk.shard_id for tk in tickets}
         link = (shard_ids.pop() if len(shard_ids) == 1
                 and self.topology is not None else None)
-        self.profile.record(kind, self._bucket,
+        self.profile.record(kind, self._bucket_of(kind),
                             self._task_work(self.tasks[idx]), dur, link=link)
 
     def _measure(self, *completions: float) -> None:
@@ -1006,13 +1075,14 @@ class RestorationExecutor:
                 self.project_wall += s
             if self.profile is not None and keep and s > 0.0:
                 self.observed[idx] = s
-                self.profile.record(kind, self._bucket, work, s)
+                self.profile.record(kind, self._bucket_of(kind), work, s)
 
     # ---------------------------------------------------------- task bodies
     def _run_task(self, idx: int) -> None:
         t = self.tasks[idx]
         self._cur_idx = idx
-        dur = task_duration(t, self.times, self.dispatch_overhead)
+        dur = task_duration(t, self.times, self.dispatch_overhead,
+                            self.cross_times)
         if t.stream == "io":
             self._io_queue.remove(idx)
             link = (self._task_links.get(idx, 0)
@@ -1160,6 +1230,36 @@ class RestorationExecutor:
                 a.shape, a.dtype, [lambda buf, a=a: np.copyto(buf, a)],
                 dtype))
         self._emit("put_states", *states)
+
+    def _exec_io_enc(self, t: Task) -> None:
+        """Submit the read of the encoder-output blob; the cross
+        projection waits for it, so it overlaps the decoder's side."""
+        self._encio = (self._cur_idx, self.mgr.store.submit_blob_read(
+            self.session, "enc", 0))
+
+    def _exec_project_cross(self, t: Task) -> None:
+        """The cross K/V of every decoder layer from the stored encoder
+        output, by the call its prefill made (``encdec.cross_kv``), so
+        they are the prefill's bits."""
+        from repro_torch.models import encdec
+        idx, ticket = self._encio
+        self._encio = None
+        t0 = time.perf_counter()
+        enc = np.asarray(ticket.wait()[0])
+        self._observe_read(idx, "io_enc", [ticket])
+        self.host_split["read"] += time.perf_counter() - t0
+        enc_out = self._upload(enc.shape, enc.dtype,
+                               [lambda buf: np.copyto(buf, enc)],
+                               self.model.dtype)
+        t0 = time.perf_counter()
+        first = self.mgr.first_launch(("project_cross", enc.shape[0]))
+        ck, cv = self._timed(
+            lambda: encdec.cross_kv(self.params, enc_out[None],
+                                    self.model.h),
+            [(self._cur_idx, "project_cross", self._task_work(t), 1.0,
+              not first)])
+        self._emit("put_cross", ck, cv, int(enc.shape[0]))
+        self.host_split["launch"] += time.perf_counter() - t0
 
     def _exec_recompute(self, t: Task) -> None:
         """The recompute prefix is rebuilt once, at its first task, by

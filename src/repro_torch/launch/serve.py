@@ -12,6 +12,8 @@ conversation trace.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         granite-moe-1b-a400m --full                 # MoE family, GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch whisper-medium --enc-seq 64          # enc-dec family
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --hw-profile p.json --restore-group-size auto   # calibrated
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --budget-kb 64                              # host budget ladder
@@ -31,7 +33,11 @@ runs on the contiguous backend for one round per session: its prefill
 starts from zero state, so a second round is refused. The MoE (granite-moe-1b-a400m, grok-1-314b) and VLM
 (internvl2-26b) models are served text-only, as the reference serves
 them; ``--full`` refuses a model whose bf16 weights exceed one card's
-memory (grok-1-314b, 633 GB).
+memory (grok-1-314b, 633 GB). An enc-dec model (whisper-medium) gets a
+request's frame embeddings on round 0 (``--prompt-len`` seeded normals
+x 0.1 per session, drawn after its prompt, as the JAX package's serve
+draws them); later rounds restore the cross state from the store.
+``--enc-seq`` sets the encoder positions of each slot's cross state.
 """
 from __future__ import annotations
 
@@ -63,7 +69,6 @@ CARD_BYTES = 80e9
 # the ROADMAP item that brings each
 NOT_PORTED = {
     "--tp": "tensor parallelism (multi-GPU)",
-    "--enc-seq": "encoder-decoder models (other families)",
     "--serve-http": "the HTTP front door",
 }
 
@@ -128,6 +133,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="host hot-tier byte budget (KiB); enables the "
                         "capacity ladder (cold tier, int8 hidden states, "
                         "recompute-only, drop) over a DRAM cold tier")
+    p.add_argument("--enc-seq", type=int, default=None,
+                   help="enc-dec models: encoder positions per slot in "
+                        "the paired self/cross cache (default max-seq)")
     p.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="cross-session prefix sharing: refcounted copy-on-"
@@ -235,6 +243,7 @@ def main(argv=None) -> None:
                              backend=args.backend,
                              block_size=args.block_size,
                              cache_blocks=args.cache_blocks,
+                             enc_seq=args.enc_seq,
                              prefix_sharing=args.prefix_sharing)
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {dtype} on "
           f"{device}")
@@ -244,8 +253,14 @@ def main(argv=None) -> None:
         for s in range(args.sessions):
             prompt = rng.integers(0, cfg.vocab_size,
                                   args.prompt_len).astype(np.int32)
+            # enc-dec sessions carry encoder frames on round 0 only;
+            # later rounds restore the cross state from the store
+            frames = None
+            if model.kind == "encdec" and rnd == 0:
+                frames = rng.standard_normal(
+                    (args.prompt_len, cfg.d_model)).astype(np.float32) * 0.1
             engine.submit(Request(f"user{s}", prompt,
-                                  max_new_tokens=args.gen,
+                                  max_new_tokens=args.gen, frames=frames,
                                   priority=s % max(args.priority_levels,
                                                    1)))
         engine.run()

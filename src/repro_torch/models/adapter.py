@@ -4,7 +4,7 @@ step are invoked, how a prefill's output lands in a ``CacheView``, and
 which pieces of a prefill output are persisted. ``LMAdapter`` serves the
 ``lm`` families (dense, MoE and VLM), ``SSMAdapter`` the attention-free
 ``ssm`` family (falcon-mamba), ``HybridAdapter`` the ``hybrid`` family
-(zamba2); the enc-dec adapter is not ported yet.
+(zamba2), ``EncDecAdapter`` the encoder-decoder family (whisper).
 
 The adapter does not import ``repro_torch.serving``: the serving seam
 methods are duck-typed over the engine's ``SequenceState`` and the
@@ -16,8 +16,10 @@ Capability flags (as the JAX package's ``FamilyAdapter`` has them):
 restored history), ``supports_paged`` (the block-table backend applies),
 ``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V),
 ``kv_row`` (a layer's row in that stack), ``decode_layers`` (the global
-layer of each row of a decode step's hidden stack) and ``n_state_blobs``
-(whole recurrent-state blobs in the restore graph).
+layer of each row of a decode step's hidden stack), ``n_state_blobs``
+(whole recurrent-state blobs in the restore graph) and ``has_cross``
+(the restore graph includes the encoder blob's read and the cross
+projection).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class FamilyAdapter:
     supports_recompute = False
     kv_names = None
     n_state_blobs = 0
+    has_cross = False
 
     def __init__(self, model):
         self.model = model
@@ -241,3 +244,95 @@ class HybridAdapter(FamilyAdapter):
 
     def prefill_hidden(self, out: dict, li: int) -> torch.Tensor:
         return out["attn_hidden"][self.kv_row(li)][0]
+
+
+class EncDecAdapter(FamilyAdapter):
+    """Encoder-decoder stacks (whisper). Chunkable: the encoder pass and
+    the cross projection run once, on the first chunk of a residency
+    (``hist == 0``, which needs the request's frames); later chunks, and
+    the prefill of a resumed or later round, attend over the self-K/V
+    history and the cross state already in the view. The decoder self-K/V
+    pages like an ``lm`` cache; the cross state is whole per slot. No
+    recompute: a decoder layer's replay would need the cross context, as
+    in the reference."""
+
+    kind = "encdec"
+    chunkable = True
+    supports_resume = True
+    supports_paged = True
+    kv_names = ("self_k", "self_v")
+    has_cross = True
+
+    def init(self, generator: torch.Generator) -> dict:
+        from repro_torch.models import encdec
+        return encdec.init_encdec(generator, self.model.h, self.model.device)
+
+    def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
+                hist_len=None):
+        """The encoder over ``batch["frames"]`` (B, S_enc, D), then the
+        decoder over ``batch["tokens"]`` from position 0; the output
+        carries the encoder output (``enc_out``), which the manager
+        stores as the session's "enc" blob, and the cross K/V. A prefill
+        over restored history goes through ``prefill_chunk``, which takes
+        the cross state from the slot."""
+        from repro_torch.models import encdec
+        if hist_kv is not None:
+            raise ValueError("an enc-dec prefill over history needs the "
+                             "slot's cross state: use prefill_chunk")
+        h = self.model.h
+        enc_out, _ = encdec.encode(params, batch["frames"], h)
+        out = encdec.decode_prefill(params, batch["tokens"], enc_out, h,
+                                    capture_hidden=capture_hidden,
+                                    emit_kv=True, final_logits_only=True)
+        out["enc_out"] = enc_out
+        return out
+
+    def decode_step_full(self, params, cache, tokens):
+        from repro_torch.models import encdec
+        return encdec.decode_step(params, cache, tokens, self.model.h)
+
+    def decode_step_paged(self, params, cache, tokens):
+        from repro_torch.models import encdec
+        return encdec.decode_step_paged(params, cache, tokens, self.model.h)
+
+    def restore_kv_from_hidden(self, params, hidden, *, positions):
+        from repro_torch.models import encdec
+        return encdec.restore_self_kv(params, hidden, self.model.h,
+                                      positions=positions)
+
+    def prefill_chunk(self, params, seq, chunk, hist, *, capture_hidden):
+        from repro_torch.models import encdec
+        toks = self._tokens(chunk)
+        if hist:
+            ck, cv, _ = seq.view.cross_state()
+            return encdec.decode_prefill(
+                params, toks, None, self.model.h,
+                capture_hidden=capture_hidden, emit_kv=True,
+                final_logits_only=True, hist_kv=seq.view.gather_hist(hist),
+                hist_len=hist, cross=(ck, cv), pos_offset=hist)
+        frames = seq.request.frames
+        if frames is None:
+            raise ValueError(
+                f"enc-dec session {seq.request.session_id!r} has no stored "
+                "state and no Request.frames: a first-residency whisper "
+                "request must carry its encoder frame embeddings")
+        frames = torch.from_numpy(np.asarray(frames, np.float32)).to(
+            self.model.device)
+        if frames.dim() == 2:
+            frames = frames[None]
+        return self.prefill(params, {"tokens": toks, "frames": frames},
+                            capture_hidden=capture_hidden)
+
+    def absorb_prefill(self, view, out, n, hist) -> None:
+        """The chunk's self K/V at offset ``hist``; on a first residency
+        also the cross state, whole (on resume it is already in the
+        view, restored or never evicted)."""
+        k, v = out["kv"]
+        view.write_kv(k, v, hist)
+        if hist == 0:
+            ck, cv = out["cross_kv"]
+            view.write_states({"cross_k": ck, "cross_v": cv,
+                               "enc_len": int(ck.shape[2])})
+
+    def prefill_hidden(self, out: dict, li: int) -> torch.Tensor:
+        return out["hidden"][li][0]

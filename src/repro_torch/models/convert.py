@@ -3,11 +3,14 @@
 ``from_jax_params`` takes the JAX package's own ``split(model.init(...))``
 value tree as numpy arrays (or anything ``np.asarray`` takes) and returns
 the port's parameter dict: same tree, layer stacks kept stacked, the table
-with its padded vocabulary. The ``lm`` tree (dense blocks' ``mlp``, or
-the MoE blocks' ``moe``: router (L, D, E), w_up and w_gate (L, E, D, F),
-w_down (L, E, F, D)), the ``ssm`` (Mamba1) tree and the ``hybrid``
-tree (``mamba`` stacked (n_super, k-1, ...), ``attn`` blocks stacked
-(n_super, ...)) are taken; ``a_log`` (and Mamba2's ``dt_bias`` and
+with its padded vocabulary, and the learned position table
+(``embed/positions``) of a stack without RoPE. The ``lm`` tree (dense
+blocks' ``mlp``, or the MoE blocks' ``moe``: router (L, D, E), w_up and
+w_gate (L, E, D, F), w_down (L, E, F, D)), the ``ssm`` (Mamba1) tree, the
+``hybrid`` tree (``mamba`` stacked (n_super, k-1, ...), ``attn`` blocks
+stacked (n_super, ...)) and the ``encdec`` tree (``enc_blocks`` and
+``enc_norm`` of the encoder; ``dec_blocks`` with ``self_attn``, ``ln_x``
+and ``cross_attn``) are taken; ``a_log`` (and Mamba2's ``dt_bias`` and
 ``d_skip``) stay fp32 whatever the model dtype, as the JAX package
 initialises them. Missing keys raise."""
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.arch import ArchConfig
-from repro_torch.models.layers.embedding import padded_vocab
+from repro_torch.models.layers.embedding import MAX_POSITIONS, padded_vocab
 
 
 def _take(tree, path, shape, *, device, dtype):
@@ -50,8 +53,15 @@ def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
     embed = {"table": take(("embed", "table"), (vp, D))}
     if not cfg.tie_embeddings:
         embed["unembed"] = take(("embed", "unembed"), (D, vp))
+    if not cfg.use_rope and cfg.family not in ("ssm", "hybrid"):
+        embed["positions"] = take(("embed", "positions"), (MAX_POSITIONS, D))
     out = {"embed": embed, "final_norm": norm(("final_norm",), ())}
-    if cfg.family == "ssm":
+    if cfg.is_encoder_decoder:
+        out["enc_blocks"] = _dense_blocks(take, norm, cfg, "enc_blocks",
+                                          cfg.encoder_layers)
+        out["enc_norm"] = norm(("enc_norm",), ())
+        out["dec_blocks"] = _dec_blocks(take, norm, cfg)
+    elif cfg.family == "ssm":
         out["blocks"] = {"ln": norm(("blocks", "ln"), (L,)),
                          "m": _mamba1(take, cfg)}
     elif cfg.family == "hybrid":
@@ -91,14 +101,34 @@ def _mamba2(take, cfg: ArchConfig, lead: tuple) -> dict:
     return m
 
 
+def _attn_shapes(cfg: ArchConfig, L: int) -> dict:
+    D, hd = cfg.d_model, cfg.head_dim_
+    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    shapes = {"wq": (L, D, qd), "wk": (L, D, kvd), "wv": (L, D, kvd),
+              "wo": (L, qd, D)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(L, qd), bk=(L, kvd), bv=(L, kvd))
+    return shapes
+
+
+def _dec_blocks(take, norm, cfg: ArchConfig) -> dict:
+    """The enc-dec decoder's blocks: self- and cross-attention, each with
+    its input norm, and a plain FFN."""
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    blocks = {n: norm(("dec_blocks", n), (L,))
+              for n in ("ln1", "ln_x", "ln2")}
+    for a in ("self_attn", "cross_attn"):
+        blocks[a] = {k: take(("dec_blocks", a, k), s)
+                     for k, s in _attn_shapes(cfg, L).items()}
+    blocks["mlp"] = {"w_up": take(("dec_blocks", "mlp", "w_up"), (L, D, F)),
+                     "w_down": take(("dec_blocks", "mlp", "w_down"),
+                                    (L, F, D))}
+    return blocks
+
+
 def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int) -> dict:
     D, F = cfg.d_model, cfg.d_ff
-    hd = cfg.head_dim_
-    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    attn_shapes = {"wq": (L, D, qd), "wk": (L, D, kvd), "wv": (L, D, kvd),
-                   "wo": (L, qd, D)}
-    if cfg.qkv_bias:
-        attn_shapes.update(bq=(L, qd), bk=(L, kvd), bv=(L, kvd))
+    attn_shapes = _attn_shapes(cfg, L)
     if cfg.n_experts:
         E = cfg.n_experts
         ffn, ffn_shapes = "moe", {"router": (L, D, E), "w_up": (L, E, D, F),

@@ -1,5 +1,8 @@
-"""Rotary position embeddings (llama-style rotate-half)."""
+"""Rotary position embeddings (llama-style rotate-half) and sinusoidal
+absolute positions (the whisper encoder)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,3 +35,17 @@ def rope_table(n_pos: int, head_dim: int, theta: float, device):
     while cap < n_pos:
         cap <<= 1
     return rope_angles(torch.arange(cap, device=device), head_dim, theta)
+
+
+def sinusoidal_positions(n_pos: int, d: int, dtype=torch.float32,
+                         device=None):
+    """Whisper-style sinusoidal table (n_pos, d): [sin, cos] of position
+    times log-spaced frequencies, computed in fp32, then cast."""
+    half = d // 2
+    step = torch.tensor(math.log(10000.0), dtype=torch.float32,
+                        device=device) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=device) * step)
+    ang = (torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+           * freqs[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

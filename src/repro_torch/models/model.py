@@ -2,9 +2,10 @@
 dense, MoE (granite-moe, grok-1: routed expert FFNs) and VLM (internvl2:
 patch embeddings at the head of a prompt, ``batch["patches"]``), all
 served by the transformer stack and ``LMAdapter``; for the
-attention-free ``ssm`` family (falcon-mamba); and for the ``hybrid``
-family (zamba2: Mamba2 blocks with an attention block every k). The
-encoder-decoder family is not ported and raises.
+attention-free ``ssm`` family (falcon-mamba); for the ``hybrid``
+family (zamba2: Mamba2 blocks with an attention block every k); and for
+the encoder-decoder family (whisper: ``batch["frames"]`` (B, S_enc, D)
+frame embeddings feed the encoder, ``models/encdec.py``).
 
 ``Model`` resolves the device and hyper-parameters and delegates compute
 to its family adapter (models/adapter.py):
@@ -15,11 +16,14 @@ to its family adapter (models/adapter.py):
     decode_step(params, cache, tokens)  -> (logits, cache)
     decode_step_full(...)               -> (logits, cache, hidden states)
     decode_step_paged(...)              -> the same over a paged KV pool
-                                           (lm only)
+                                           (lm, encdec's self K/V)
     restore_kv_from_hidden(...)         -> the paper's restoration op (lm,
-                                           hybrid's attention blocks)
+                                           hybrid's attention blocks,
+                                           encdec's decoder self K/V)
     restore_ssm_states(...)             -> ssm-rescan (ssm, hybrid)
     init_cache / init_paged_cache       -> zeroed serving caches
+    init_cross(batch, enc_seq)          -> zeroed per-slot cross state
+                                           (encdec)
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; with no
 device given and no CUDA device present it raises instead of running on
@@ -27,13 +31,15 @@ the CPU.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.config.arch import ArchConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.adapter import HybridAdapter, LMAdapter, SSMAdapter
+from repro_torch.models.adapter import (EncDecAdapter, HybridAdapter,
+                                       LMAdapter, SSMAdapter)
+from repro_torch.models.encdec import EncDecHyper
 from repro_torch.models.hybrid import HybridHyper
 from repro_torch.models.ssm import SSMHyper
 
@@ -56,7 +62,11 @@ class Model:
                  device: Union[str, torch.device, None] = None):
         self.cfg = cfg
         self.dtype = dtype
-        if cfg.family in LM_FAMILIES:
+        if cfg.is_encoder_decoder:
+            self.h = EncDecHyper(cfg=cfg, dtype=dtype)
+            self.kind = "encdec"
+            self.adapter = EncDecAdapter(self)
+        elif cfg.family in LM_FAMILIES:
             self.h = tfm.LMHyper(cfg=cfg, dtype=dtype)
             self.kind = "lm"
             self.adapter = LMAdapter(self)
@@ -108,15 +118,35 @@ class Model:
         """ssm-rescan: per-layer final states from stacked hidden states."""
         return self.adapter.restore_ssm_states(params, hidden)
 
-    def init_cache(self, batch: int, ctx_len: int) -> dict:
+    def init_cross(self, batch: int, enc_seq: int) -> dict:
+        """Zeroed per-slot cross state of an encdec model: cross_k/cross_v
+        (L, batch, enc_seq, Kv, hd) and enc_len (batch,) int32."""
+        c = self.cfg
+        kv = torch.zeros((c.n_layers, batch, enc_seq, c.n_kv_heads,
+                          c.head_dim_), dtype=self.dtype, device=self.device)
+        return {"cross_k": kv, "cross_v": torch.zeros_like(kv),
+                "enc_len": torch.zeros((batch,), dtype=torch.int32,
+                                       device=self.device)}
+
+    def init_cache(self, batch: int, ctx_len: int, *,
+                   enc_seq: Optional[int] = None) -> dict:
         """Zeroed contiguous decode cache with lengths (batch,) int32: lm
         k/v (L, batch, ctx_len, Kv, hd); ssm conv (L, batch, W-1, I) in
         the model dtype and ssm (L, batch, I, N) fp32 (no token axis);
         hybrid attn_k/attn_v (n_super, batch, ctx_len, Kv, hd), conv
         (n_super, k-1, batch, W-1, I+2N) in the model dtype and ssm
-        (n_super, k-1, batch, H, P, N) fp32."""
+        (n_super, k-1, batch, H, P, N) fp32; encdec self_k/self_v (L,
+        batch, ctx_len, Kv, hd) and ``init_cross(batch, enc_seq)``
+        (``enc_seq`` defaults to ctx_len)."""
         c = self.cfg
         lengths = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        if self.kind == "encdec":
+            kv = torch.zeros((c.n_layers, batch, ctx_len, c.n_kv_heads,
+                              c.head_dim_), dtype=self.dtype,
+                             device=self.device)
+            return {"self_k": kv, "self_v": torch.zeros_like(kv),
+                    **self.init_cross(batch, enc_seq or ctx_len),
+                    "lengths": lengths}
         if self.kind == "hybrid":
             h, m = self.h, self.h.mamba
             kv = torch.zeros((h.n_super, batch, ctx_len, c.n_kv_heads,
@@ -147,7 +177,8 @@ class Model:
 
     def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
                          max_blocks_per_seq: int) -> dict:
-        """Zeroed block-table paged decode cache: k_pool/v_pool (L,
+        """Zeroed block-table paged decode cache (an encdec model's self
+        K/V; its cross state is ``init_cross``): k_pool/v_pool (L,
         num_blocks, block_size, Kv, hd) physical pages; block_table (batch,
         max_blocks_per_seq) int32 with ``num_blocks`` as the unallocated
         sentinel; lengths (batch,) int32."""

@@ -23,7 +23,11 @@ equals prefill K/V by construction.
 A MoE stack (``cfg.n_experts``) replaces each block's FFN by the routed
 experts of ``layers/moe.py``; a VLM (internvl2) takes precomputed patch
 embeddings (``patch_embeds``, (B, n_vis, D)) in place of the token
-embeddings at positions [0, n_vis) of a prefill that starts at 0.
+embeddings at positions [0, n_vis) of a prefill that starts at 0. A
+stack without RoPE (opt-30b) adds learned absolute positions
+(``embed/positions``, ``max_positions`` rows) to the token embeddings at
+each token's absolute position: in a prefill, a chunk over history, a
+decode step and the recompute replay.
 
 The JAX package scans over the layer stack; here the stack is walked by a
 Python loop, since PyTorch runs eagerly.
@@ -40,8 +44,10 @@ from repro_torch.config.arch import ArchConfig, AttnKind
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.attention import AttnHyper
-from repro_torch.models.layers.embedding import (embed_tokens, init_embedding,
-                                                 logits as embed_logits)
+from repro_torch.models.layers.embedding import (MAX_POSITIONS, embed_tokens,
+                                                 init_embedding,
+                                                 logits as embed_logits,
+                                                 positional)
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
 from repro_torch.models.layers.moe import MoEHyper, apply_moe, init_moe
 from repro_torch.models.layers.norm import apply_norm, init_norm
@@ -53,6 +59,7 @@ from repro_torch.models.module import stacked_init
 class LMHyper:
     cfg: ArchConfig
     dtype: torch.dtype = torch.float32
+    max_positions: int = MAX_POSITIONS   # learned-position stacks only
 
     @functools.cached_property
     def attn(self) -> AttnHyper:
@@ -96,7 +103,8 @@ def init_lm(gen: torch.Generator, h: LMHyper, device) -> dict:
     c = h.cfg
     return {
         "embed": init_embedding(gen, c.vocab_size, c.d_model, h.dtype,
-                                device, c.tie_embeddings),
+                                device, c.tie_embeddings,
+                                0 if c.use_rope else h.max_positions),
         "blocks": stacked_init(lambda: init_block(gen, h, device),
                                c.n_layers),
         "final_norm": init_norm(c.norm, c.d_model, h.dtype, device),
@@ -215,21 +223,36 @@ def block_forward(blocks: dict, li: int, x, h: LMHyper, *, cos, sin,
     return _block_tail(layer_params(blocks, li), x, attn_out, h), (k, v)
 
 
-def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
-                 lengths, cos, sin, window: Optional[int]):
-    """Single-token block ``li``. x (B,1,D); caches (B,Smax,Kv,hd) of this
-    layer; lengths (B,) tokens ALREADY cached (the new token lands at
-    ``lengths``). The new K/V is written into the caches IN PLACE (the
-    JAX package's ``.at[].set`` returns a new array); a slot that is
-    already full drops the write, as ``mode="drop"`` does."""
-    B = x.shape[0]
-    q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
-    smax = k_cache.shape[1]
-    bidx = torch.arange(B, device=x.device)
+def write_step_kv(k_cache, v_cache, k, v, lengths) -> None:
+    """A decode step's new K/V (B,1,Kv,hd) into caches (B,Smax,Kv,hd) at
+    ``lengths``, IN PLACE (the JAX package's ``.at[].set`` returns a new
+    array); a slot that is already full drops the write, as
+    ``mode="drop"`` does."""
+    B, smax = k.shape[0], k_cache.shape[1]
+    bidx = torch.arange(B, device=k.device)
     slot = lengths.long().clamp(max=smax - 1)
     fits = (lengths.long() < smax)[:, None, None]
     k_cache[bidx, slot] = torch.where(fits, k[:, 0], k_cache[bidx, slot])
     v_cache[bidx, slot] = torch.where(fits, v[:, 0], v_cache[bidx, slot])
+
+
+def write_pool_kv(k_pool, v_pool, k, v, write) -> None:
+    """A decode step's new K/V (B,1,Kv,hd) into pools (NB,bs,Kv,hd) IN
+    PLACE at ``write`` = (rows, flat pool positions); the other rows' K/V
+    is dropped."""
+    rows, slots = write
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    k_pool.view(NB * bs, *k_pool.shape[2:])[slots] = k[rows, 0]
+    v_pool.view(NB * bs, *v_pool.shape[2:])[slots] = v[rows, 0]
+
+
+def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
+                 lengths, cos, sin, window: Optional[int]):
+    """Single-token block ``li``. x (B,1,D); caches (B,Smax,Kv,hd) of this
+    layer; lengths (B,) tokens ALREADY cached (the new token lands at
+    ``lengths``, ``write_step_kv``)."""
+    q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
+    write_step_kv(k_cache, v_cache, k, v, lengths)
     attn_out = attn_lib.decode_attention(q, k_cache, v_cache, h.attn,
                                          kv_len=lengths + 1, window=window)
     return _block_tail(layer_params(blocks, li), x, attn_out, h)
@@ -248,10 +271,7 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
     full row owns no page to write to. The write is in place; attention
     then reads the pool in place through the block table."""
     q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
-    rows, slots = write
-    NB, bs = k_pool.shape[0], k_pool.shape[1]
-    k_pool.view(NB * bs, *k_pool.shape[2:])[slots] = k[rows, 0]
-    v_pool.view(NB * bs, *v_pool.shape[2:])[slots] = v[rows, 0]
+    write_pool_kv(k_pool, v_pool, k, v, write)
     attn_out = attn_lib.decode_attention_paged(
         q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
         window=window)
@@ -259,12 +279,17 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
 
 
 # ------------------------------------------------------------ full forward
-def _embed_input(params: dict, h: LMHyper, tokens, patch_embeds=None):
-    """Token embeddings (B, S, D); ``patch_embeds`` (B, n_vis, D) replace
+def _embed_input(params: dict, h: LMHyper, tokens, positions, end: int,
+                 patch_embeds=None):
+    """Token embeddings (B, S, D), plus the learned positions at
+    ``positions`` (B, S) when the stack has them (``end`` =
+    ``positions.max() + 1``); ``patch_embeds`` (B, n_vis, D) replace
     those of the first n_vis positions."""
     c = h.cfg
     x = embed_tokens(params["embed"], tokens, scale=c.embedding_scale,
                      d_model=c.d_model)
+    if not c.use_rope and "positions" in params["embed"]:
+        x = x + positional(params["embed"], positions, end).to(x.dtype)
     if patch_embeds is not None:
         n_vis = patch_embeds.shape[1]
         if n_vis > x.shape[1]:
@@ -296,8 +321,8 @@ def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
     base = 0 if hist_len is None else int(hist_len)
     positions = base + torch.arange(S, device=tokens.device)[None, :]
     positions = positions.expand(B, S)
-    cos, sin = rope_at(h.attn, positions)
-    x = _embed_input(params, h, tokens, patch_embeds)
+    cos, sin = rope_at(h.attn, positions, base + S)
+    x = _embed_input(params, h, tokens, positions, base + S, patch_embeds)
     windows = layer_windows(h)
     blocks = params["blocks"]
     ks, vs, hidden = [], [], []
@@ -326,8 +351,9 @@ def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     The new cache shares ``k``/``v`` with the old one, which this step
     wrote into in place."""
     lengths = cache["lengths"]
-    cos, sin = rope_at(h.attn, lengths[:, None])
-    x = _embed_input(params, h, tokens)
+    end = int(lengths.max()) + 1
+    cos, sin = rope_at(h.attn, lengths[:, None], end)
+    x = _embed_input(params, h, tokens, lengths[:, None], end)
     windows = layer_windows(h)
     hidden = []
     for li in range(h.cfg.n_layers):
@@ -352,8 +378,9 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     ``lm_decode_step`` at logical width MB·bs."""
     lengths, table = cache["lengths"], cache["block_table"]
     k_pool, v_pool, write = cache["k_pool"], cache["v_pool"], cache["write"]
-    cos, sin = rope_at(h.attn, lengths[:, None])
-    x = _embed_input(params, h, tokens)
+    end = int(lengths.max()) + 1
+    cos, sin = rope_at(h.attn, lengths[:, None], end)
+    x = _embed_input(params, h, tokens, lengths[:, None], end)
     windows = layer_windows(h)
     hidden = []
     for li in range(h.cfg.n_layers):
@@ -427,6 +454,7 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
             positions = start + torch.arange(n, device=dev)[None]
             cos, sin = rope_at(a, positions, start + n)
             x = _embed_input(params, h, tokens[None, start:start + n],
+                             positions, start + n,
                              patches[None] if patches is not None
                              and start == 0 else None)
             for li in range(n_layers):
@@ -446,7 +474,7 @@ def lm_replay_kv(params: dict, tokens: torch.Tensor, segments, h: LMHyper,
             toks[row, 0] = tokens[p]
             lengths = torch.full((width,), p, dtype=torch.int32, device=dev)
             cos, sin = rope_at(a, lengths[:, None], p + 1)
-            x = _embed_input(params, h, toks)
+            x = _embed_input(params, h, toks, lengths[:, None], p + 1)
             for li in range(n_layers):
                 x = block_decode(blocks, li, x, h, k_cache=kc[li],
                                  v_cache=vc[li], lengths=lengths, cos=cos,

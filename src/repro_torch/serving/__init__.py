@@ -2,13 +2,15 @@
 backends, request bookkeeping and sampling."""
 from repro_torch.serving.engine import EngineMetrics, InferenceEngine
 from repro_torch.serving.kv_cache import (BACKENDS, BlockAllocator, CacheView,
-                                          ContiguousBackend, KVCacheBackend,
-                                          OccupancyStats, PagedBackend,
+                                          ContiguousBackend, EncDecBackend,
+                                          KVCacheBackend, OccupancyStats,
+                                          PagedBackend, PagedEncDecBackend,
                                           ViewSink, make_backend)
 from repro_torch.serving.request import Phase, Request, SequenceState
 from repro_torch.serving.sampling import sample
 
 __all__ = ["BACKENDS", "BlockAllocator", "CacheView", "ContiguousBackend",
-           "EngineMetrics", "InferenceEngine", "KVCacheBackend",
-           "OccupancyStats", "PagedBackend", "Phase", "Request",
-           "SequenceState", "ViewSink", "make_backend", "sample"]
+           "EncDecBackend", "EngineMetrics", "InferenceEngine",
+           "KVCacheBackend", "OccupancyStats", "PagedBackend",
+           "PagedEncDecBackend", "Phase", "Request", "SequenceState",
+           "ViewSink", "make_backend", "sample"]

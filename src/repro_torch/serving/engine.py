@@ -37,8 +37,13 @@ Cache state lives behind a ``KVCacheBackend`` (serving/kv_cache.py): the
 ``contiguous`` layout (max_seq positions per slot) or the block-table
 ``paged`` layout, where admission reserves only the pages a session can
 use, so a full page pool, not a full slot table, back-pressures the
-queue. The engine touches cache state only through per-slot ``CacheView``
-handles, and family-specific decisions go through the model's adapter.
+queue. An enc-dec model (whisper) gets either layout for its decoder
+self-K/V paired with whole per-slot cross state of ``enc_seq`` encoder
+positions; a request's ``frames`` feed the encoder on its first
+residency, and later rounds restore the cross state from the session's
+stored encoder output. The engine touches cache state only through
+per-slot ``CacheView`` handles, and family-specific decisions go through
+the model's adapter.
 
 A decode step runs at the full batch width, ``max_batch`` rows; the pause
 dump records that width and the session's row, so a recompute-method
@@ -71,7 +76,11 @@ not shared: shared pages hold exact K/V, and a restore of theirs would
 not give those bits.
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings it: tensor parallelism (``tp > 1``).
+brings it: tensor parallelism (``tp > 1``). Prefix sharing is refused for
+an enc-dec model: every decoder layer after the first attends to the
+session's own audio, so decoder K/V cannot be shared between sessions by
+their tokens (the JAX package shares them, and the adopting session's
+cross-attention then runs over a cross state that was never written).
 
 A family whose adapter cannot resume (``supports_resume`` false: the
 ``ssm`` family, whose prefill starts from zero state) serves each
@@ -236,11 +245,19 @@ class InferenceEngine:
                  block_size: int = 16,
                  cache_blocks: Optional[int] = None,
                  prefix_sharing: bool = False,
+                 enc_seq: Optional[int] = None,
                  tp: int = 1):
         if tp > 1:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP queue 1: "
                 "multi-GPU)")
+        if prefix_sharing and model.adapter.has_cross:
+            raise NotImplementedError(
+                f"prefix sharing of {model.cfg.name} sessions: an enc-dec "
+                "decoder's K/V depends on the session's own encoder "
+                "frames, not on its tokens alone (the JAX package shares "
+                "it, and a session that adopts a prefix prefills against "
+                "a cross state that was never written: ROADMAP queue 3)")
         self.model = model
         self.adapter = model.adapter
         self.params = params
@@ -261,7 +278,8 @@ class InferenceEngine:
         if capacity is not None:
             capacity.attach_engine(self)
         self.kv = make_backend(backend, model, max_batch, max_seq,
-                               block_size=block_size, num_blocks=cache_blocks)
+                               block_size=block_size, num_blocks=cache_blocks,
+                               enc_seq=enc_seq)
         # cross-session prefix sharing: host chunk aliasing on fork works
         # on every backend; the token-hash index needs pages
         self.prefix_sharing = bool(prefix_sharing)

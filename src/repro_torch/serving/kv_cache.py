@@ -13,14 +13,25 @@ in a ``KVCacheBackend``:
   * ``PagedBackend``      — block tables over a physical page pool
     ``(L, num_blocks, block_size, Kv, hd)`` plus a ``BlockAllocator``
     free list. A slot reserves only the pages its session can use, so
-    the pool, not ``max_batch × max_seq``, caps concurrency.
+    the pool, not ``max_batch × max_seq``, caps concurrency;
+  * ``EncDecBackend`` and ``PagedEncDecBackend`` — the enc-dec pairings
+    (whisper): the decoder self-K/V (``self_k``/``self_v``) in the
+    contiguous layout or the page pool, and beside it whole per-slot cross
+    state, ``cross_k``/``cross_v`` (L, B, enc_seq, Kv, hd), with a per-slot
+    ``enc_len`` (host copy ``enc_len_np``, uploaded with each decode
+    step), so sessions with different encoder lengths batch together. The
+    cross context never grows after the encoder runs: it has no append
+    frontier for a block table to track. ``make_backend`` resolves
+    ``contiguous``/``paged`` to these for an enc-dec model.
 
 Consumers all go through a slot-bound ``CacheView`` handle:
 
     view.write_layer(row, k, v, start)        one restored layer
     view.write_layer_group(rows, k, v, start) a restoration group
     view.write_kv(k, v, start)                stacked prefill K/V
-    view.write_states(piece)                  recurrent conv/ssm states
+    view.write_states(piece)                  recurrent conv/ssm states, or
+                                              cross K/V and enc_len
+    view.cross_state()                        an enc-dec slot's cross K/V
     view.gather_hist(hist)                    history K/V for a prefill
     view.snapshot()                           B=1 dict for a pause dump
     view.set_length(n)                        live-length bookkeeping
@@ -50,8 +61,7 @@ page it is about to write (one device copy of the page, all layers, per
 pool), so a sibling keeps its bytes. The barrier reads the slots' lengths
 from the host mirror and adds no synchronisation to a decode step.
 Index-held pages are a cache: a reservation short of pages spills them
-(``_alloc_pages``). Not ported: the sharded pool and the enc-dec
-pairings.
+(``_alloc_pages``). Not ported: the sharded pool.
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.restoration import RestoreSink
+from repro_torch.core.restoration import RestoreSink, s_bucket
 
 
 @dataclasses.dataclass
@@ -166,12 +176,19 @@ class CacheView:
         raise NotImplementedError
 
     def write_states(self, piece: dict) -> None:
-        """Whole recurrent states into this view's slot: ``conv`` and
+        """Whole states into this view's slot: recurrent ``conv`` and
         ``ssm`` with a batch axis of one where the backend's buffers have
         their batch axis (ssm (L, 1, ...), hybrid (n_super, k-1, 1,
-        ...))."""
+        ...)); or an enc-dec slot's ``cross_k``/``cross_v`` (L, 1, n, Kv,
+        hd) and ``enc_len``."""
         raise NotImplementedError(
             f"the {type(self).__name__} holds no recurrent states")
+
+    def cross_state(self):
+        """An enc-dec slot's live cross context: (cross_k, cross_v)
+        (L, 1, enc_len, Kv, hd) views and enc_len."""
+        raise NotImplementedError(
+            f"the {type(self).__name__} holds no cross state")
 
     def gather_hist(self, hist: int):
         """History K/V for a prefill, a stacked (L, 1, hist, Kv, hd)
@@ -208,6 +225,10 @@ class ViewSink(RestoreSink):
 
     def put_states(self, conv, ssm):
         self.view.write_states({"conv": conv, "ssm": ssm})
+
+    def put_cross(self, ck, cv, enc_len):
+        self.view.write_states({"cross_k": ck, "cross_v": cv,
+                                "enc_len": enc_len})
 
     def finish(self, n_tokens):
         self.view.set_length(n_tokens)
@@ -264,6 +285,11 @@ class KVCacheBackend:
             at += n
         return out
 
+    def _step_extras(self) -> dict:
+        """Host arrays a decode step uploads beside its tokens and lengths
+        (an enc-dec backend's ``enc_len``), by cache key."""
+        return {}
+
     def get_lengths(self) -> np.ndarray:
         return self.lengths_np.copy()
 
@@ -312,7 +338,8 @@ class _ContiguousView(CacheView):
 
     def snapshot(self):
         i = self.slot
-        out = {name: t[:, i:i + 1] for name, t in self.b.bufs.items()}
+        out = {name: self.b.bufs[name][:, i:i + 1]
+               for name in self.b.snap_names}
         at = (slice(None),) * self.b.state_axis + (slice(i, i + 1),)
         out.update((key, t[at]) for key, t in self.b.state.items())
         return out
@@ -338,16 +365,24 @@ class ContiguousBackend(KVCacheBackend):
         self.model = model
         self.max_batch = max_batch
         self.max_seq = max_seq
-        cache = model.init_cache(max_batch, max_seq)
+        cache = self._make_cache()
         self.state = {key: cache[key] for key in ("conv", "ssm")
                       if key in cache}
         self.state_axis = 2 if model.kind == "hybrid" else 1
         self.bufs = {name: t for name, t in cache.items()
-                     if name != "lengths" and name not in self.state}
+                     if name not in ("lengths", "enc_len")
+                     and name not in self.state}
+        # the buffers a pause snapshot holds: all but an enc-dec slot's
+        # cross state, which restores from the session's encoder blob
+        self.snap_names = [n for n in self.bufs
+                           if n not in ("cross_k", "cross_v")]
         k_name, v_name = model.adapter.kv_names or (None, None)
         self.k, self.v = cache.get(k_name), cache.get(v_name)
         self.lengths_np = np.zeros((max_batch,), np.int64)
         self._reserved = [0] * max_batch
+
+    def _make_cache(self) -> dict:
+        return self.model.init_cache(self.max_batch, self.max_seq)
 
     def view(self, slot):
         return _ContiguousView(self, slot)
@@ -365,9 +400,12 @@ class ContiguousBackend(KVCacheBackend):
         self._reserved[slot] = 0
 
     def decode(self, params, tokens, active=None):
-        tok, lengths = self._upload(tokens, self.lengths_np)
+        extras = self._step_extras()
+        tok, lengths, *more = self._upload(tokens, self.lengths_np,
+                                           *extras.values())
         cache = dict(self.bufs, **self.state,
                      lengths=lengths.to(torch.int32))
+        cache.update((k, t.to(torch.int32)) for k, t in zip(extras, more))
         idle = ([] if active is None or not self.state
                 else np.nonzero(~np.asarray(active, bool))[0].tolist())
         at = (slice(None),) * self.state_axis + (idle,)
@@ -445,7 +483,7 @@ class _PagedView(CacheView):
 
     def snapshot(self):
         k, v = self._gather(len(self.b.slot_blocks[self.slot]))
-        return {"k": k, "v": v}
+        return dict(zip(self.b.model.adapter.kv_names, (k, v)))
 
     def set_length(self, n):
         self.b.set_length(self.slot, n)
@@ -482,6 +520,7 @@ class PagedBackend(KVCacheBackend):
     ``max_batch × max_seq``."""
 
     name = "paged"
+    cross: dict = {}        # an enc-dec pairing's per-slot cross buffers
 
     def __init__(self, model, max_batch: int, max_seq: int, *,
                  block_size: int = 16, num_blocks: Optional[int] = None):
@@ -627,12 +666,15 @@ class PagedBackend(KVCacheBackend):
                 self._ensure_private(slot, (int(self.lengths_np[slot]) // bs,))
         rows, slots = paged_write_index(self.table_np, self.lengths_np,
                                         self.num_blocks, self.block_size)
-        tok, lengths, table, rows_t, slots_t = self._upload(
-            tokens, self.lengths_np, self.table_np, rows, slots)
+        extras = self._step_extras()
+        tok, lengths, table, rows_t, slots_t, *more = self._upload(
+            tokens, self.lengths_np, self.table_np, rows, slots,
+            *extras.values())
         cache = {"k_pool": self.k_pool, "v_pool": self.v_pool,
                  "block_table": table.to(torch.int32),
                  "lengths": lengths.to(torch.int32),
-                 "write": (rows_t, slots_t)}
+                 "write": (rows_t, slots_t), **self.cross}
+        cache.update((k, t.to(torch.int32)) for k, t in zip(extras, more))
         lg, _, hidden = self.model.decode_step_paged(params, cache, tok)
         self.lengths_np += 1
         return lg, hidden
@@ -646,20 +688,137 @@ class PagedBackend(KVCacheBackend):
                               self.allocator.free_count)
 
 
+# ------------------------------------------------------------------ encdec
+class _CrossStateMixin:
+    """Cross-state handling shared by both enc-dec views: the cross
+    buffers are whole per slot, whatever the layout of the decoder
+    self-K/V. The backend provides ``cross`` (cross_k, cross_v buffers),
+    ``enc_seq`` and ``enc_len_np``."""
+
+    def write_states(self, piece):
+        b, slot = self.b, self.slot
+        for key in ("cross_k", "cross_v"):
+            if key not in piece:
+                continue
+            val = piece[key]
+            n = val.shape[2]
+            if n > b.enc_seq:
+                # admission counts decoder positions only: an oversized
+                # encoder context must fail loudly here
+                raise ValueError(
+                    f"encoder context of {n} frames exceeds the backend's "
+                    f"enc_seq={b.enc_seq}; raise --enc-seq (or "
+                    "InferenceEngine(enc_seq=))")
+            buf = b.cross[key]
+            buf[:, slot, :n] = val[:, 0]
+            # zeros up to the power-of-two bucket, as the JAX package pads
+            # its write; the tail is past enc_len, masked everywhere
+            buf[:, slot, n:min(s_bucket(max(n, 1)), b.enc_seq)] = 0
+        if "enc_len" in piece:
+            b.enc_len_np[slot] = int(piece["enc_len"])
+
+    def cross_state(self):
+        b, i = self.b, self.slot
+        n = int(b.enc_len_np[i])
+        return (b.cross["cross_k"][:, i:i + 1, :n],
+                b.cross["cross_v"][:, i:i + 1, :n], n)
+
+
+class _CrossBackendMixin:
+    """An enc-dec backend's per-slot cross state and its host lengths."""
+
+    def _init_cross(self, model, max_batch: int, max_seq: int,
+                    enc_seq: Optional[int]) -> None:
+        if model.kind != "encdec":
+            raise NotImplementedError(
+                f"the {self.name} KV cache requires an encoder-decoder "
+                f"model; {model.cfg.name} is {model.kind!r}")
+        self.enc_seq = int(enc_seq or max_seq)
+        self.enc_len_np = np.zeros((max_batch,), np.int64)
+
+    def _step_extras(self):
+        return {"enc_len": self.enc_len_np}
+
+    def free_slot(self, slot):
+        self.enc_len_np[slot] = 0
+        super().free_slot(slot)
+
+
+class _EncDecView(_CrossStateMixin, _ContiguousView):
+    """Self-K/V writes and gathers through the contiguous view (keys
+    ``self_k``/``self_v``); a snapshot holds the self-K/V only."""
+
+
+class EncDecBackend(_CrossBackendMixin, ContiguousBackend):
+    """Contiguous decoder self-K/V (``max_seq`` positions per slot) and
+    whole per-slot cross state of ``enc_seq`` encoder positions (default
+    ``max_seq``)."""
+
+    name = "encdec"
+
+    def __init__(self, model, max_batch: int, max_seq: int, *,
+                 enc_seq: Optional[int] = None):
+        self._init_cross(model, max_batch, max_seq, enc_seq)
+        super().__init__(model, max_batch, max_seq)
+        self.cross = {k: self.bufs[k] for k in ("cross_k", "cross_v")}
+
+    def _make_cache(self):
+        return self.model.init_cache(self.max_batch, self.max_seq,
+                                     enc_seq=self.enc_seq)
+
+    def view(self, slot):
+        return _EncDecView(self, slot)
+
+
+class _PagedEncDecView(_CrossStateMixin, _PagedView):
+    """Decoder self-K/V through the pool; cross state whole per slot, as
+    in the contiguous pairing."""
+
+
+class PagedEncDecBackend(_CrossBackendMixin, PagedBackend):
+    """Paged decoder self-K/V and whole per-slot cross state: the part
+    that grows with decoded tokens rides the pool, so admission is
+    bounded by the decoder's need and a pause frees pages."""
+
+    name = "paged-encdec"
+
+    def __init__(self, model, max_batch: int, max_seq: int, *,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 enc_seq: Optional[int] = None):
+        self._init_cross(model, max_batch, max_seq, enc_seq)
+        super().__init__(model, max_batch, max_seq, block_size=block_size,
+                         num_blocks=num_blocks)
+        cross = model.init_cross(max_batch, self.enc_seq)
+        self.cross = {k: cross[k] for k in ("cross_k", "cross_v")}
+
+    def view(self, slot):
+        return _PagedEncDecView(self, slot)
+
+
 BACKENDS = {"contiguous": ContiguousBackend, "paged": PagedBackend}
 
 
 def make_backend(spec: Union[str, KVCacheBackend], model, max_batch: int,
                  max_seq: int, *, block_size: int = 16,
-                 num_blocks: Optional[int] = None) -> KVCacheBackend:
+                 num_blocks: Optional[int] = None,
+                 enc_seq: Optional[int] = None) -> KVCacheBackend:
     """Engine-facing factory: a name ('contiguous' | 'paged') or an
-    already-built backend instance."""
+    already-built backend instance. For an enc-dec model 'contiguous'
+    resolves to ``EncDecBackend`` and 'paged' to ``PagedEncDecBackend``,
+    each with ``enc_seq`` encoder positions per slot."""
     if isinstance(spec, KVCacheBackend):
         return spec
     if spec not in BACKENDS:
         raise ValueError(f"unknown KV-cache backend {spec!r}; "
                          f"one of {sorted(BACKENDS)}")
+    encdec = model.kind == "encdec"
     if spec == "paged":
+        if encdec:
+            return PagedEncDecBackend(model, max_batch, max_seq,
+                                      block_size=block_size,
+                                      num_blocks=num_blocks, enc_seq=enc_seq)
         return PagedBackend(model, max_batch, max_seq,
                             block_size=block_size, num_blocks=num_blocks)
+    if encdec:
+        return EncDecBackend(model, max_batch, max_seq, enc_seq=enc_seq)
     return ContiguousBackend(model, max_batch, max_seq)

@@ -1,6 +1,6 @@
 """The remaining dense configs of the JAX package's registry (qwen2-7b,
-qwen2.5-14b, starcoder2-15b, gemma2-9b) in the port, held against the JAX
-package on the same weights.
+qwen2.5-14b, starcoder2-15b, gemma2-9b) and opt-30b in the port, held
+against the JAX package on the same weights.
 
 Each is built at ``reduced_for_smoke`` size (4 layers, 4 heads of 16,
 fp32) from the reference's own ``init`` through ``from_jax_params``.
@@ -8,7 +8,9 @@ Together they take the transformer's paths that llama2-7b does not: QKV
 bias (all but gemma2), LayerNorm with a bias and a plain GELU FFN
 (starcoder2), and gemma2's local window on every other layer (16 tokens
 at smoke size, so prompts here run past it), attention and logit
-softcaps, post-norms, embedding scale and tied embeddings. Tolerance:
+softcaps, post-norms, embedding scale and tied embeddings; opt-30b
+takes learned absolute positions (no RoPE) in prefill, over history, in
+decode on both caches and in the recompute replay. Tolerance:
 atol 1e-4 on logits, hidden states and K/V (the frameworks sum in
 another order); greedy tokens equal; restored K/V bitwise equal to what
 prefill (or decode) emitted; paged tokens equal to contiguous."""
@@ -41,8 +43,10 @@ from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import InferenceEngine, Request
 from repro_torch.storage import ChunkStore, make_array
 
-NAMES = ("qwen2-7b", "qwen2.5-14b", "starcoder2-15b", "gemma2-9b")
-SOURCES = {"qwen2-7b": "arXiv:2407.10671",
+NAMES = ("qwen2-7b", "qwen2.5-14b", "starcoder2-15b", "gemma2-9b",
+         "opt-30b")
+SOURCES = {"opt-30b": "arXiv:2205.01068",
+           "qwen2-7b": "arXiv:2407.10671",
            "qwen2.5-14b": "hf:Qwen/Qwen2.5-14B",
            "starcoder2-15b": "arXiv:2402.19173",
            "gemma2-9b": "arXiv:2408.00118"}
@@ -97,6 +101,9 @@ def test_the_smoke_configs_take_the_paths_llama2_does_not(pair):
         assert cfg.tie_embeddings and cfg.embedding_scale
         assert cfg.post_attn_norm and cfg.attn_softcap and \
             cfg.logit_softcap
+    elif cfg.name == "opt-30b":
+        assert not cfg.use_rope and cfg.norm == "layernorm"
+        assert pair[4]["embed"]["positions"].shape == (8192, cfg.d_model)
     else:
         assert cfg.qkv_bias and "bk" in pair[4]["blocks"]["attn"]
     if cfg.name == "starcoder2-15b":

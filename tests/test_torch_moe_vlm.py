@@ -155,8 +155,10 @@ def test_model_builds_at_the_published_size(name):
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "whisper-medium"])
 def test_hybrid_and_encdec_are_not_ported(name):
-    """enc-dec is not ported; hybrid is, but as in the reference its
-    cache does not page."""
+    """What the two families still refuse, as the reference does or as
+    its faults require: the hybrid cache does not page; an enc-dec stack
+    gets no recompute layer from the planner, and its engine refuses
+    prefix sharing."""
     cfg = ArchConfig(**dataclasses.asdict(jax_get_arch(name)))
     assert cfg.family == "hybrid" or cfg.is_encoder_decoder
     if cfg.family == "hybrid":
@@ -164,8 +166,18 @@ def test_hybrid_and_encdec_are_not_ported(name):
         with pytest.raises(NotImplementedError, match="lm-family"):
             model.init_paged_cache(2, 8, 16, 4)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg, device="cpu")
+    from repro_torch.serving import InferenceEngine
+    model = Model(reduced_for_smoke(cfg), device="cpu")
+    mgr = HCacheManager(model, ChunkStore(make_array("dram", 2)))
+    try:
+        assert not model.adapter.supports_recompute
+        for n in (128, 4096):
+            assert "recompute" not in mgr.plan(n).methods
+        with pytest.raises(NotImplementedError, match="prefix sharing"):
+            InferenceEngine(model, model.init(0), mgr, backend="paged",
+                            prefix_sharing=True)
+    finally:
+        mgr.close()
 
 
 # --------------------------------------------------------------- the model

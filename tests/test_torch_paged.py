@@ -291,15 +291,16 @@ def test_serve_runs_end_to_end_on_the_cpu(tmp_path, capsys):
     assert m["device_gauges"][0]["device"] == 0
 
 
-# argv1, argv2 and argv6 pair a ported flag with one still refused: the
-# ported flag must not get the other through
+# argv1, argv2, argv5 and argv6 pair ported flags with one still refused:
+# the ported flags must not get the other through
 @pytest.mark.parametrize("argv", [["--tp", "2"],
                                   ["--prefix-sharing", "--tp", "2"],
                                   ["--budget-kb", "64", "--serve-http"],
                                   ["--serve-http"],
                                   ["--tp", "4"],
-                                  ["--enc-seq", "16"],
-                                  ["--budget-kb", "1", "--enc-seq", "16"]])
+                                  ["--enc-seq", "16", "--tp", "2"],
+                                  ["--budget-kb", "1", "--enc-seq", "16",
+                                   "--serve-http"]])
 def test_serve_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(["--device", "cpu"] + argv)
