@@ -62,10 +62,13 @@ Needs one CUDA GPU and the repository checkout around this file. It
      grok-1-314b and internvl2-26b (2 sessions x 2 rounds; qwen2-7b,
      gemma2-9b and granite on both backends, internvl paged) and
      whisper-medium (``--enc-seq 64``, 2 sessions x 2 rounds, both
-     backends); then
+     backends), llama2-13b (contiguous) and opt-30b (both backends: its
+     learned absolute positions); then
      qwen2-7b again on a
      store of two layer-striped hosts (``--hosts 2``), which must report
-     a per-link restore load and give the one-host serve's tokens;
+     a per-link restore load and give the one-host serve's tokens; then
+     ``serve.py --serve-http --port 0`` on a thread: two chat rounds over
+     the socket, the second ``exact`` and restoring, a clean stop;
   4. drives the lifecycle path: llama2-7b at full width and depth in
      bf16, random weights from a seed, 3 sessions x 2 rounds of
      prefill -> save -> decode (saving hidden states) -> evict -> restore,
@@ -109,7 +112,17 @@ Needs one CUDA GPU and the repository checkout around this file. It
      engine with prefix sharing (a shared 1024-token document, a fork,
      copy-on-write pages, restore-skip) against its twin without: the
      same tokens, hits, skipped tokens, copies and shared pages, every
-     page free after ``close``;
+     page free after ``close``, the pool pages each run held at its peak
+     and the copy debt held back beside them; then the HTTP front door
+     (``repro_torch.frontend``: pump, router, API, socket) in front of
+     the engine on the contiguous backend and on the paged one with
+     prefix sharing, driven through the socket by a stdlib client
+     (chat rounds routed fresh, exact, restore and, paged, fork; one
+     SSE stream against the same request unstreamed; a burst past
+     ``max_pending`` answered 429): every gated request's tokens equal
+     to the same requests driven straight through an engine built the
+     same way, its logits against the plain forward, per-route TTFT
+     beside the twin's, no thread left running;
   7. frees llama2-7b and serves qwen2-7b at full width and depth in
      bf16 (random weights from a seed) through the lifecycle of step 4
      and the engine of step 6 on both backends (phased), under the same
@@ -117,8 +130,9 @@ Needs one CUDA GPU and the repository checkout around this file. It
      the lifecycle with a 4608-token and a 1024-token session, so that
      the 4096-token window of its local layers cuts the history in
      prefill, restore, the recompute replay and decode; frees it and
-     serves granite-moe-1b-a400m (24 layers, 32 experts top-8) at full
-     size through the lifecycle and the engine on both backends, each
+     serves granite-moe-1b-a400m (32 experts top-8) at full width and
+     GRANITE_LAYERS of its 24 layers through the lifecycle and the
+     engine on both backends, each
      request held against a plain computation that follows its session's
      prefill chunks and one-token decodes (a MoE layer's capacity depends
      on the segment's length), printing the share of expert assignments
@@ -210,15 +224,18 @@ PROMPTS = (1024, 1536, 2000)      # round 0; 2000 exercises bucket padding
 # gemma2-9b's lifecycle: a prompt past its 4096-token window, a short one
 GEMMA_PROMPTS = (4608, 1024)
 # The MoE and VLM paths, after gemma2-9b, each model freed before the
-# next loads: granite-moe-1b-a400m at full size through the lifecycle and
-# the engine on both backends; internvl2-26b at full size through a
+# next loads: granite-moe-1b-a400m at full width and GRANITE_LAYERS of its
+# 24 layers (the depth cut keeps the whole script inside its time limit:
+# its engines' MoE replay, ~90 launches per layer, is host-bound and took
+# ~180 s at full depth) through the lifecycle and the engine on both
+# backends; internvl2-26b at full size through a
 # lifecycle whose round-0 prompts start with its frontend_dim (256) patch
 # embeddings (seeded normals: the ViT front end is a stub in the
 # reference too), then the paged engine, text only (4 sessions x 2
 # rounds over 4 slots, VLM_ENGINE_PROMPTS then VLM_ROUND1_TOKENS);
 # grok-1-314b at full width and GROK_LAYERS of its 64 layers (64 would
 # not fit one 80 GB card) through a lifecycle of two sessions.
-MOE_ARCH = "granite-moe-1b-a400m"
+MOE_ARCH, GRANITE_LAYERS = "granite-moe-1b-a400m", 8
 VLM_ARCH = "internvl2-26b"
 VLM_ENGINE_PROMPTS = (512, 1024, 768, 896)
 VLM_ROUND1_TOKENS = 128
@@ -1485,7 +1502,7 @@ def build_model(arch="llama2-7b", layers=None):
     if layers is not None:
         print(f"{arch}: depth cut from {cfg.n_layers} to {layers} layers "
               f"({2 * cfg.param_count() / 1e9:.1f} GB of bf16 weights at "
-              "full depth, more than one card holds)")
+              "full depth)")
         cfg = cfg.scaled(n_layers=layers)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -1874,7 +1891,11 @@ def engine_classes():
             super().__init__(*args, **kw)
             self.phased = phased
             self.snapshots, self.checked = {}, []
+            # token logits and tainted requests are keyed by id(seq): the
+            # engine keeps every sequence it emitted for alive, so that a
+            # later sequence cannot reuse a freed one's id
             self.last_logits, self.token_logits = None, {}
+            self.emitted = {}
             self.prefills = self.decodes = 0
             # each session's prefill chunks, (start, tokens), for a plain
             # forward that follows them (MoE capacity depends on them)
@@ -1884,6 +1905,7 @@ def engine_classes():
             # sessions ever in the int8 codec, the requests whose restores
             # read one, restore walls by codec, the int8 checks' worst
             self.bytes_peak = self.shared_peak = 0
+            self.pages_peak = self.committed_peak = 0
             self.tainted, self.req_tainted = set(), set()
             self.walls_by_codec = {"none": [], "int8": [], "recompute": []}
             self.int8_worst = {"rel": 0.0, "plain": 0.0, "rows": 0,
@@ -1965,6 +1987,7 @@ def engine_classes():
             row = self.last_logits[0 if len(self.last_logits) == 1
                                    else seq.slot]
             self.token_logits.setdefault(id(seq), []).append(row.float())
+            self.emitted[id(seq)] = seq
             super()._emit_token(seq, tok)
 
         def _timed(self, what, fn, *args):
@@ -1990,6 +2013,13 @@ def engine_classes():
             self.bytes_peak = max(self.bytes_peak, self.mgr.store.bytes_used)
             self.shared_peak = max(self.shared_peak,
                                    self.metrics.shared_pages)
+            if isinstance(self.kv, PagedBackend):
+                # pool pages held, and held plus the copy debt the
+                # backend keeps back for copy-on-write writes
+                used = self.kv.num_blocks - self.kv.allocator.free_count
+                self.pages_peak = max(self.pages_peak, used)
+                self.committed_peak = max(self.committed_peak,
+                                          used + self.kv.copy_debt())
 
         def _restore_step(self):
             restoring = [(s, s.executor) for s in self.slots
@@ -2526,6 +2556,8 @@ def run_prefix_engine(model, params, sharing: bool, rounds):
                              f"({eng.kv.num_blocks - a.free_count})")
     return {"tokens": tokens, "metrics": m, "wall": wall,
             "checked": len(eng.checked), "shared_peak": eng.shared_peak,
+            "pages_peak": eng.pages_peak,
+            "committed_peak": eng.committed_peak,
             "requests": requests, "histories": history,
             "restored_ttft": restored,
             "ttft": {key: q.ttft_wall for key, q in seqs.items()},
@@ -2558,7 +2590,389 @@ def check_prefix(on, off):
           f" ms against {mean([off['ttft'][k] for k in hits]):.0f} ms for "
           f"the same requests without sharing; round-1 TTFT mean "
           f"{mean(on['restored_ttft']):.0f} / "
-          f"{mean(off['restored_ttft']):.0f} ms")
+          f"{mean(off['restored_ttft']):.0f} ms; pool pages at the peak "
+          f"{on['pages_peak']} held, {on['committed_peak']} with the copy "
+          f"debt held back (sharing), {off['pages_peak']} (no sharing)")
+
+
+# The front-door phase: llama2-7b (full size, bf16) behind the HTTP front
+# door (EnginePump -> SessionRouter -> FrontDoor -> HttpFrontDoor on an
+# ephemeral port), driven through the socket by a stdlib client, once on
+# the contiguous backend and once on the paged backend with prefix
+# sharing (every layer planned hidden, as in the prefix phase). The
+# conversations' messages are token-id lists through the chat template:
+# conversation A (a FD_SYSTEM-token system prompt and a FD_USER[0]-token
+# question) round 0 fresh, round 1 exact by its conversation id, then a
+# branch resending A's transcript under another conversation id while A
+# is still bound (a fork with sharing on, else fresh), then A's round 2
+# by transcript alone (restore); conversation B (FD_B tokens) round 0
+# fresh, round 1 restore; one SSE-streamed request and its twin
+# unstreamed; every gated request waits for its answer before the next
+# is sent. Then FD_BURST concurrent short requests against a pump with
+# FD_MAX_PENDING: some must get 429. Every gated request's tokens must
+# equal those of the same requests (session ids, suffixes, forks, in
+# order) driven straight through an engine built the same way, and its
+# logits must pass ``check_against_plain``.
+FD_SYSTEM = 384
+FD_USER = (256, 128, 96, 64)
+FD_B = (512, 128, 64)
+FD_SSE = 300
+FD_MAX_PENDING = 4
+FD_BURST = 8
+# device memory the front door may hold past its twin (the pump thread
+# runs without autograd: a recorded graph would hold GBs)
+FD_MEMORY_SLACK = 256 << 20
+
+
+def front_door_engine(model, params, backend):
+    """The front-door phase's engine (and its twin's): the instrumented
+    engine of ``engine_classes`` on ``backend``; paged with prefix
+    sharing and every layer hidden. Records every submitted sequence."""
+    from repro_torch.storage import ChunkStore, make_array
+    Manager, Engine = engine_classes()
+    mgr = Manager(model, ChunkStore(make_array("ssd", 4), chunk_tokens=64))
+    mgr.all_hidden = backend == "paged"
+    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+                 max_seq=ENGINE_MAX_SEQ, prefill_chunk=ENGINE_CHUNK,
+                 backend=backend, block_size=16,
+                 prefix_sharing=backend == "paged")
+    eng.seqs = []
+    submit, fork = eng.submit, eng.fork_session
+
+    def recorded(request):
+        seq = submit(request)
+        eng.seqs.append(seq)
+        return seq
+
+    def forked(src, new_id):
+        man = fork(src, new_id)
+        # the fork's history is its source's at the fork
+        eng.snapshots[new_id] = eng.snapshots[src]
+        return man
+    eng.submit, eng.fork_session = recorded, forked
+    return eng
+
+
+def http_call(port, path, body=None, method="POST"):
+    """One request to the front door over a socket: (status, body text)."""
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request(method, path, None if body is None else json.dumps(body),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    raw = r.read().decode("utf-8")
+    c.close()
+    return r.status, raw
+
+
+def chat_call(port, messages, **body):
+    """A non-streamed chat round that must answer 200: the answer."""
+    st, raw = http_call(port, "/v1/chat/completions",
+                        dict(body, messages=messages))
+    if st != 200:
+        raise AssertionError(f"front door: chat answered {st}: {raw[:300]}")
+    return json.loads(raw)
+
+
+def sse_events(raw):
+    events = [e[len("data: "):] for e in raw.split("\n\n")
+              if e.startswith("data: ")]
+    if not events or events[-1] != "[DONE]":
+        raise AssertionError("front door: the stream did not end with "
+                             "[DONE]")
+    return [json.loads(e) for e in events[:-1]]
+
+
+def run_front_door(model, params, backend):
+    """The front-door phase's traffic on ``backend`` (see FD_SYSTEM);
+    returns what its checks need: the routed requests in order, the
+    engine's requests for ``check_against_plain``, the forks' histories,
+    the subscriptions' TTFTs, the router's stats and metrics."""
+    import asyncio
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.frontend import (EnginePump, FrontDoor, HttpFrontDoor,
+                                      SessionRouter)
+    before = set(threading.enumerate())
+    eng = front_door_engine(model, params, backend)
+    # the saver's drains (the pump drains when the engine goes idle, as
+    # the twin's run() does after each request): count and seconds
+    drains = []
+    drain = eng.mgr.saver.drain
+
+    def timed_drain():
+        t = time.perf_counter()
+        drain()
+        drains.append(time.perf_counter() - t)
+    eng.mgr.saver.drain = timed_drain
+    pump = EnginePump(eng, max_pending=FD_MAX_PENDING)
+    subs = []
+    submit = pump.submit
+
+    def recorded(request, loop=None):
+        sub = submit(request, loop)
+        subs.append(sub)
+        return sub
+    pump.submit = recorded
+    router = SessionRouter(eng, block_size=16)
+    api = FrontDoor(pump, router, model_name=model.cfg.name,
+                    default_max_tokens=DECODE_TOKENS)
+    pump.start()
+    loop = asyncio.new_event_loop()
+    serving = threading.Thread(target=loop.run_forever, name="front-door",
+                               daemon=True)
+    serving.start()
+    srv = HttpFrontDoor(api, port=0)
+    asyncio.run_coroutine_threadsafe(srv.start(), loop).result(60)
+    port = srv.port
+    rng = np.random.default_rng(SEED + 2)
+    V = model.cfg.vocab_size
+
+    def ids(n):
+        return [int(t) for t in rng.integers(0, V, n)]
+
+    def turn(msgs, answer, n):
+        return msgs + [{"role": "assistant",
+                        "content": answer["choices"][0]["message"]
+                        ["content"]},
+                       {"role": "user", "content": ids(n)}]
+    memory = []
+
+    def chat(msgs, **body):
+        a = chat_call(port, msgs, max_tokens=DECODE_TOKENS, **body)
+        torch.cuda.synchronize()
+        memory.append(torch.cuda.memory_allocated())
+        return a
+    t0 = time.perf_counter()
+    a_msgs = [{"role": "system", "content": ids(FD_SYSTEM)},
+              {"role": "user", "content": ids(FD_USER[0])}]
+    a0 = chat(a_msgs)
+    a_msgs = turn(a_msgs, a0, FD_USER[1])
+    a1 = chat(a_msgs, conversation_id=a0["conversation_id"])
+    chat(turn(a_msgs, a1, FD_USER[2]), conversation_id="branch")
+    chat(turn(a_msgs, a1, FD_USER[3]))
+    b_msgs = [{"role": "system", "content": ids(FD_B[0])},
+              {"role": "user", "content": ids(FD_B[1])}]
+    b0 = chat(b_msgs)
+    chat(turn(b_msgs, b0, FD_B[2]))
+    sse_msgs = [{"role": "user", "content": ids(FD_SSE)}]
+    st, raw = http_call(port, "/v1/chat/completions",
+                        {"messages": sse_msgs, "max_tokens": DECODE_TOKENS,
+                         "stream": True})
+    torch.cuda.synchronize()
+    memory.append(torch.cuda.memory_allocated())
+    if st != 200:
+        raise AssertionError(f"front door: the stream answered {st}")
+    chunks = sse_events(raw)
+    streamed = "".join(c["choices"][0]["delta"].get("content") or ""
+                       for c in chunks)
+    twin = chat(sse_msgs)
+    if streamed != twin["choices"][0]["message"]["content"]:
+        raise AssertionError("front door: the streamed deltas differ from "
+                             "the unstreamed answer of the same request")
+    if chunks[-1].get("hcache", {}).get("route") != "fresh":
+        raise AssertionError("front door: the stream's last chunk has no "
+                             "hcache block")
+    gated_s = time.perf_counter() - t0
+    n_gated = len(subs)
+    st, raw = http_call(port, "/metrics", method="GET")
+    metrics = json.loads(raw)
+    # the burst: concurrent short requests past max_pending
+    bodies = [{"messages": [{"role": "user", "content": ids(64)}],
+               "max_tokens": 4} for _ in range(FD_BURST)]
+    with concurrent.futures.ThreadPoolExecutor(FD_BURST) as ex:
+        burst = list(ex.map(lambda b: http_call(
+            port, "/v1/chat/completions", b), bodies))
+    statuses = sorted(st for st, _ in burst)
+    if 429 not in statuses or 200 not in statuses:
+        raise AssertionError(f"front door: a burst of {FD_BURST} against "
+                             f"max_pending {FD_MAX_PENDING} answered "
+                             f"{statuses}")
+    asyncio.run_coroutine_threadsafe(srv.close(), loop).result(60)
+    loop.call_soon_threadsafe(loop.stop)
+    serving.join(60)
+    loop.close()
+    pump.close()
+    leaked = [t.name for t in threading.enumerate()
+              if t not in before and t.is_alive()]
+    if leaked:
+        raise AssertionError(f"front door: threads left running {leaked}")
+    a = getattr(eng.kv, "allocator", None)
+    if a is not None and (a.free_count != eng.kv.num_blocks or any(a._ref)):
+        raise AssertionError("front door: pages still held after close")
+    routed = [(sub.meta["decision"], sub) for sub in subs[:n_gated]]
+    requests, histories, streams, rounds = {}, {}, {}, {}
+    for (d, sub), seq in zip(routed, eng.seqs):
+        sid = d.session_id
+        if d.forked_from is not None:
+            histories[sid] = list(streams[d.forked_from])
+            streams[sid] = list(streams[d.forked_from])
+        rnd = rounds[sid] = rounds.get(sid, -1) + 1
+        gen = list(seq.generated)
+        if gen != sub.tokens:
+            raise AssertionError(f"front door: {sid}/{rnd} emitted "
+                                 f"{sub.tokens}, the engine holds {gen}")
+        requests[rnd, sid] = (seq.request.prompt, gen,
+                              eng.token_logits[id(seq)])
+        streams[sid] = (streams.get(sid, []) + [int(t) for t in
+                                                seq.request.prompt]
+                        + gen[:-1])
+    return {"routed": [(d.session_id, np.asarray(d.prompt), d.kind,
+                        d.matched_tokens, d.forked_from, sub.ttft,
+                        list(sub.tokens)) for d, sub in routed],
+            "requests": requests, "histories": histories,
+            "stats": router.stats(), "metrics": metrics["engine"],
+            "restored": eng.metrics.restored_tokens, "memory": memory,
+            "burst": statuses, "gated_s": gated_s, "drains": drains,
+            "checked": len(eng.checked)}
+
+
+def run_front_door_twin(model, params, backend, routed):
+    """The front-door phase's routed requests straight through an engine
+    built the same way: the same session ids, suffixes and forks, one
+    request at a time; tokens, TTFTs and device memory per request."""
+    import torch
+    from repro_torch.serving import Request
+    eng = front_door_engine(model, params, backend)
+    out, memory = [], []
+    for sid, prompt, kind, _, src, _, _ in routed:
+        if kind == "fork":
+            eng.fork_session(src, sid)
+        seq = eng.submit(Request(sid, prompt, max_new_tokens=DECODE_TOKENS))
+        eng.run()
+        torch.cuda.synchronize()
+        memory.append(torch.cuda.memory_allocated())
+        out.append((list(seq.generated), seq.ttft_wall))
+    eng.close()
+    return {"out": out, "memory": memory,
+            "restored": eng.metrics.restored_tokens}
+
+
+def check_front_door(backend, run, twin):
+    """The front door gave its twin's tokens on every gated request, the
+    routes the traffic asks for, restored tokens, and no device memory
+    the twin did not hold; prints per-route TTFT beside the twin's."""
+    kinds = [r[2] for r in run["routed"]]
+    want = ["fresh", "exact", "fork" if backend == "paged" else "fresh",
+            "restore", "fresh", "restore", "fresh", "fresh"]
+    if kinds != want:
+        raise AssertionError(f"front door {backend}: routes {kinds}, not "
+                             f"{want}")
+    for r, (tokens, _) in zip(run["routed"], twin["out"]):
+        if r[6] != tokens:
+            raise AssertionError(f"front door {backend}: {r[0]} ({r[2]}) "
+                                 f"gave {r[6]}, its direct-engine twin "
+                                 f"{tokens}")
+    if backend == "contiguous" and run["restored"] <= 0:
+        raise AssertionError("front door: no token was restored")
+    grow = (run["memory"][-1] - run["memory"][0]) - (
+        twin["memory"][-1] - twin["memory"][0])
+    if grow > FD_MEMORY_SLACK:
+        raise AssertionError(f"front door {backend}: device memory grew "
+                             f"{grow / 2**20:.0f} MiB more than its twin's "
+                             "over the rounds")
+    by_route = {}
+    for r, (_, ttft) in zip(run["routed"], twin["out"]):
+        by_route.setdefault(r[2], []).append((r[5], ttft))
+    mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
+    print(f"front door {backend}: {len(kinds)} gated requests in "
+          f"{run['gated_s']:.1f} s, tokens equal to the direct-engine twin; "
+          "TTFT by route (front door / twin): " + "; ".join(
+              f"{k} {mean([a for a, _ in v]):.1f} / "
+              f"{mean([b for _, b in v]):.1f} ms over {len(v)}"
+              for k, v in by_route.items())
+          + f"; restored tokens {run['restored']} (twin "
+          f"{twin['restored']}); matched tokens "
+          f"{[r[3] for r in run['routed']]}; burst statuses {run['burst']}; "
+          f"router {run['stats']}; device memory after each round "
+          f"{[round(m / 2**30, 2) for m in run['memory']]} GB (twin "
+          f"{[round(m / 2**30, 2) for m in twin['memory']]}); "
+          f"{run['checked']} restores bitwise equal to their snapshots")
+    print(f"front door {backend} requests (route: TTFT front door / twin "
+          "ms): " + ", ".join(
+              f"{r[2]} {1e3 * r[5]:.1f} / {1e3 * t:.1f}"
+              for r, (_, t) in zip(run["routed"], twin["out"]))
+          + f"; saver drains {len(run['drains'])}, "
+          f"{sum(run['drains']):.2f} s in all, longest "
+          f"{1e3 * max(run['drains'], default=0):.1f} ms")
+
+
+def serve_http_cli(serve):
+    """``serve.py --serve-http --port 0`` (smoke config) on a thread of
+    this process, with its stdout kept: two chat rounds over the socket,
+    the second ``exact`` and restoring, then a clean stop (the front
+    door's stop event, as Ctrl-C cancels it) with no thread left
+    running."""
+    import asyncio
+    import contextlib
+    import threading
+    before = set(threading.enumerate())
+    base = serve.serve_engine
+    state = {}
+
+    async def stoppable(*args, **kw):
+        state["loop"] = asyncio.get_running_loop()
+        state["stop"] = kw["stop"] = asyncio.Event()
+        return await base(*args, **kw)
+    serve.serve_engine = stoppable
+    tee = _Tee(sys.stdout)
+    errors = []
+
+    def main():
+        try:
+            serve.main(["--serve-http", "--port", "0", "--max-seq", "256"])
+        except BaseException as e:        # noqa: BLE001 - re-raised below
+            errors.append(e)
+    thread = threading.Thread(target=main, name="serve-http", daemon=True)
+    with contextlib.redirect_stdout(tee):
+        try:
+            thread.start()
+            port, t0 = None, time.perf_counter()
+            while port is None and time.perf_counter() - t0 < 300:
+                if errors:
+                    raise errors[0]
+                line = next((x for x in "".join(tee.parts).splitlines()
+                             if "front door listening on http://" in x),
+                            None)
+                if line:
+                    port = int(line.split("http://")[1].split()[0]
+                               .rsplit(":", 1)[1])
+                time.sleep(0.05)
+            if port is None:
+                raise AssertionError("serve --serve-http never listened")
+            msgs = [{"role": "user", "content": "hello from the card"}]
+            r1 = chat_call(port, msgs, max_tokens=8)
+            msgs += [{"role": "assistant",
+                      "content": r1["choices"][0]["message"]["content"]},
+                     {"role": "user", "content": "and a second round"}]
+            r2 = chat_call(port, msgs, max_tokens=8,
+                           conversation_id=r1["conversation_id"])
+            st, raw = http_call(port, "/metrics", method="GET")
+            restored = json.loads(raw)["engine"]["restored_tokens"]
+        finally:
+            if "loop" in state:
+                state["loop"].call_soon_threadsafe(state["stop"].set)
+            if thread.is_alive():
+                thread.join(120)
+            serve.serve_engine = base
+    if errors:
+        raise errors[0]
+    if thread.is_alive() or "front door closed" not in "".join(tee.parts):
+        raise AssertionError("serve --serve-http did not stop cleanly")
+    leaked = [t.name for t in threading.enumerate()
+              if t not in before and t.is_alive()]
+    if leaked:
+        raise AssertionError(f"serve --serve-http left threads {leaked}")
+    h1, h2 = r1["hcache"], r2["hcache"]
+    if not (h1["route"] == "fresh" and h2["route"] == "exact"
+            and h2["session_id"] == h1["session_id"] and restored > 0):
+        raise AssertionError(f"serve --serve-http: routes {h1}, {h2}, "
+                             f"restored {restored}")
+    print(f"serve --serve-http: round 0 {h1}, round 1 {h2}, restored "
+          f"{restored} tokens, stopped with no thread left")
 
 
 def check_budget(run, budget, peak):
@@ -3285,7 +3699,9 @@ SMOKE_SERVES = (
                            ("gemma2-9b", ("contiguous", "paged")),
                            ("granite-moe-1b-a400m", ("contiguous", "paged")),
                            ("grok-1-314b", ("contiguous",)),
-                           ("internvl2-26b", ("paged",)))
+                           ("internvl2-26b", ("paged",)),
+                           ("llama2-13b", ("contiguous",)),
+                           ("opt-30b", ("contiguous", "paged")))
     for backend in backends) + tuple(
     (f"serve whisper-medium smoke {backend}",
      ["--arch", "whisper-medium", "--enc-seq", "64", "--sessions", "2",
@@ -3424,12 +3840,12 @@ def print_drop_shares(name, by_len):
 def serve_moe_vlm(drive):
     """The MoE and VLM paths, each model freed before the next loads
     (``drive`` runs a path with its launch counts): granite-moe-1b-a400m
-    at full width and depth through the lifecycle and the engine on both
-    backends, the engine's requests against a plain computation that
-    follows each session's prefill chunks, with the share of expert
-    assignments dropped per prefill chunk; internvl2-26b at full width
-    and depth through a lifecycle whose round-0 prompts start with patch
-    embeddings, restored bitwise on recompute layers too (the replay
+    at full width and GRANITE_LAYERS layers through the lifecycle and the
+    engine on both backends, the engine's requests against a plain
+    computation that follows each session's prefill chunks, with the share
+    of expert assignments dropped per prefill chunk; internvl2-26b at full
+    width and depth through a lifecycle whose round-0 prompts start with
+    patch embeddings, restored bitwise on recompute layers too (the replay
     splices the stored patches back), then the paged engine, text only;
     grok-1-314b at full width and GROK_LAYERS of its 64 layers through a
     lifecycle (the attention softcap through kernels #3-#5, 8 experts
@@ -3440,7 +3856,7 @@ def serve_moe_vlm(drive):
     lm_needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
     paged_needs = ("restore_kv_grouped", "decode_attention_paged",
                    "flash_attention")
-    model, params = build_model(MOE_ARCH)
+    model, params = build_model(MOE_ARCH, layers=GRANITE_LAYERS)
     _, shares = with_drop_shares(lambda: drive(
         f"{MOE_ARCH} lifecycle", lambda: run_main_path(model, params),
         lm_needs))
@@ -3579,6 +3995,8 @@ def main() -> None:
                        if name == one_host)
     check_hosts_serve(served[one_host], drive(
         two_hosts, lambda: recorded_serve(serve, argv + extra), needs))
+    drive("serve llama2-7b smoke --serve-http", lambda: serve_http_cli(serve),
+          ("restore_kv_grouped", "decode_attention", "flash_attention"))
     gc.collect()
     torch.cuda.empty_cache()
     model, params = build_model()
@@ -3650,8 +4068,21 @@ def main() -> None:
                      paged_needs)
     check_prefix(shared, unshared)
     against_plain("engine paged prefix sharing", shared, {})
-    del model, params, runs, plain, twin, calibrated   # free llama2-7b
     del budgeted, shared, unshared
+    # the HTTP front door on both backends, each against its twin
+    for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                   ("paged", "decode_attention_paged")):
+        needs = ("restore_kv_grouped", decode_kernel, "flash_attention")
+        door = drive(f"front door {backend}",
+                     lambda b=backend: run_front_door(model, params, b),
+                     needs)
+        direct = drive(f"front door {backend} twin",
+                       lambda b=backend, r=door["routed"]:
+                       run_front_door_twin(model, params, b, r), needs)
+        check_front_door(backend, door, direct)
+        against_plain(f"front door {backend}", door, {})
+        del door, direct
+    del model, params, runs, plain, twin, calibrated   # free llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
     # qwen2-7b at full width and depth: the lifecycle, then the engine on

@@ -19,6 +19,8 @@ conversation trace.
         --budget-kb 64                              # host budget ladder
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --backend paged --prefix-sharing            # shared prefixes
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-http \
+        --port 8080 --backend paged --prefix-sharing   # HTTP front door
 
 It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
 CPU); with no GPU present and no ``--device`` it fails instead of falling
@@ -38,10 +40,21 @@ request's frame embeddings on round 0 (``--prompt-len`` seeded normals
 x 0.1 per session, drawn after its prompt, as the JAX package's serve
 draws them); later rounds restore the cross state from the store.
 ``--enc-seq`` sets the encoder positions of each slot's cross state.
+
+``--serve-http`` serves the engine through the front door
+(``repro_torch.frontend``: ``/v1/chat/completions``, ``/v1/completions``,
+``/v1/models``, ``/healthz``, ``/metrics``) on ``--host``/``--port`` (0
+picks a free port; the bound one is printed) until Ctrl-C, with
+``--max-pending`` requests in flight before it answers 429; on shutdown
+it writes ``--metrics-json``. An ``ssm`` or ``hybrid`` model is served
+there one-shot (every request fresh over its full rendered prompt); an
+enc-dec model is refused, since a chat request carries no encoder
+frames.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 
@@ -56,6 +69,7 @@ from repro_torch.core.capacity import (ADMISSION_POLICIES, EVICTION_POLICIES,
                                        RestoreCostAwareAdmission)
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.core.profiler import MeasuredProfile
+from repro_torch.frontend import serve_engine, unservable
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving import BACKENDS, InferenceEngine, Request
 from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
@@ -69,7 +83,6 @@ CARD_BYTES = 80e9
 # the ROADMAP item that brings each
 NOT_PORTED = {
     "--tp": "tensor parallelism (multi-GPU)",
-    "--serve-http": "the HTTP front door",
 }
 
 
@@ -153,6 +166,16 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--priority-levels", type=int, default=1,
                    help="synthetic trace: session s gets priority "
                         "s %% N (exercises --admission priority)")
+    p.add_argument("--serve-http", action="store_true",
+                   help="serve the engine through the front door (an "
+                        "OpenAI-compatible HTTP API and session router) "
+                        "instead of the synthetic trace; Ctrl-C to stop")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080,
+                   help="--serve-http listen port (0 = ephemeral)")
+    p.add_argument("--max-pending", type=int, default=64,
+                   help="--serve-http backpressure: queue-depth cap "
+                        "before requests are shed with 429/overloaded")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -202,7 +225,10 @@ def main(argv=None) -> None:
     else:
         cfg = reduced_for_smoke(cfg)
     model = Model(cfg, dtype=dtype, device=device)
-    if args.rounds > 1 and not model.adapter.supports_resume:
+    if args.serve_http and unservable(model):
+        p.error(f"--serve-http: {unservable(model)}")
+    if (args.rounds > 1 and not args.serve_http
+            and not model.adapter.supports_resume):
         p.error(f"--rounds {args.rounds}: a {model.kind!r} model serves "
                 "each session one round (its prefill cannot resume on "
                 "restored state); pass --rounds 1")
@@ -247,6 +273,16 @@ def main(argv=None) -> None:
                              prefix_sharing=args.prefix_sharing)
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {dtype} on "
           f"{device}")
+    if args.serve_http:
+        try:
+            asyncio.run(serve_engine(engine, args.host, args.port,
+                                     max_pending=args.max_pending))
+        except KeyboardInterrupt:
+            pass
+        _dump_metrics(engine, args.metrics_json)
+        store.close()
+        print("front door closed", flush=True)
+        return
 
     rng = np.random.default_rng(0)
     for rnd in range(args.rounds):

@@ -333,15 +333,8 @@ class InferenceEngine:
         manifest = self.mgr.store.get_manifest(seq.request.session_id)
         stored = (int(manifest["n_tokens"]) if manifest
                   else seq.history_len)
-        need = (stored + len(seq.effective_prompt)
+        return (stored + len(seq.effective_prompt)
                 + seq.request.max_new_tokens - len(seq.generated))
-        fork = self._fork_pages.get(seq.request.session_id)
-        if fork is not None and fork["partial"]:
-            # adopting a fork's partial tail page shares it with the
-            # donor; the resume-feed write privatises it, costing one
-            # extra pool page while both holds are live
-            need += self.kv.block_size
-        return need
 
     def _host_align(self, m: int) -> int:
         """Floor a device prefix match so its host analogue aliases only
@@ -702,7 +695,9 @@ class InferenceEngine:
         are shared in the store (copied when prefix sharing is off) and,
         under sharing on the paged backend with the source resident, the
         saved history's pages are parked for the fork to adopt at
-        admission, which makes its restore a no-op. A resident source is
+        admission, which makes its restore a no-op, unless the pool cannot
+        hold the copies the parked pages may cost (``PagedBackend.
+        hold_blocks``): the fork then restores. A resident source is
         saved first (the dump of a pause, keeping its slot), so the fork
         point is its history through the last sampled token's
         predecessor."""
@@ -723,11 +718,12 @@ class InferenceEngine:
             n_saved = int(man["n_tokens"])
             pages = -(-n_saved // self.kv.block_size)
             blocks = [int(b) for b in self.kv.slot_blocks[seq.slot][:pages]]
-            for b in blocks:
-                self.kv.allocator.incref(b)
-            self._fork_pages[new_id] = {
-                "blocks": blocks, "n_tokens": n_saved,
-                "partial": n_saved % self.kv.block_size != 0}
+            # parking adds a copy the source's next write into a parked
+            # page needs; under a full pool the fork restores from the
+            # store instead
+            if self.kv.hold_blocks(blocks):
+                self._fork_pages[new_id] = {"blocks": blocks,
+                                            "n_tokens": n_saved}
         self.metrics.forks += 1
         return man
 
@@ -1008,14 +1004,14 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Stop the two-stage saver's daemon threads (and surface any
-        write error they captured), and drop the page holds of the prefix
-        index and of parked forks, so that a pool with no resident
-        session is all free again."""
+        write error they captured) and the restores' staging workers, and
+        drop the page holds of the prefix index and of parked forks, so
+        that a pool with no resident session is all free again."""
         if self.prefix_index is not None:
             for sid in list(self._fork_pages):
                 self.release_fork(sid)
             self.prefix_index.clear()
-        self.mgr.saver.close()
+        self.mgr.close()
 
     # --------------------------------------------------------------- output
     def result(self, session_id: str) -> List[int]:

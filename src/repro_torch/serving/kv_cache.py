@@ -61,7 +61,12 @@ page it is about to write (one device copy of the page, all layers, per
 pool), so a sibling keeps its bytes. The barrier reads the slots' lengths
 from the host mirror and adds no synchronisation to a decode step.
 Index-held pages are a cache: a reservation short of pages spills them
-(``_alloc_pages``). Not ported: the sharded pool.
+(``_alloc_pages``). The pool holds back the copy debt, the private pages
+that writes into shared pages may still demand (``copy_debt``): a
+reservation, an adoption or a fork's parked pages that would leave less
+than that is refused (``reserve`` returns False, ``hold_blocks`` parks
+nothing), so a copy-on-write write always finds its page. Not ported:
+the sharded pool.
 """
 from __future__ import annotations
 
@@ -569,28 +574,77 @@ class PagedBackend(KVCacheBackend):
                 got = self.allocator.alloc(n)
         return got
 
+    def copy_debt(self) -> int:
+        """Private pages that writes into shared pages can still demand:
+        over each page some slot maps, the copies its writers may need,
+        ``min(maps, holders - index_holds - 1)``. Every mapping slot may
+        write anywhere below its reservation, and each writer but the
+        last needs a copy; the last needs one too while a parked fork
+        still holds the page. An index hold costs no copy: a write that
+        leaves only the index sharing the page drops the index's entry
+        when no page is spare (``_ensure_private``)."""
+        maps: dict = {}
+        for blks in self.slot_blocks:
+            for b in blks:
+                maps[b] = maps.get(b, 0) + 1
+        held = (self.prefix_index.held() if self.prefix_index is not None
+                else {})
+        ref = self.allocator.refcount
+        return sum(max(0, min(n, ref(b) - held.get(b, 0) - 1))
+                   for b, n in maps.items())
+
+    def headroom(self) -> int:
+        """Pages a reservation may still take: free pages and spillable
+        index pages, less the copy debt. The backend keeps it >= 0, so a
+        copy-on-write write always finds its page."""
+        avail = self.allocator.free_count
+        if self.prefix_index is not None:
+            avail += self.prefix_index.releasable()
+        return avail - self.copy_debt()
+
     def _ensure_private(self, slot: int, logical_pages) -> None:
         """Copy-on-write barrier: each listed logical page of ``slot``
         that maps a shared physical page (refcount > 1) is copied to a
         fresh private page before the caller writes through it; the rest
-        of the prefix stays shared."""
+        of the prefix stays shared. A page shared with the prefix index
+        alone is copied only when the pool has a page to spare; else the
+        index forgets it and the slot writes in place."""
         blks = self.slot_blocks[slot]
         for lp in sorted(set(int(p) for p in logical_pages)):
             if lp >= len(blks) or self.allocator.refcount(blks[lp]) <= 1:
                 continue
+            src = blks[lp]
+            if (self.prefix_index is not None
+                    and self.allocator.refcount(src)
+                    - self.prefix_index.held().get(src, 0) == 1
+                    and self.headroom() < 1):
+                self.prefix_index.forget(src)
+                continue
             fresh = self._alloc_pages(1)
             if fresh is None:
                 raise RuntimeError(
-                    "page pool exhausted during copy-on-write divergence "
-                    "(no free page to privatise a shared page); raise "
-                    "cache_blocks or lower concurrency")
-            dst, src = fresh[0], blks[lp]
+                    "page pool exhausted during copy-on-write divergence: "
+                    "the copy debt was not held back (a bug in the "
+                    "backend's accounting)")
+            dst = fresh[0]
             self.k_pool[:, dst] = self.k_pool[:, src]
             self.v_pool[:, dst] = self.v_pool[:, src]
             self.allocator.free([src])          # drop this slot's hold
             blks[lp] = dst
             self.table_np[slot, lp] = dst
             self.cow_copies += 1
+
+    def hold_blocks(self, blocks: Sequence[int]) -> bool:
+        """Add a caller-owned hold on each page (a fork's parked pages)
+        if the copy debt that adds still fits the pool; else add none
+        and return False."""
+        blocks = [int(b) for b in blocks]
+        for b in blocks:
+            self.allocator.incref(b)
+        if self.headroom() >= 0:
+            return True
+        self.allocator.free(blocks)
+        return False
 
     def adopt_shared(self, slot: int, blocks: Sequence[int], *,
                      owned: bool = False) -> None:
@@ -631,17 +685,20 @@ class PagedBackend(KVCacheBackend):
         return min(need, self.blocks_per_seq, self.num_blocks)
 
     def can_reserve(self, n_tokens):
-        avail = self.allocator.free_count
-        if self.prefix_index is not None:
-            avail += self.prefix_index.releasable()
-        return self._blocks_needed(n_tokens) <= avail
+        return self._blocks_needed(n_tokens) <= self.headroom()
 
     def reserve(self, slot, n_tokens):
-        need = self._blocks_needed(n_tokens)
+        """Top the slot up to the pages of ``n_tokens``. False, with
+        nothing allocated, when that would leave less than the copy debt
+        (shared pages the slot adopted count in it), so the caller frees
+        the slot."""
         have = self.slot_blocks[slot]
-        if len(have) >= need:
+        grow = max(self._blocks_needed(n_tokens) - len(have), 0)
+        if grow > self.headroom():
+            return False
+        if not grow:
             return True
-        blocks = self._alloc_pages(need - len(have))
+        blocks = self._alloc_pages(grow)
         if blocks is None:
             return False
         have.extend(blocks)

@@ -227,13 +227,41 @@ class PrefixIndex:
         del self._entries[e.key]
 
     def releasable(self) -> int:
-        """Pages the index could hand back to the pool right now (held
-        only by the index — nobody's block table maps them). Because any
-        matcher increfs every page up to its match depth, such entries
-        always sit at the deep end of their chains, so releasing them
-        never strands a reachable entry."""
-        return sum(1 for e in self._entries.values()
-                   if self.backend.allocator.refcount(e.block) == 1)
+        """Pages that ``release`` could hand back to the pool right now:
+        entries whose whole subtree is held by the index alone (nobody's
+        block table maps them). A matcher increfs every page up to its
+        match depth, but a copy-on-write divergence can privatise a
+        middle page while the slot keeps mapping the deeper ones; that
+        middle entry is index-only yet not spillable, so it is not
+        counted (``release`` only takes leaves)."""
+        alloc = self.backend.allocator
+        spill: Dict[bytes, bool] = {}
+        for e in sorted(self._entries.values(), key=lambda e: -e.depth):
+            spill[e.key] = (alloc.refcount(e.block) == 1
+                            and all(spill.get(c, True) for c in e.children))
+        return sum(spill.values())
+
+    def held(self) -> Dict[int, int]:
+        """Index holds per physical page."""
+        out: Dict[int, int] = {}
+        for e in self._entries.values():
+            out[e.block] = out.get(e.block, 0) + 1
+        return out
+
+    def forget(self, block: int) -> None:
+        """Drop the entries holding ``block`` and every entry below them
+        (they are unreachable without their parent): what a slot that
+        writes into a page held only by itself and the index does instead
+        of copying it when the pool has no page to spare."""
+        order: List[bytes] = []
+        stack = [e.key for e in self._entries.values() if e.block == block]
+        while stack:
+            key = stack.pop()
+            if key in self._entries and key not in order:
+                order.append(key)
+                stack.extend(self._entries[key].children)
+        for key in reversed(order):        # children before parents
+            self._remove(self._entries[key])
 
     def release(self, n_pages: int) -> int:
         """Spill up to ``n_pages`` least-recently-used index-only pages

@@ -5,6 +5,7 @@ reservation edge cases, the drop of a decode write that has no page (the
 pool's bytes are inspected), the restore-cost policies against the JAX
 package's, and ``python -m repro_torch.launch.serve`` end to end."""
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -291,21 +292,78 @@ def test_serve_runs_end_to_end_on_the_cpu(tmp_path, capsys):
     assert m["device_gauges"][0]["device"] == 0
 
 
-# argv1, argv2, argv5 and argv6 pair ported flags with one still refused:
-# the ported flags must not get the other through
+# every case but argv0 and argv4 pairs ported flags with one still
+# refused: the ported flags must not get the other through
 @pytest.mark.parametrize("argv", [["--tp", "2"],
                                   ["--prefix-sharing", "--tp", "2"],
-                                  ["--budget-kb", "64", "--serve-http"],
-                                  ["--serve-http"],
+                                  ["--budget-kb", "64", "--serve-http",
+                                   "--tp", "2"],
+                                  ["--serve-http", "--tp", "2"],
                                   ["--tp", "4"],
                                   ["--enc-seq", "16", "--tp", "2"],
                                   ["--budget-kb", "1", "--enc-seq", "16",
-                                   "--serve-http"]])
+                                   "--serve-http", "--tp", "2"]])
 def test_serve_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(["--device", "cpu"] + argv)
     assert exc.value.code != 0
     assert "not ported" in capsys.readouterr().err
+
+
+def test_serve_http_answers_two_rounds_and_stops_cleanly(tmp_path):
+    """``serve.py --serve-http --port 0`` on the CPU in a process of its
+    own: it prints the bound port, answers a chat round and an ``exact``
+    second round that restores, and on Ctrl-C closes the front door,
+    writes ``--metrics-json`` and exits 0."""
+    import http.client
+    import os
+    import signal
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    metrics = tmp_path / "m.json"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+         "cpu", "--serve-http", "--port", "0", "--max-seq", "256",
+         "--metrics-json", str(metrics)],
+        env=env, cwd=tmp_path, stdout=subprocess.PIPE, text=True)
+    try:
+        port = None
+        for line in proc.stdout:
+            if "front door listening on http://" in line:
+                port = int(line.split("http://")[1].split()[0]
+                           .rsplit(":", 1)[1])
+                break
+        assert port
+
+        def chat(body):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            c.request("POST", "/v1/chat/completions", json.dumps(body),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            doc = json.loads(r.read())
+            c.close()
+            assert r.status == 200, doc
+            return doc
+        msgs = [{"role": "user", "content": "hello there"}]
+        r1 = chat({"messages": msgs, "max_tokens": 4})
+        msgs += [{"role": "assistant",
+                  "content": r1["choices"][0]["message"]["content"]},
+                 {"role": "user", "content": "and again"}]
+        r2 = chat({"messages": msgs, "max_tokens": 4,
+                   "conversation_id": r1["conversation_id"]})
+        assert r1["hcache"]["route"] == "fresh"
+        assert r2["hcache"]["route"] == "exact"
+        assert r2["hcache"]["session_id"] == r1["hcache"]["session_id"]
+        assert r2["hcache"]["matched_tokens"] > 0
+    finally:
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 0
+    assert "front door closed" in out
+    m = json.loads(metrics.read_text())
+    assert m["restored_tokens"] > 0 and m["ttft_wall"]["n"] == 2
 
 
 SERVE_SMALL = ["--device", "cpu", "--sessions", "3", "--rounds", "2",

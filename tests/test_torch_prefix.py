@@ -16,9 +16,25 @@ import numpy as np
 import pytest
 import torch
 try:
-    from hypothesis import given, settings, strategies as st
+    from hypothesis import example, given, settings, strategies as st
 except ImportError:  # container lacks hypothesis - seeded shim
+    import functools
+
     from _hypothesis_compat import given, settings, strategies as st
+
+    def example(**drawn):
+        """The shim's stand-in: run the explicit draw before the seeded
+        ones."""
+        def wrap(fn):
+            @functools.wraps(fn)
+            def run(*args, **kw):
+                if not run.ran:
+                    run.ran = True
+                    fn(*args, **dict(kw, **drawn))
+                fn(*args, **kw)
+            run.ran = False
+            return run
+        return wrap
 
 from repro.config.arch import reduced_for_smoke as jax_reduced
 from repro.config.hardware import PAPER_A100 as JAX_A100
@@ -272,6 +288,7 @@ def _check_invariants(b, idx, live):
 @settings(max_examples=8, deadline=None)
 @given(ops=st.lists(st.integers(0, 4), min_size=4, max_size=20),
        seed=st.integers(0, 2**31 - 1))
+@example(ops=[0, 1, 0, 0, 2, 2], seed=0)    # a divergence into a page
 def test_refcount_invariants_random_interleavings(pair, ops, seed):
     """Random admit / publish / diverge / retire / release interleavings:
     no page leaks, none is freed while held, and every slot reads exactly
@@ -467,6 +484,43 @@ def test_restore_skip_resumes_round_two_identically(pair):
     assert results[True, True] == results[False, True]
     m = results[True, True][2]
     assert m["restore_skipped_tokens"] >= 32 and m["restored_tokens"] < 43
+
+
+def test_fork_of_a_decoding_session_under_a_full_pool(pair):
+    """Two sessions fill a 4-page pool; the first is forked mid-decode.
+    Its next decode step writes into a page the fork would park, and no
+    page is free for the copy: the fork restores from the store instead
+    of parking, nothing raises, and the tokens are those of sharing
+    off."""
+    cfg = pair[0]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
+               for _ in range(2)]
+    results = {}
+    for sharing in (False, True):
+        eng = engine(pair, True, max_seq=64, backend="paged",
+                     cache_blocks=4, prefix_sharing=sharing)
+        for sid, p in zip(("src", "fill"), prompts):
+            eng.submit(Request(sid, p, max_new_tokens=6))
+        for _ in range(200):
+            s = eng.sessions.get("src")
+            if (s is not None and s.phase == Phase.DECODE
+                    and len(s.generated) >= 3):
+                break
+            eng.step()
+        assert eng.kv.allocator.free_count == 0
+        assert eng.kv.lengths_np[s.slot] % eng.kv.block_size != 0
+        eng.fork_session("src", "fk")
+        assert eng.kv.headroom() >= 0 and "fk" not in eng._fork_pages
+        eng.submit(Request("fk", np.asarray([5], np.int32),
+                           max_new_tokens=3))
+        eng.run()
+        results[sharing] = {sid: eng.result(sid)
+                            for sid in ("src", "fill", "fk")}
+        assert eng.metrics.forks == 1
+        eng.close()
+        assert all_free(eng)
+    assert results[True] == results[False]
 
 
 def test_restores_after_a_shared_prefix_are_bitwise(pair):
