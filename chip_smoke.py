@@ -186,7 +186,18 @@ Needs one CUDA GPU and the repository checkout around this file. It
      layer on a first chunk) and every decode step the decode kernels
      twice per decoder layer (self and cross), every request against the
      encoder and one plain decoder forward over its stream;
- 11. checks that each path launched its kernels (counts reset before and
+ 11. trains: kernel #5 under autograd (``FlashAttentionFn``) at the
+     training shape (B=4, S=2048, 32 heads of 128, causal, bf16), its
+     forward against the plain version within TOL and P's rounding
+     bound and its backward (plain PyTorch) against fp32 autograd
+     through a dense attention, both timed beside SDPA's; then
+     llama2-7b at full width and 4 of its 32 layers, bf16 over an fp32
+     master, 8 AdamW steps on one repeated batch of 4 x 2048 tokens (every
+     layer's wq/wk/wv gradient finite and non-zero, the loss falling;
+     step ms, tokens/s, peak memory); then ``launch/train.py`` on the
+     smoke config with a failure injected at step 7, bitwise equal to
+     the uninterrupted run;
+ 12. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
      the card, the kernels' JSON line and the device line last.
@@ -3898,6 +3909,212 @@ def serve_moe_vlm(drive):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- training
+# llama2-7b at full width (d 4096, 32 heads of 128, FFN 11008, vocab 32000)
+# cut to TRAIN_LAYERS of its 32 layers (at full depth its fp32 master, m,
+# v and gradient and the bf16 copy, ~18 bytes per parameter, are ~120 GB),
+# bf16 compute over an fp32 master, each block recomputed in backward;
+# TRAIN_STEPS AdamW steps on one repeated batch of TRAIN_BATCH sequences
+# of TRAIN_SEQ tokens. Then a supervised restart of the smoke config
+# through ``launch/train.py``: RESTART_STEPS steps, a checkpoint every
+# RESTART_EVERY, a failure injected at RESTART_FAIL_AT, against the same
+# run uninterrupted.
+TRAIN_ARCH, TRAIN_LAYERS = "llama2-7b", 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 4, 8
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 3, 7
+# kernel #5's backward (plain PyTorch, fp32 products of the bf16 inputs,
+# rounded to bf16 once) against fp32 autograd through a dense attention:
+# TOL["bf16"], one bf16 rounding of each output beside the sums' order
+FLASH_BWD_TOL = "bf16"
+
+
+def dense_attention(q, k, v):
+    """Causal softmax attention in fp32 (H == Kv), one batch row at a
+    time: the autograd reference for kernel #5's backward."""
+    import torch
+    S, hd = q.shape[1], q.shape[3]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for b in range(q.shape[0]):
+        s = torch.einsum("qhd,khd->hqk", q[b], k[b]) * hd ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        outs.append(torch.einsum("hqk,khd->qhd", p, v[b]))
+    return torch.stack(outs)
+
+
+def check_flash_train(card: str):
+    """Kernel #5 under autograd (``FlashAttentionFn``) at the training
+    shape (llama2-7b: B=TRAIN_BATCH, S=TRAIN_SEQ, 32 heads of 128, causal
+    self-attention), bf16: its forward (the kernel) against the plain
+    version within TOL and P's rounding bound; its backward against fp32
+    autograd through ``dense_attention`` within FLASH_BWD_TOL, per batch
+    row; times of the forward (kernel, plain, SDPA) and of the backward
+    (plain, SDPA's) with their bounds. Inputs from a generator of its
+    own."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    q, k, v = flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 128,
+                         torch.bfloat16, gen)
+    B, S, H, hd = q.shape
+    dout = torch.randn(q.shape, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    off = torch.zeros(B, dtype=torch.int32, device="cuda")
+    kl = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.FlashAttentionFn.apply(*leaves, off, kl, True, None, None)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    err = check_close("flash train forward", out.detach(),
+                      fa.flash_attention_plain(q, k, v, off, kl), "bf16",
+                      fa.flash_p_rounding_bound(q, k, v, off, kl))
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    dense_attention(*ref).backward(dout.float())
+    bwd_err = max(check_close(f"flash train d{n}", t.grad, r.grad,
+                              FLASH_BWD_TOL)
+                  for n, t, r in zip("qkv", leaves, ref))
+    del ref
+    ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl), n=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, off, kl), 3)
+    lib_ms = sdpa_ms(F, q, k, v, 0)
+    bound_ms, bound_by, flops, nbytes = flash_cost(card, B, S, S, H, H, hd,
+                                                   0)
+    bwd_ms = time_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, dout, off, kl), 3)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    do = dout.transpose(1, 2)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
+                                                     retain_graph=True), 5)
+    # backward: q, k, v and dout read, dq, dk and dv written; 10 hd
+    # operations per visible (query, key) pair (the scores recomputed,
+    # dP, dV, dQ and dK), at the bf16 tensor rate a kernel would run
+    bwd_bytes = 2 * B * (3 * S * H * hd + 4 * S * H * hd) + 8 * B
+    bwd_bound_ms, bwd_by = bound(2.5 * flops, bwd_bytes, card)
+    print(f"flash_attention training shape B={B} S={S} H=Kv={H} hd={hd} "
+          f"causal bf16: forward (FlashAttentionFn, the kernel) max_abs_err "
+          f"{err:.3g}; kernel {ms:.4f} ms (CUDA graph of 20), plain "
+          f"{plain_ms:.2f} ms, SDPA {lib_ms:.4f} ms (graph), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP in the "
+          f"causal band, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.0%} of the "
+          f"bound; backward (plain PyTorch, fp32 products) max_abs_err "
+          f"{bwd_err:.3g} against fp32 autograd ({FLASH_BWD_TOL} TOL), "
+          f"{bwd_ms:.2f} ms, SDPA's backward {lib_bwd_ms:.3f} ms, bound "
+          f"{bwd_bound_ms:.4f} ms ({bwd_by}, bf16 rate)")
+    return {"B": B, "S": S, "H": H, "hd": hd, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "backward_max_abs_err": bwd_err,
+            "backward_plain_ms": bwd_ms, "backward_library_ms": lib_bwd_ms,
+            "backward_bound_ms": bwd_bound_ms, "backward_bound_by": bwd_by}
+
+
+def run_train():
+    """TRAIN_STEPS steps of llama2-7b at full width on one repeated batch:
+    the first step's gradient of every layer's wq/wk/wv must be finite and
+    non-zero (they reach the loss only through kernel #5's backward), and
+    the loss must fall. Prints step ms, tokens/s and peak memory."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.module import count_params
+    from repro_torch.training import (AdamWConfig, DataConfig, Trainer,
+                                      batch_at)
+    cfg = get_arch(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    model = Model(cfg, dtype=torch.bfloat16)
+    trainer = Trainer(model, AdamWConfig(lr=1e-3), loss_chunks=4)
+    t0 = time.perf_counter()
+    state = trainer.init_state(SEED)
+    n_params = count_params(state["params"])
+    batch = batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                seed=SEED), 0, device=model.device)
+    print(f"train {TRAIN_ARCH}: {TRAIN_LAYERS} of 32 layers, d="
+          f"{cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params, bf16 over an fp32 master; init "
+          f"{_sync_s(t0):.1f} s")
+    _, _, grads = trainer.value_and_grad(state["params"], batch)
+    for w in ("wq", "wk", "wv"):
+        g = grads["blocks"]["attn"][w].float()
+        for li in range(TRAIN_LAYERS):
+            if not bool(g[li].isfinite().all()) or not bool(g[li].any()):
+                raise AssertionError(f"train: layer {li} {w} gradient is "
+                                     "not finite and non-zero")
+    norms = {w: [float(grads["blocks"]["attn"][w][li].norm())
+                 for li in range(TRAIN_LAYERS)] for w in ("wq", "wk", "wv")}
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(_sync_s(t0))
+        if not (losses[-1] == losses[-1] and abs(losses[-1]) < 1e4):
+            raise AssertionError(f"train: loss {losses[-1]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    step_ms = statistics.median(walls[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {TRAIN_ARCH}: wq/wk/wv gradient norms by layer "
+          + "; ".join(f"{w} " + ", ".join(f"{x:.3g}" for x in v)
+                      for w, v in norms.items()))
+    print(f"train {TRAIN_ARCH}: losses " + ", ".join(f"{x:.4f}"
+                                                     for x in losses))
+    print(f"train {TRAIN_ARCH}: step {step_ms:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {walls[0] * 1e3:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, peak allocated {peak:.1f} "
+          "GB over the steps")
+    return {"losses": losses, "step_ms": step_ms, "first_ms": walls[0] * 1e3,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
+            "params": n_params}
+
+
+def run_train_restart():
+    """``launch/train.py`` on the smoke config, on the card: RESTART_STEPS
+    steps with a failure injected at RESTART_FAIL_AT and a restart from
+    the last checkpoint, against the same run uninterrupted; the two
+    final states must be equal bit for bit. Deterministic algorithms are
+    on for the phase: the backward of the token-embedding gather
+    (``index_put_`` with accumulation) and of the loss's ``torch.gather``
+    (``scatter_add_``) use atomics on the card otherwise."""
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.training.tree import tree_leaves
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(RESTART_STEPS),
+            "--ckpt-every", str(RESTART_EVERY)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            faulty = train.main(argv + ["--ckpt-dir", f"{tmp}/faulty",
+                                        "--fail-at", str(RESTART_FAIL_AT)])
+            clean = train.main(argv + ["--ckpt-dir", f"{tmp}/clean"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    alerts = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    if faulty["report"]["restarts"] != 1 or clean["report"]["restarts"]:
+        raise AssertionError(f"train restart: reports {faulty['report']}, "
+                             f"{clean['report']}")
+    pairs = list(zip(tree_leaves(faulty["state"]),
+                     tree_leaves(clean["state"])))
+    if not all(torch_equal(a, b) for a, b in pairs):
+        raise AssertionError("train restart: the restarted run's state "
+                             "differs from the uninterrupted run's")
+    print(f"train restart: {RESTART_STEPS} steps of the smoke config, "
+          f"failure at {RESTART_FAIL_AT}, restored from step "
+          f"{RESTART_FAIL_AT - 1 - (RESTART_FAIL_AT - 1) % RESTART_EVERY}: "
+          f"all {len(pairs)} state leaves bitwise equal to the "
+          f"uninterrupted run's; determinism alerts: {alerts or 'none'}")
+    return {"leaves": len(pairs), "alerts": alerts}
+
+
 def flash_shape_classes(counter):
     """Launches by (new tokens, self-prefill or over history)."""
     out = {}
@@ -4162,6 +4379,27 @@ def main() -> None:
     check_engine(runs["contiguous"], runs["paged"], f"{ENCDEC_ARCH} ",
                  methods=("hidden",))
     del model, params, runs, plain                     # free whisper-medium
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training: kernel #5 under autograd at the training shape, then
+    # llama2-7b at full width (TRAIN_LAYERS layers), then a supervised
+    # restart through launch/train.py
+    t0 = time.perf_counter()
+    flash_train = check_flash_train(card)
+    phase_s["train kernel check"] = time.perf_counter() - t0
+    before = counts.get("flash_attention", 0)
+    train = drive(f"train {TRAIN_ARCH}", run_train, ("flash_attention",))
+    flash_train["launches"] = counts["flash_attention"] - before
+    drive("train restart", run_train_restart, ("flash_attention",))
+    flash_train["launches_restart"] = (counts["flash_attention"] - before
+                                       - flash_train["launches"])
+    kernels[3]["train_shape"] = flash_train
+    print(f"flash_attention launches added by training: "
+          f"{flash_train['launches']} ({TRAIN_ARCH}, {TRAIN_STEPS} steps "
+          f"and one gradient, each block's forward and its recompute), "
+          f"{flash_train['launches_restart']} (the restart phase); train "
+          f"step {train['step_ms']:.1f} ms, "
+          f"{train['tokens_per_s']:.0f} tokens/s")
     gc.collect()
     torch.cuda.empty_cache()
     for k in kernels:

@@ -319,3 +319,99 @@ def flash_attention_cuda(q, k, v, q_offset, kv_len, *, causal: bool = True,
     launches += 1
     shapes[B, Sq, Skv] += 1
     return out
+
+
+# ------------------------------------------------------------- backward
+def _backward_rows(B: int, H: int, Skv: int) -> int:
+    """Query rows per block of the plain backward: (B, H, rows, Skv) fp32
+    score blocks of at most 2^25 elements (128 MB)."""
+    return max(16, (1 << 25) // max(B * H * Skv, 1))
+
+
+def flash_attention_backward_plain(q, k, v, dout, q_offset, kv_len, *,
+                                   causal: bool = True,
+                                   softcap: Optional[float] = None,
+                                   window: Optional[int] = None):
+    """dq, dk, dv of ``flash_attention`` (the exact softmax attention its
+    kernel computes) for the output cotangent ``dout`` (B, Sq, H, hd), in
+    plain PyTorch: the softmax probabilities are recomputed from q and k
+    in fp32, one block of query rows at a time (``_backward_rows``), so no
+    all-heads (Sq, Skv) matrix is held at once; each block reads only the
+    keys its rows can see. dk/dv sum over the query heads of each kv head
+    (GQA); a row that sees no key gets zero gradient, as its output is
+    zero. Returns tensors in q's, k's and v's dtypes."""
+    B, Sq, H, hd = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    g = H // Kv
+    dev = q.device
+    scale = hd ** -0.5
+    qg = q.reshape(B, Sq, Kv, g, hd)
+    dog = dout.reshape(B, Sq, Kv, g, hd)
+    qo = q_offset.to(dev).long()
+    kl = kv_len.to(dev).long()
+    qo_lo, qo_hi = int(qo.min()), int(qo.max())
+    kl_hi = min(int(kl.max()), Skv)
+    dq = torch.zeros((B, Sq, Kv, g, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Skv, Kv, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    rows = _backward_rows(B, H, Skv)
+    for r0 in range(0, Sq, rows):
+        r1 = min(r0 + rows, Sq)
+        k1 = min(kl_hi, qo_hi + r1) if causal else kl_hi
+        k0 = max(0, qo_lo + r0 - window + 1) if window is not None else 0
+        if k1 <= k0:
+            continue
+        qb = qg[:, r0:r1].float()
+        dob = dog[:, r0:r1].float()
+        kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
+        s = torch.einsum("bqkgh,bckh->bkgqc", qb, kb) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        qp = (qo[:, None] + torch.arange(r0, r1, device=dev))[:, :, None]
+        kp = torch.arange(k0, k1, device=dev)[None, None, :]
+        ok = kp < kl[:, None, None]
+        if causal:
+            ok = ok & (kp <= qp)
+        if window is not None:
+            ok = ok & (kp > qp - window)
+        ok = ok[:, None, None]                              # (B,1,1,R,C)
+        s = torch.where(ok, s, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(m == float("-inf"), 0.0, m)         # no key seen
+        p = torch.exp(s - m)
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        dp = torch.einsum("bqkgh,bckh->bkgqc", dob, vb)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dv[:, k0:k1] += torch.einsum("bkgqc,bqkgh->bckh", p, dob)
+        dq[:, r0:r1] = torch.einsum("bkgqc,bckh->bqkgh", ds, kb) * scale
+        dk[:, k0:k1] += torch.einsum("bkgqc,bqkgh->bckh", ds, qb) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel #5 under autograd. The forward is the prefill-attention
+    dispatch (the CUDA kernel on a CUDA tensor, the plain version on a CPU
+    one); the backward is ``flash_attention_backward_plain``. q_offset
+    and kv_len get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, softcap, window):
+        fn = (flash_attention_cuda if q.device.type == "cuda"
+              else flash_attention_plain)
+        ctx.save_for_backward(q, k, v, q_offset, kv_len)
+        ctx.mask = (causal, softcap, window)
+        return fn(q, k, v, q_offset, kv_len, causal=causal, softcap=softcap,
+                  window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_offset, kv_len = ctx.saved_tensors
+        causal, softcap, window = ctx.mask
+        dq, dk, dv = flash_attention_backward_plain(
+            q, k, v, dout, q_offset, kv_len, causal=causal, softcap=softcap,
+            window=window)
+        return dq, dk, dv, None, None, None, None, None

@@ -43,6 +43,14 @@ def flash_attention(q, k, v, q_offset, kv_len, *, causal=True, softcap=None,
               window=window)
 
 
+def flash_attention_autograd(q, k, v, q_offset, kv_len, *, causal=True,
+                             softcap=None, window=None):
+    """``flash_attention`` under autograd (``FlashAttentionFn``): the same
+    dispatch forward, the plain backward."""
+    return _fa.FlashAttentionFn.apply(q, k, v, q_offset, kv_len, causal,
+                                      softcap, window)
+
+
 def ssm_update(h, dt, x, A, B, C, d_skip, *, h_out=None):
     """See ``kernels/ssm_update.py``."""
     fn = (_ssm.ssm_update_cuda if h.device.type == "cuda"

@@ -1,0 +1,127 @@
+"""Training driver with supervised restarts.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch qwen2-7b --steps 20 --ckpt-dir /tmp/ckpt --fail-at 7
+    PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \
+        --seq 2048 --batch 4 --steps 8        # llama2-7b, bf16, one H100
+
+Builds a dense model (a reduced smoke config unless ``--full``, then cut
+to ``--layers`` of its layers if given) with random weights from seed 0,
+and trains it with AdamW, chunked cross-entropy and checkpoints under
+the fault supervisor (``distributed/fault.py``), injecting failures at
+``--fail-at`` steps to exercise the restart path. Batches are a function
+of (seed 0, step). It runs on ``cuda`` in bf16 over an fp32 master
+unless ``--device cpu`` is given (fp32 on the CPU); with no GPU present
+and no ``--device`` it fails instead of falling back to the CPU. Each
+step prints its loss, gradient norm and wall time.
+
+Refused, each naming the ROADMAP.md item that brings it: a ``--mesh``
+other than 1x1 (multi-GPU), and an ``--arch`` outside the dense family
+(MoE training needs its load-balance aux loss; the ssm, hybrid, enc-dec
+and VLM families need their training forwards).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import torch
+
+from repro_torch.config.arch import reduced_for_smoke
+from repro_torch.configs import get_arch
+from repro_torch.distributed.fault import FailureInjector, run_supervised
+from repro_torch.models.model import Model, resolve_device
+from repro_torch.training import (AdamWConfig, CheckpointManager, DataConfig,
+                                  Trainer, batch_at)
+from repro_torch.training.tree import tree_leaves
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--arch", default="qwen2-7b")
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--seq", type=int, default=64)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory (default: repro_ckpt under "
+                        "$TMPDIR)")
+    p.add_argument("--ckpt-every", type=int, default=10)
+    p.add_argument("--fail-at", type=int, nargs="*", default=[])
+    p.add_argument("--full", action="store_true",
+                   help="the architecture at its published width")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the depth to this many layers")
+    p.add_argument("--mesh", default="1x1", help="data x model; only 1x1")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' trains in fp32 "
+                        "through the kernels' plain versions)")
+    return p
+
+
+def build(args, device: torch.device):
+    """(cfg, Trainer) for the parsed arguments."""
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = reduced_for_smoke(cfg)
+    if args.layers is not None:
+        cfg = cfg.scaled(n_layers=args.layers)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = Model(cfg, dtype=dtype, device=device)
+    return cfg, Trainer(model, AdamWConfig(lr=args.lr), loss_chunks=4)
+
+
+def main(argv=None) -> dict:
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.mesh != "1x1":
+        p.error(f"--mesh {args.mesh}: sharded training over several cards "
+                "(ROADMAP.md, queue 1: multi-GPU) is not ported to "
+                "repro_torch yet")
+    family = get_arch(args.arch).family
+    if family != "dense":
+        raise NotImplementedError(
+            f"--arch {args.arch}: training of the {family} family "
+            "(ROADMAP.md, queue 1: training beyond the dense family) is "
+            "not ported to repro_torch yet")
+    device = resolve_device(args.device)
+    cfg, trainer = build(args, device)
+    state = trainer.init_state(0)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M parameters, {trainer.model.dtype} over "
+          f"an fp32 master on {device}; seq {args.seq}, batch {args.batch}")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                    global_batch=args.batch)
+    ckpt_dir = args.ckpt_dir or os.path.join(
+        os.environ.get("TMPDIR", "/tmp"), "repro_ckpt")
+    ckpt = CheckpointManager(ckpt_dir)
+    injector = FailureInjector(fail_at=tuple(args.fail_at))
+    live = {"state": state}
+    losses = {}
+
+    def one_step(step: int):
+        injector.check(step)
+        t0 = time.perf_counter()
+        live["state"], metrics = trainer.train_step(
+            live["state"], batch_at(dc, step, device=device))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        losses[step] = loss
+        print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+              f"wall {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        return metrics
+
+    t0 = time.perf_counter()
+    report = run_supervised(
+        one_step, ckpt=ckpt, save_state=lambda: live["state"],
+        load_state=lambda step, s: live.update(state=s),
+        n_steps=args.steps, ckpt_every=args.ckpt_every)
+    print(f"done: {report.steps_run} steps, {report.restarts} restarts, "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"report": dataclasses.asdict(report), "losses": losses,
+            "state": live["state"]}
+
+
+if __name__ == "__main__":
+    main()

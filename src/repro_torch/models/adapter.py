@@ -63,6 +63,12 @@ class FamilyAdapter:
         row = self.kv_row(li)
         return out["kv"][0][row][0], out["kv"][1][row][0]
 
+    def forward(self, params, batch, *, skip_logits: bool = False):
+        raise NotImplementedError(
+            f"{self.model.cfg.name}: the training forward of the "
+            f"{self.model.cfg.family!r} family is not ported yet "
+            "(ROADMAP.md, queue 1: training beyond the dense family)")
+
     def decode_step_paged(self, params, cache, tokens):
         raise NotImplementedError(
             f"paged decode requires an lm-family model; "
@@ -103,6 +109,23 @@ class LMAdapter(FamilyAdapter):
         if patches is not None:
             out["patches"] = patches
         return out
+
+    def forward(self, params, batch, *, skip_logits: bool = False):
+        """The training forward of a dense stack; MoE (its load-balance
+        aux loss) and VLM training are not ported yet."""
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.layers.embedding import logits
+        if self.model.cfg.family != "dense":
+            return super().forward(params, batch, skip_logits=skip_logits)
+        out = tfm.lm_forward(params, batch["tokens"], self.model.h,
+                             skip_logits=True)
+        if skip_logits:
+            return out
+        c = self.model.cfg
+        return {"logits": logits(params["embed"], out["final_x"],
+                                 softcap=c.logit_softcap,
+                                 true_vocab=c.vocab_size),
+                "aux": out["aux"]}
 
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import transformer as tfm

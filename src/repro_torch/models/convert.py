@@ -12,7 +12,8 @@ stacked (n_super, ...)) and the ``encdec`` tree (``enc_blocks`` and
 ``enc_norm`` of the encoder; ``dec_blocks`` with ``self_attn``, ``ln_x``
 and ``cross_attn``) are taken; ``a_log`` (and Mamba2's ``dt_bias`` and
 ``d_skip``) stay fp32 whatever the model dtype, as the JAX package
-initialises them. Missing keys raise."""
+initialises them. Missing keys raise. ``from_jax_train_state`` carries a
+whole train state (params, AdamW moments, step) the same way."""
 from __future__ import annotations
 
 import numpy as np
@@ -147,3 +148,22 @@ def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int) -> dict:
     blocks[ffn] = {k: take((root, ffn, k), s)
                    for k, s in ffn_shapes.items()}
     return blocks
+
+
+def from_jax_train_state(np_state: dict, cfg: ArchConfig, *,
+                         device) -> dict:
+    """The JAX package's train state ``{"params", "opt": {"m", "v",
+    "step"[, "ef"]}}`` (as numpy) as the port's: params and each moment
+    tree through ``from_jax_params``'s leaf mapping in fp32, so that m
+    and v sit beside their parameters, and the step an int32 scalar."""
+    opt = np_state["opt"]
+
+    def tree(t):
+        return from_jax_params(t, cfg, device=device, dtype=torch.float32)
+
+    out = {"m": tree(opt["m"]), "v": tree(opt["v"]),
+           "step": torch.tensor(int(np.asarray(opt["step"])),
+                                dtype=torch.int32, device=device)}
+    if "ef" in opt:
+        out["ef"] = tree(opt["ef"])
+    return {"params": tree(np_state["params"]), "opt": out}

@@ -4,9 +4,10 @@ Prefill attention (``kernels.ops.flash_attention``) and decode attention
 over a contiguous cache (``kernels.ops.decode_attention``) or a paged
 pool (``kernels.ops.decode_attention_paged``) all go through the kernel
 dispatcher: the CUDA kernels on the card, their plain PyTorch versions on
-the CPU. K and V are not projected here: ``models/transformer.py``
-projects them through the restoration kernel, so prefill and restoration
-share one K/V code path.
+the CPU. In serving K and V are not projected here:
+``models/transformer.py`` projects them through the restoration kernel,
+so prefill and restoration share one K/V code path; the training forward
+projects them by plain products (``project_qkv``).
 """
 from __future__ import annotations
 
@@ -62,6 +63,23 @@ def project_q(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
     return q
 
 
+def project_qkv(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,Kv,hd) by plain products, RoPE
+    on q and k from cos/sin (B,S,hd/2): the training forward's projection
+    (the JAX package's ``project_qkv``); serving projects K/V through the
+    restoration kernel instead (``transformer._attn_qkv``)."""
+    B, S, _ = x.shape
+    k = torch.matmul(x, p["wk"])
+    v = torch.matmul(x, p["wv"])
+    if h.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(B, S, h.n_kv_heads, h.head_dim)
+    v = v.reshape(B, S, h.n_kv_heads, h.head_dim)
+    if h.use_rope:
+        k = apply_rope_tables(k, cos, sin)
+    return project_q(p, x, h, cos, sin), k, v
+
+
 @functools.lru_cache(maxsize=256)
 def _prefill_lens(B: int, q_offset: int, kv_len: int, device: torch.device):
     """(q_offset, kv_len) as (B,) int32 device tensors, uploaded once per
@@ -78,12 +96,18 @@ def flash_attention(q, k, v, h: AttnHyper, *, q_offset: int, causal: bool,
     """Prefill attention through the kernel dispatcher
     (``kernels.ops.flash_attention``). q (B,Sq,H,hd), k/v (B,Skv,Kv,hd)
     -> (B,Sq,H,hd); query row i sits at position ``q_offset + i``, and
-    ``kv_len`` (default Skv) keys are live."""
+    ``kv_len`` (default Skv) keys are live. Under autograd (grad enabled
+    and an input that requires grad) it goes through
+    ``ops.flash_attention_autograd``, the same kernel with a backward."""
     B, Skv = q.shape[0], k.shape[1]
     qo, kl = _prefill_lens(B, int(q_offset),
                            Skv if kv_len is None else int(kv_len), q.device)
-    return ops.flash_attention(q, k, v, qo, kl, causal=causal,
-                               softcap=h.attn_softcap, window=window)
+    fn = ops.flash_attention
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        fn = ops.flash_attention_autograd
+    return fn(q, k, v, qo, kl, causal=causal, softcap=h.attn_softcap,
+              window=window)
 
 
 def decode_attention(q, k_cache, v_cache, h: AttnHyper, *, kv_len,

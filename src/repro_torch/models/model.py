@@ -11,6 +11,8 @@ frame embeddings feed the encoder, ``models/encdec.py``).
 to its family adapter (models/adapter.py):
 
     init(seed)                          -> parameter dict on the device
+    forward(params, batch, skip_logits) -> the training forward (dense:
+                                           final hidden states or logits)
     prefill(params, batch, ...)         -> logits + K/V or final recurrent
                                            states (+ hidden states)
     decode_step(params, cache, tokens)  -> (logits, cache)
@@ -88,6 +90,12 @@ class Model:
         device, seeded with ``seed``."""
         return self.adapter.init(
             torch.Generator(device=self.device).manual_seed(seed))
+
+    def forward(self, params, batch, *, skip_logits: bool = False) -> dict:
+        """Training forward over ``batch["tokens"]`` (B,S): dict(logits
+        (B,S,V), aux), or dict(final_x (B,S,D), aux) with ``skip_logits``
+        (the chunked loss computes the logits). Dense family only."""
+        return self.adapter.forward(params, batch, skip_logits=skip_logits)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):

@@ -12,6 +12,11 @@ Entry points (functions over the parameter dict):
   lm_decode_step_paged -> the same over a paged KV pool (block tables)
   lm_restore_kv   -> the paper's op: stacked K/V from stacked saved
                      hidden states (norm + projection + RoPE only)
+  lm_train_forward -> the training forward (``lm_forward(...,
+                     skip_logits=True)``): final hidden states for the
+                     chunked loss, each block under activation
+                     checkpointing, differentiable through
+                     kernel #5
 
 The saved hidden state of layer i is the residual-stream INPUT to layer i.
 Prefill, decode and restoration all compute K/V with ``norm_rows`` and
@@ -39,6 +44,7 @@ import functools
 from typing import List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config.arch import ArchConfig, AttnKind
 from repro_torch.kernels import ops
@@ -278,6 +284,57 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
     return _block_tail(layer_params(blocks, li), x, attn_out, h)
 
 
+def block_train(p: dict, x, h: LMHyper, *, cos, sin,
+                window: Optional[int]):
+    """Full-sequence block for training: ``p`` one layer's parameters, x
+    (B,S,D) at positions [0, S), cos/sin (B,S,hd/2). Q, K and V come from
+    plain products (``layers.attention.project_qkv``) and attention from
+    kernel #5 under autograd. Returns x_out."""
+    c = h.cfg
+    normed = apply_norm(p["ln1"], x, c.norm, c.norm_eps)
+    q, k, v = attn_lib.project_qkv(p["attn"], normed, h.attn, cos, sin)
+    attn_out = attn_lib.flash_attention(q, k, v, h.attn, q_offset=0,
+                                        causal=True, window=window)
+    return _block_tail(p, x, attn_out, h)
+
+
+def unstack_layers(blocks: dict) -> List[dict]:
+    """The stacked block parameters as per-layer trees, one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where ``layer_params``' per-layer selects would each add a zeroed
+    stack."""
+    def split(t):
+        return (list(t.unbind(0)) if isinstance(t, torch.Tensor)
+                else [dict(zip(t, vals)) for vals in
+                      zip(*(split(v) for v in t.values()))])
+    return split(blocks)
+
+
+def lm_train_forward(params: dict, tokens: torch.Tensor, h: LMHyper) -> dict:
+    """Training forward of a dense stack (the JAX package's ``lm_forward``
+    with ``skip_logits``): tokens (B,S) at positions [0, S) -> dict(final_x
+    (B,S,D) after the final norm, aux 0.0). With grad enabled each block
+    runs under ``torch.utils.checkpoint`` (the reference's ``remat=
+    "full"``, the only setting its launcher and tests use): backward
+    recomputes it from its input, so only the block inputs stay alive."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    cos, sin = rope_at(h.attn, positions, S)
+    x = _embed_input(params, h, tokens, positions, S)
+    windows = layer_windows(h)
+    remat = torch.is_grad_enabled()
+    for li, p in enumerate(unstack_layers(params["blocks"])):
+        fn = functools.partial(block_train, p, h=h, cos=cos, sin=sin,
+                               window=windows[li])
+        x = (torch.utils.checkpoint.checkpoint(
+            fn, x, use_reentrant=False, preserve_rng_state=False)
+            if remat else fn(x))
+    c = h.cfg
+    return {"final_x": apply_norm(params["final_norm"], x, c.norm,
+                                  c.norm_eps),
+            "aux": 0.0}
+
+
 # ------------------------------------------------------------ full forward
 def _embed_input(params: dict, h: LMHyper, tokens, positions, end: int,
                  patch_embeds=None):
@@ -309,14 +366,22 @@ def _final_logits(params: dict, x, h: LMHyper):
 def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
                patch_embeds=None, hist_kv=None,
                hist_len: Optional[int] = None, capture_hidden: bool = False,
-               emit_kv: bool = False,
-               final_logits_only: bool = False) -> dict:
+               emit_kv: bool = False, final_logits_only: bool = False,
+               skip_logits: bool = False) -> dict:
     """Prefill forward. tokens (B,S) int; patch_embeds optional (B,n_vis,D)
     in place of the first n_vis tokens' embeddings; hist_kv optional
     restored history, a stacked (L,B,Sh,Kv,hd) pair, with ``hist_len``
     live positions. Returns dict(logits, kv, hidden): kv a (k, v) pair of
     (L,B,S,Kv,hd) when ``emit_kv``, hidden (L,B,S,D) when
-    ``capture_hidden``, else None."""
+    ``capture_hidden``, else None. ``skip_logits`` runs the training
+    forward instead (``lm_train_forward``: dict(final_x, aux)), which
+    takes none of the other options."""
+    if skip_logits:
+        if (patch_embeds is not None or hist_kv is not None
+                or hist_len is not None or capture_hidden or emit_kv
+                or final_logits_only):
+            raise ValueError("the training forward takes tokens only")
+        return lm_train_forward(params, tokens, h)
     B, S = tokens.shape
     base = 0 if hist_len is None else int(hist_len)
     positions = base + torch.arange(S, device=tokens.device)[None, :]

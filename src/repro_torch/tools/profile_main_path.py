@@ -18,7 +18,10 @@ same way and profiles (5) 8 decode steps of the contiguous backend at 4
 slots, each holding the states of a 512-token prefill, and (6) the
 prefill of a 2000-token prompt (``ssm_forward``, the lifecycle's round 0).
 ``--windows ssm`` runs (5) and (6) alone, ``--windows restore`` the
-restores of (1) alone; ``--src`` profiles the
+restores of (1) alone, ``--windows train`` (7) alone: one training step
+of llama2-7b at full width and 4 of its 32 layers on 4 x 2048 tokens
+(bf16 over an fp32 master, chunked loss, each block recomputed, AdamW),
+as ``chip_smoke.py`` trains it; ``--src`` profiles the
 ``repro_torch`` of another ``src`` directory (``git archive`` of another
 commit unpacked under the gitignored ``build/``), so one chip call can
 hold two trees against each other. For each window it prints the wall
@@ -50,7 +53,7 @@ SSM_PROMPT = 512                     # falcon-mamba: states of this prefill
 SSM_PREFILL = 2000                   # falcon-mamba: the prefill window
 
 
-def report(name: str, prof, wall_s: float) -> None:
+def report(name: str, prof, wall_s: float, top: int = TOP) -> None:
     # device-side events only (kernels, copies): an operator's CPU event
     # repeats the device time of the kernels it launched
     events = [e for e in prof.key_averages()
@@ -63,7 +66,7 @@ def report(name: str, prof, wall_s: float) -> None:
         return
     print(f"{name}: wall {wall_s * 1e3:.1f} ms, device {device_ms:.1f} ms, "
           f"idle share {1 - device_ms / (wall_s * 1e3):.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 
@@ -82,7 +85,7 @@ def profiled(fn):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=None)
-    ap.add_argument("--windows", choices=("all", "ssm", "restore"),
+    ap.add_argument("--windows", choices=("all", "ssm", "restore", "train"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -93,10 +96,45 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.windows == "train":
+        profile_train()
+        return
     if args.windows != "ssm":
         profile_llama(restore_only=args.windows == "restore")
     if args.windows != "restore":
         profile_ssm()
+
+
+def profile_train() -> None:
+    """One AdamW step of llama2-7b at full width and 4 of its 32 layers
+    on 4 x 2048 seeded tokens, after two warm steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, DataConfig, Trainer,
+                                      batch_at)
+    cfg = get_arch("llama2-7b").scaled(n_layers=4)
+    trainer = Trainer(Model(cfg, dtype=torch.bfloat16), AdamWConfig(),
+                      loss_chunks=4)
+    live = {"state": trainer.init_state(0)}
+    batch = batch_at(DataConfig(cfg.vocab_size, 2048, 4), 0,
+                     device=trainer.model.device)
+
+    def step():
+        live["state"], m = trainer.train_step(live["state"], batch)
+        float(m["loss"])
+
+    for _ in range(2):                              # warm
+        step()
+    _, prof, wall = profiled(step)
+    report("llama2-7b train step (4 layers, 4 x 2048 tokens)", prof, wall,
+           top=16)
+    # the device time of the kernels each autograd node launched, for the
+    # attention backward (plain PyTorch) and the products' backward
+    nodes = [e for e in prof.key_averages() if e.device_time_total > 0
+             and e.key.startswith("autograd::engine::evaluate_function")]
+    for e in sorted(nodes, key=lambda e: -e.device_time_total)[:TOP]:
+        print(f"  {e.device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+              f"{e.key.split(': ', 1)[-1][:80]} (inclusive)")
 
 
 def profile_llama(restore_only: bool = False) -> None:
