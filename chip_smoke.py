@@ -186,17 +186,31 @@ Needs one CUDA GPU and the repository checkout around this file. It
      layer on a first chunk) and every decode step the decode kernels
      twice per decoder layer (self and cross), every request against the
      encoder and one plain decoder forward over its stream;
- 11. trains: kernel #5 under autograd (``FlashAttentionFn``) at the
-     training shape (B=4, S=2048, 32 heads of 128, causal, bf16), its
-     forward against the plain version within TOL and P's rounding
+ 11. trains every family at its shape on the card (``training.data.
+     CARD_TRAIN_SHAPES``), bf16 over an fp32 master, one repeated seeded
+     batch: llama2-7b at full width and 4 of its 32 layers, 8 AdamW steps
+     on 4 x 2048 tokens (every layer's wq/wk/wv gradient finite and
+     non-zero, the loss falling; step ms, tokens/s, peak memory); then
+     ``launch/train.py`` on the smoke config with a failure injected at
+     step 7, bitwise equal to the uninterrupted run; then kernel #6 under
+     autograd (``SSMScanFn``: a launch per 128-token chunk, a plain
+     backward), its forward at falcon-mamba-7b's training shape against
+     the plain scan and its gradients at a small shape against autograd
+     through the plain scan, timed; then one gradient and 3 AdamW steps
+     each of granite-moe-1b-a400m (24 layers; every wq/wk/wv and router
+     gradient non-zero, the recompute's routing equal to the forward's,
+     aux finite and positive), falcon-mamba-7b (4 layers; a_log,
+     dt_proj, x_proj and conv_w gradients non-zero), zamba2-2.7b (12
+     layers; Mamba2 a_log and attention wq/wk/wv gradients non-zero),
+     whisper-medium (24 + 24 layers over 1500 frames; encoder q/k/v and
+     cross k/v gradients non-zero) and internvl2-26b (1 layer, 256 patch
+     positions; wq/wk/wv gradients non-zero, every gradient finite), each
+     loss finite and falling; last, kernel #5 under autograd
+     (``FlashAttentionFn``) at every shape these phases gave it (GQA,
+     non-causal encoders, cross-attention over more keys than queries):
+     its forward against the plain version within TOL and P's rounding
      bound and its backward (plain PyTorch) against fp32 autograd
-     through a dense attention, both timed beside SDPA's; then
-     llama2-7b at full width and 4 of its 32 layers, bf16 over an fp32
-     master, 8 AdamW steps on one repeated batch of 4 x 2048 tokens (every
-     layer's wq/wk/wv gradient finite and non-zero, the loss falling;
-     step ms, tokens/s, peak memory); then ``launch/train.py`` on the
-     smoke config with a failure injected at step 7, bitwise equal to
-     the uninterrupted run;
+     through a dense attention, both timed beside SDPA's;
  12. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
@@ -3810,11 +3824,11 @@ def with_drop_shares(fn):
     route, prefill = moe.route, ad.LMAdapter.prefill
 
     def recorded_route(p, x, h):
-        weight, slot = route(p, x, h)
+        weight, slot, probs = route(p, x, h)
         if log is not None:
             dropped = h.n_experts * moe.capacity(x.shape[1], h)
             log.append((slot.numel(), (slot == dropped).sum()))
-        return weight, slot
+        return weight, slot, probs
 
     def recorded_prefill(self, params, batch, **kw):
         nonlocal log
@@ -3910,165 +3924,294 @@ def serve_moe_vlm(drive):
 
 
 # --------------------------------------------------------------- training
-# llama2-7b at full width (d 4096, 32 heads of 128, FFN 11008, vocab 32000)
-# cut to TRAIN_LAYERS of its 32 layers (at full depth its fp32 master, m,
-# v and gradient and the bf16 copy, ~18 bytes per parameter, are ~120 GB),
-# bf16 compute over an fp32 master, each block recomputed in backward;
-# TRAIN_STEPS AdamW steps on one repeated batch of TRAIN_BATCH sequences
-# of TRAIN_SEQ tokens. Then a supervised restart of the smoke config
-# through ``launch/train.py``: RESTART_STEPS steps, a checkpoint every
-# RESTART_EVERY, a failure injected at RESTART_FAIL_AT, against the same
-# run uninterrupted.
-TRAIN_ARCH, TRAIN_LAYERS = "llama2-7b", 4
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 4, 8
+# Every family trained at its shape on the card (``training.data.
+# CARD_TRAIN_SHAPES``: full width, bf16 compute over an fp32 master, each
+# block recomputed in backward), one gradient and then AdamW steps on one
+# repeated seeded batch. llama2-7b first, at 4 of its 32 layers (at full
+# depth its fp32 master, m, v and gradient and the bf16 copy, ~18 bytes per
+# parameter, are ~120 GB): TRAIN_STEPS steps at rate TRAIN_LR. Then a
+# supervised restart of its smoke config through ``launch/train.py``:
+# RESTART_STEPS steps, a checkpoint every RESTART_EVERY, a failure
+# injected at RESTART_FAIL_AT, against the same run uninterrupted. Then
+# the other families, FAMILY_STEPS steps each at FAMILY_LR.
+TRAIN_ARCH = "llama2-7b"
+TRAIN_STEPS, TRAIN_LR = 8, 1e-3
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 3, 7
+FAMILY_STEPS = 3
+# AdamW's rate for the other families: at 1e-3, whisper-medium's third
+# step overshot its first loss (its tied table at unit scale makes the
+# logits large, and every weight moves by the rate at each step)
+FAMILY_LR = 1e-4
 # kernel #5's backward (plain PyTorch, fp32 products of the bf16 inputs,
 # rounded to bf16 once) against fp32 autograd through a dense attention:
 # TOL["bf16"], one bf16 rounding of each output beside the sums' order
 FLASH_BWD_TOL = "bf16"
 
 
-def dense_attention(q, k, v):
-    """Causal softmax attention in fp32 (H == Kv), one batch row at a
-    time: the autograd reference for kernel #5's backward."""
+def recorded_flash_shapes(fn, shapes: dict, phase: str):
+    """``fn()`` with every ``FlashAttentionFn`` call (``ops.
+    flash_attention_autograd``, the training path's route to kernel #5)
+    counted into ``shapes`` by (B, Sq, Skv, H, Kv, hd, causal, softcap,
+    window): each entry's ``launches``, the ``phases`` that made them, and
+    ``other_lens``, a device flag set where a call's query offsets were not
+    all 0 or its key lengths not all Skv (read once, after the phases)."""
     import torch
-    S, hd = q.shape[1], q.shape[3]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    from repro_torch.kernels import ops
+    autograd = ops.flash_attention_autograd
+
+    def spy(q, k, v, q_offset, kv_len, *, causal=True, softcap=None,
+            window=None):
+        key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+               causal, softcap, window)
+        e = shapes.setdefault(key, {"launches": 0, "phases": [],
+                                    "other_lens": torch.zeros(
+                                        (), dtype=torch.bool,
+                                        device=q.device)})
+        e["launches"] += 1
+        if phase not in e["phases"]:
+            e["phases"].append(phase)
+        e["other_lens"] |= (q_offset != 0).any() | (kv_len != k.shape[1]).any()
+        return autograd(q, k, v, q_offset, kv_len, causal=causal,
+                        softcap=softcap, window=window)
+
+    ops.flash_attention_autograd = spy
+    try:
+        return fn()
+    finally:
+        ops.flash_attention_autograd = autograd
+
+
+def attention_mask(Sq, Skv, causal, window):
+    """(Sq, Skv) bool, True where query i (at position i) sees key j."""
+    import torch
+    qp = torch.arange(Sq, device="cuda")[:, None]
+    kp = torch.arange(Skv, device="cuda")[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool, device="cuda")
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return ok
+
+
+def dense_attention(q, k, v, mask, softcap):
+    """Softmax attention in fp32 over ``mask`` (Sq, Skv), K/V heads shared
+    by H/Kv query heads each (GQA), logits softcapped where ``softcap`` is
+    set, one batch row at a time: the autograd reference for kernel #5's
+    backward (every query row sees a key)."""
+    import torch
+    g, hd = q.shape[2] // k.shape[2], q.shape[3]
     outs = []
     for b in range(q.shape[0]):
-        s = torch.einsum("qhd,khd->hqk", q[b], k[b]) * hd ** -0.5
+        kb, vb = (t[b].repeat_interleave(g, 1) for t in (k, v))
+        s = torch.einsum("qhd,khd->hqk", q[b], kb) * hd ** -0.5
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
         p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-        outs.append(torch.einsum("hqk,khd->qhd", p, v[b]))
+        outs.append(torch.einsum("hqk,khd->qhd", p, vb))
     return torch.stack(outs)
 
 
-def check_flash_train(card: str):
-    """Kernel #5 under autograd (``FlashAttentionFn``) at the training
-    shape (llama2-7b: B=TRAIN_BATCH, S=TRAIN_SEQ, 32 heads of 128, causal
-    self-attention), bf16: its forward (the kernel) against the plain
-    version within TOL and P's rounding bound; its backward against fp32
-    autograd through ``dense_attention`` within FLASH_BWD_TOL, per batch
-    row; times of the forward (kernel, plain, SDPA) and of the backward
-    (plain, SDPA's) with their bounds. Inputs from a generator of its
-    own."""
+def check_flash_train(card: str, key, seed: int):
+    """Kernel #5 under autograd (``FlashAttentionFn``) at one shape of the
+    training path, ``key`` = (B, Sq, Skv, H, Kv, hd, causal, softcap,
+    window) as ``recorded_flash_shapes`` keys it, bf16, query offsets 0
+    and every key live: its forward (the kernel) against the plain version
+    within TOL and P's rounding bound; its backward against fp32 autograd
+    through ``dense_attention`` within FLASH_BWD_TOL; times of the forward
+    (kernel, plain, SDPA) and of the backward (plain, SDPA's) with their
+    bounds. SDPA runs with K/V heads expanded, and not at all under a
+    softcap, which it does not take. Inputs from a generator of its own,
+    seeded with ``seed``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    q, k, v = flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 128,
-                         torch.bfloat16, gen)
-    B, S, H, hd = q.shape
+    B, Sq, Skv, H, Kv, hd, causal, softcap, window = key
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = flash_case(B, Sq, Skv, H, Kv, hd, torch.bfloat16, gen)
     dout = torch.randn(q.shape, generator=gen,
                        device="cuda").to(torch.bfloat16)
     off = torch.zeros(B, dtype=torch.int32, device="cuda")
-    kl = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    kl = torch.full((B,), Skv, dtype=torch.int32, device="cuda")
+    mask_kw = {"causal": causal, "softcap": softcap, "window": window}
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = fa.FlashAttentionFn.apply(*leaves, off, kl, True, None, None)
+    out = fa.FlashAttentionFn.apply(*leaves, off, kl, causal, softcap,
+                                    window)
     out.backward(dout)
     torch.cuda.synchronize()
-    err = check_close("flash train forward", out.detach(),
-                      fa.flash_attention_plain(q, k, v, off, kl), "bf16",
-                      fa.flash_p_rounding_bound(q, k, v, off, kl))
+    name = (f"flash train B={B} Sq={Sq} Skv={Skv} H={H} Kv={Kv} hd={hd} "
+            + ("causal" if causal else "non-causal"))
+    err = check_close(f"{name} forward", out.detach(),
+                      fa.flash_attention_plain(q, k, v, off, kl, **mask_kw),
+                      "bf16", fa.flash_p_rounding_bound(q, k, v, off, kl,
+                                                        **mask_kw))
+    mask = attention_mask(Sq, Skv, causal, window)
     ref = [t.float().requires_grad_(True) for t in (q, k, v)]
-    dense_attention(*ref).backward(dout.float())
-    bwd_err = max(check_close(f"flash train d{n}", t.grad, r.grad,
+    dense_attention(*ref, mask, softcap).backward(dout.float())
+    bwd_err = max(check_close(f"{name} d{n}", t.grad, r.grad,
                               FLASH_BWD_TOL)
                   for n, t, r in zip("qkv", leaves, ref))
-    del ref
-    ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl), n=20)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, off, kl), 3)
-    lib_ms = sdpa_ms(F, q, k, v, 0)
-    bound_ms, bound_by, flops, nbytes = flash_cost(card, B, S, S, H, H, hd,
-                                                   0)
+    del ref, leaves, out
+    ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v, off, kl,
+                                                  **mask_kw), n=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, off, kl,
+                                                        **mask_kw), 3)
     bwd_ms = time_ms(lambda: fa.flash_attention_backward_plain(
-        q, k, v, dout, off, kl), 3)
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    do = dout.transpose(1, 2)
-    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
-                                                     retain_graph=True), 5)
-    # backward: q, k, v and dout read, dq, dk and dv written; 10 hd
-    # operations per visible (query, key) pair (the scores recomputed,
-    # dP, dV, dQ and dK), at the bf16 tensor rate a kernel would run
-    bwd_bytes = 2 * B * (3 * S * H * hd + 4 * S * H * hd) + 8 * B
+        q, k, v, dout, off, kl, **mask_kw), 3)
+    lib_ms = lib_bwd_ms = None
+    if softcap is None:
+        qs = q.transpose(1, 2).contiguous().requires_grad_(True)
+        ks, vs = (t.repeat_interleave(H // Kv, 2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        full = bool(mask.all())
+        plain_causal = causal and window is None and Sq == Skv
+        sdpa_kw = ({"is_causal": True} if plain_causal else
+                   {} if full else {"attn_mask": mask})
+        with torch.no_grad():
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, **sdpa_kw))
+        o = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+        do = dout.transpose(1, 2)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), do, retain_graph=True), 5)
+        del qs, ks, vs, o
+    # forward: q read and out written once, K and V read once, 4 hd
+    # operations per visible (query, key) pair; backward: q, k, v and dout
+    # read, dq, dk and dv written, 10 hd operations per visible pair (the
+    # scores recomputed, dP, dV, dQ and dK), at the bf16 tensor rate a
+    # kernel would run
+    pairs = B * int(mask.sum())
+    flops = 4 * hd * H * pairs
+    nbytes = 2 * B * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8 * B
+    bound_ms, bound_by = bound(flops, nbytes, card)
+    bwd_bytes = 2 * B * (3 * Sq * H * hd + 4 * Skv * Kv * hd) + 8 * B
     bwd_bound_ms, bwd_by = bound(2.5 * flops, bwd_bytes, card)
-    print(f"flash_attention training shape B={B} S={S} H=Kv={H} hd={hd} "
-          f"causal bf16: forward (FlashAttentionFn, the kernel) max_abs_err "
+    lib = (f"SDPA {lib_ms:.4f} ms (graph)" if lib_ms is not None
+           else "no SDPA (softcap)")
+    lib_bwd = (f"SDPA's backward {lib_bwd_ms:.3f} ms"
+               if lib_bwd_ms is not None else "no SDPA backward")
+    print(f"flash_attention training shape B={B} Sq={Sq} Skv={Skv} H={H} "
+          f"Kv={Kv} hd={hd} {'causal' if causal else 'non-causal'}"
+          + (f" softcap {softcap}" if softcap is not None else "")
+          + (f" window {window}" if window is not None else "")
+          + f" bf16: forward (FlashAttentionFn, the kernel) max_abs_err "
           f"{err:.3g}; kernel {ms:.4f} ms (CUDA graph of 20), plain "
-          f"{plain_ms:.2f} ms, SDPA {lib_ms:.4f} ms (graph), bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP in the "
-          f"causal band, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.0%} of the "
-          f"bound; backward (plain PyTorch, fp32 products) max_abs_err "
+          f"{plain_ms:.2f} ms, {lib}, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{flops / 1e9:.1f} GFLOP over the visible pairs, "
+          f"{nbytes / 1e6:.1f} MB), {bound_ms / ms:.0%} of the bound; "
+          f"backward (plain PyTorch, fp32 products) max_abs_err "
           f"{bwd_err:.3g} against fp32 autograd ({FLASH_BWD_TOL} TOL), "
-          f"{bwd_ms:.2f} ms, SDPA's backward {lib_bwd_ms:.3f} ms, bound "
-          f"{bwd_bound_ms:.4f} ms ({bwd_by}, bf16 rate)")
-    return {"B": B, "S": S, "H": H, "hd": hd, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "backward_max_abs_err": bwd_err,
-            "backward_plain_ms": bwd_ms, "backward_library_ms": lib_bwd_ms,
+          f"{bwd_ms:.2f} ms, {lib_bwd}, bound {bwd_bound_ms:.4f} ms "
+          f"({bwd_by}, bf16 rate)")
+    return {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Kv": Kv, "hd": hd,
+            "causal": causal, "softcap": softcap, "window": window,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "backward_max_abs_err": bwd_err, "backward_plain_ms": bwd_ms,
+            "backward_library_ms": lib_bwd_ms,
             "backward_bound_ms": bwd_bound_ms, "backward_bound_by": bwd_by}
 
 
-def run_train():
-    """TRAIN_STEPS steps of llama2-7b at full width on one repeated batch:
-    the first step's gradient of every layer's wq/wk/wv must be finite and
-    non-zero (they reach the loss only through kernel #5's backward), and
-    the loss must fall. Prints step ms, tokens/s and peak memory."""
+def check_flash_train_shapes(card: str, shapes: dict):
+    """``check_flash_train`` at every shape the training phases gave
+    kernel #5 (``recorded_flash_shapes``), each with its launches and the
+    phases that made them; fails if a call had a query offset or a key
+    length the check does not cover."""
+    rows = []
+    for i, (key, e) in enumerate(shapes.items()):
+        if bool(e["other_lens"]):
+            raise AssertionError(f"flash train {key}: a call with query "
+                                 "offsets or key lengths other than 0 and "
+                                 "Skv")
+        row = check_flash_train(card, key, SEED + 15 + i)
+        row.update(launches=e["launches"], phases=e["phases"])
+        rows.append(row)
+    return rows
+
+
+def run_train(arch: str, lr: float, steps: int):
+    """One gradient and ``steps`` AdamW steps (rate ``lr``) of ``arch`` at
+    full width and its ``CARD_TRAIN_SHAPES`` depth on one repeated seeded
+    batch (an enc-dec with CARD_TRAIN_FRAMES frames of seeded normals x
+    0.1, a VLM with CARD_TRAIN_PATCHES patch positions of seeded normals x
+    0.02): the first gradient's ``family_gates``; a MoE stack's routing in
+    backward's recompute equal to the forward's, layer by layer, and its
+    aux finite and positive at every step; the loss finite at every step
+    and lower after the last. Prints step ms (median of steps 2-``steps``),
+    tokens/s, peak allocated memory and the gated norms."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
-    from repro_torch.training import (AdamWConfig, DataConfig, Trainer,
-                                      batch_at)
-    cfg = get_arch(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    from repro_torch.training import (CARD_TRAIN_FRAMES, CARD_TRAIN_PATCHES,
+                                      CARD_TRAIN_SHAPES, AdamWConfig,
+                                      DataConfig, Trainer, batch_at,
+                                      side_inputs)
+    layers, batch, seq = CARD_TRAIN_SHAPES[arch]
+    full = get_arch(arch)
+    cfg = full if layers is None else full.scaled(n_layers=layers)
     model = Model(cfg, dtype=torch.bfloat16)
-    trainer = Trainer(model, AdamWConfig(lr=1e-3), loss_chunks=4)
+    trainer = Trainer(model, AdamWConfig(lr=lr), loss_chunks=4)
     t0 = time.perf_counter()
     state = trainer.init_state(SEED)
     n_params = count_params(state["params"])
-    batch = batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                                seed=SEED), 0, device=model.device)
-    print(f"train {TRAIN_ARCH}: {TRAIN_LAYERS} of 32 layers, d="
-          f"{cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{n_params / 1e9:.3f} B params, bf16 over an fp32 master; init "
-          f"{_sync_s(t0):.1f} s")
-    _, _, grads = trainer.value_and_grad(state["params"], batch)
-    for w in ("wq", "wk", "wv"):
-        g = grads["blocks"]["attn"][w].float()
-        for li in range(TRAIN_LAYERS):
-            if not bool(g[li].isfinite().all()) or not bool(g[li].any()):
-                raise AssertionError(f"train: layer {li} {w} gradient is "
-                                     "not finite and non-zero")
-    norms = {w: [float(grads["blocks"]["attn"][w][li].norm())
-                 for li in range(TRAIN_LAYERS)] for w in ("wq", "wk", "wv")}
+    data = batch_at(DataConfig(cfg.vocab_size, seq, batch, seed=SEED), 0,
+                    device=model.device) | side_inputs(
+        cfg, batch, frames=CARD_TRAIN_FRAMES, patches=CARD_TRAIN_PATCHES,
+        seed=SEED + 28, device=model.device)
+    extra = "".join(f", {t.shape[1]} {k}" for k, t in data.items()
+                    if k in ("frames", "patches"))
+    print(f"train {arch}: {cfg.n_layers} of {full.n_layers} layers"
+          + (f" (+{cfg.encoder_layers} encoder)" if cfg.encoder_layers
+             else "") + f", d={cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params, bf16 over an fp32 master; batch "
+          f"{batch} x {seq} tokens{extra}; init {_sync_s(t0):.1f} s")
+    (_, parts, grads), slots = recorded_routes(
+        lambda: trainer.value_and_grad(state["params"], data))
+    norms = family_gates(cfg, grads)
     del grads
+    if cfg.n_experts:
+        L = cfg.n_layers
+        if len(slots) != 2 * L or not all(
+                torch.equal(slots[li], slots[2 * L - 1 - li])
+                for li in range(L)):
+            raise AssertionError(f"train {arch}: the recompute's routing "
+                                 "differs from the forward's")
+        print(f"train {arch}: the routing (slots) of all {L} layers in "
+              "backward's recompute equal to the forward's")
+    del slots
     torch.cuda.reset_peak_memory_stats()
-    losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
+    losses, walls, auxes = [], [], []
+    for _ in range(steps):
         t0 = time.perf_counter()
-        state, m = trainer.train_step(state, batch)
+        state, m = trainer.train_step(state, data)
         losses.append(float(m["loss"]))
         walls.append(_sync_s(t0))
+        auxes.append(float(m["aux"]))
         if not (losses[-1] == losses[-1] and abs(losses[-1]) < 1e4):
-            raise AssertionError(f"train: loss {losses[-1]}")
+            raise AssertionError(f"train {arch}: loss {losses[-1]}")
+        if cfg.n_experts and not 0 < auxes[-1] < 1e4:
+            raise AssertionError(f"train {arch}: aux {auxes[-1]}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"train {arch}: the loss did not fall: "
+                             f"{losses}")
     step_ms = statistics.median(walls[1:]) * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"train {TRAIN_ARCH}: wq/wk/wv gradient norms by layer "
-          + "; ".join(f"{w} " + ", ".join(f"{x:.3g}" for x in v)
-                      for w, v in norms.items()))
-    print(f"train {TRAIN_ARCH}: losses " + ", ".join(f"{x:.4f}"
-                                                     for x in losses))
-    print(f"train {TRAIN_ARCH}: step {step_ms:.1f} ms (median of steps 2-"
-          f"{TRAIN_STEPS}; first {walls[0] * 1e3:.1f} ms), "
-          f"{tokens / step_ms * 1e3:.0f} tokens/s, peak allocated {peak:.1f} "
-          "GB over the steps")
-    return {"losses": losses, "step_ms": step_ms, "first_ms": walls[0] * 1e3,
-            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
-            "params": n_params}
+    tokens = batch * seq
+    print(f"train {arch}: every gradient finite; norms by layer "
+          + ("; ".join(f"{k} " + ", ".join(f"{x:.3g}" for x in v)
+                       for k, v in norms.items()) or "not gated"))
+    print(f"train {arch}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + ("; aux " + ", ".join(f"{x:.4f}" for x in auxes)
+             if cfg.n_experts else ""))
+    print(f"train {arch}: step {step_ms:.1f} ms (median of steps 2-"
+          f"{steps}; first {walls[0] * 1e3:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, peak allocated "
+          f"{peak:.1f} GB over the steps")
+    return {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+            "losses": losses, "aux": auxes, "step_ms": step_ms,
+            "first_ms": walls[0] * 1e3,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak}
 
 
 def run_train_restart():
@@ -4113,6 +4256,172 @@ def run_train_restart():
           f"all {len(pairs)} state leaves bitwise equal to the "
           f"uninterrupted run's; determinism alerts: {alerts or 'none'}")
     return {"leaves": len(pairs), "alerts": alerts}
+
+
+# kernel #6 under autograd: the forward at falcon's training shape, the
+# gradients at a small one whose last 128-token chunk is partial
+SSM_TRAIN_SHAPE = (2, 512, 8192, 16)      # Bt, S, I, N
+SSM_GRAD_SHAPE = (1, 300, 1024, 16)
+
+
+def ssm_train_case(Bt, S, I, N, gen):
+    """``SSMScanFn``'s inputs as the Mamba1 layer makes them: fp32 h0 (the
+    layer's zeros replaced by normals, so that A reaches y), dt and A;
+    bf16 x, B and C (column views of a projection), D."""
+    import torch
+    h, dt, x, A, Bm, Cm, D = ssm_scan_case(Bt, I, N, S, torch.bfloat16, gen)
+    return [h, dt, x, A, Bm, Cm, D]
+
+
+def plain_scan_autograd(h, dt, x, A, B, C, d_skip):
+    """The functional plain scan (``ssm_update_plain`` step by step, no
+    state written), the autograd reference for ``SSMScanFn``; y in x's
+    dtype."""
+    import torch
+    from repro_torch.kernels import ssm_update as ssu
+    ys = []
+    for t in range(x.shape[1]):
+        h, y = ssu.ssm_update_plain(h, dt[:, t], x[:, t], A, B[:, t],
+                                    C[:, t], d_skip)
+        ys.append(y)
+    return torch.stack(ys, 1), h
+
+
+def check_ssm_train(card: str):
+    """Kernel #6 under autograd (``SSMScanFn``): its forward (one kernel
+    launch per 128-token chunk) at SSM_TRAIN_SHAPE against the plain scan
+    (y within TOL["bf16"], the final state within TOL["fp32"]); its
+    gradients at SSM_GRAD_SHAPE against autograd through the functional
+    plain scan, within TOL["bf16"] (first, so that the timed backward
+    finds every kernel it launches loaded); forward and backward times
+    at the training shape beside the forward's bound (bytes) and the
+    plain scan. Inputs from a generator of its own."""
+    import torch
+    from repro_torch.kernels import ssm_update as ssu
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    Bt, S, I, N = SSM_TRAIN_SHAPE
+    args = ssm_train_case(Bt, S, I, N, gen)
+    before = ssu.launches
+    y, h = ssu.SSMScanFn.apply(*args)
+    torch.cuda.synchronize()
+    per_call = ssu.launches - before
+    hp = args[0].clone()
+    yp = ssu.ssm_scan_plain(hp, *args[1:])
+    err = max(check_close("ssm train forward y", y, yp, "bf16"),
+              check_close("ssm train forward state", h, hp, "fp32"))
+    ms = time_ms(lambda: ssu.SSMScanFn.apply(*args), 5)
+    plain_ms = time_ms(lambda: ssu.ssm_scan_plain(args[0].clone(),
+                                                  *args[1:]), 1, 1)
+    flops, nbytes = ssu.scan_cost(Bt, I, N, S, 2)
+    nbytes += -(-S // ssu.CHUNK) * Bt * I * N * 4     # the saved starts
+    bound_ms, bound_by = bound(flops, nbytes, card,
+                               FP32_PEAKS[card_kind(card)])
+    # the gradients at a small shape against the functional plain scan
+    gBt, gS, gI, gN = SSM_GRAD_SHAPE
+    small = ssm_train_case(gBt, gS, gI, gN, gen)
+    mine = [t.detach().clone().requires_grad_(True) for t in small]
+    # D in fp32 for the reference: its gradient sums over every token,
+    # which autograd would otherwise accumulate in bf16 step by step
+    ref = [t.detach().clone().requires_grad_(True) for t in small[:6]]
+    ref.append(small[6].detach().float().requires_grad_(True))
+    ys, hs = ssu.SSMScanFn.apply(*mine)
+    yr, hr = plain_scan_autograd(*ref)
+    dys = torch.randn(ys.shape, generator=gen, device="cuda").to(ys.dtype)
+    dhs = torch.randn(hs.shape, generator=gen, device="cuda")
+    torch.autograd.backward((ys, hs), (dys, dhs))
+    torch.autograd.backward((yr, hr), (dys, dhs))
+    grad_err = max(check_close(f"ssm train d{n}", a.grad, b.grad, "bf16")
+                   for n, a, b in zip(("h0", "dt", "x", "A", "B", "C", "D"),
+                                      mine, ref))
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    out = ssu.SSMScanFn.apply(*leaves)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    dh = torch.randn(h.shape, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    torch.autograd.backward(out, (dy, dh))
+    bwd_ms = _sync_s(t0) * 1e3
+    print(f"ssm_update training shape Bt={Bt} S={S} I={I} N={N} bf16 "
+          f"(SSMScanFn, {per_call} launches of {ssu.CHUNK}-token chunks): "
+          f"forward max_abs_err {err:.3g} against the plain scan, "
+          f"{ms:.3f} ms (plain {plain_ms:.1f} ms), bound {bound_ms:.4f} ms "
+          f"({bound_by}; {nbytes / 1e6:.1f} MB with the chunk-start "
+          f"states), {bound_ms / ms:.0%} of the bound; backward (plain "
+          f"PyTorch, each chunk recomputed) {bwd_ms:.1f} ms; gradients at "
+          f"Bt={gBt} S={gS} I={gI} N={gN} max_abs_err {grad_err:.3g} "
+          "against autograd through the functional plain scan (TOL bf16)")
+    return {"Bt": Bt, "S": S, "I": I, "N": N, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches_per_call": per_call,
+            "backward_plain_ms": bwd_ms, "backward_max_abs_err": grad_err,
+            "grad_shape": list(SSM_GRAD_SHAPE)}
+
+
+def family_gates(cfg, grads):
+    """The first gradient's gates for ``cfg``'s family (each listed
+    gradient finite and non-zero in every layer, or every leaf finite);
+    returns the per-layer norms it gated on, by name."""
+    import torch
+    from repro_torch.training.tree import tree_paths
+
+    def layers(name, stack, n):
+        out = []
+        for li in range(n):
+            g = stack[li].float()
+            if not bool(g.isfinite().all()) or not bool(g.any()):
+                raise AssertionError(f"train {cfg.name}: layer {li} {name} "
+                                     "gradient is not finite and non-zero")
+            out.append(float(g.norm()))
+        return {name: out}
+
+    norms = {}
+    if "attn" in grads.get("blocks", {}):     # an lm stack's attention
+        for w in ("wq", "wk", "wv"):
+            norms |= layers(w, grads["blocks"]["attn"][w], cfg.n_layers)
+    if cfg.n_experts:
+        norms |= layers("router", grads["blocks"]["moe"]["router"],
+                        cfg.n_layers)
+    if cfg.family == "ssm":
+        m = grads["blocks"]["m"]
+        for k in ("a_log", "dt_proj", "x_proj", "conv_w"):
+            norms |= layers(k, m[k], cfg.n_layers)
+    if cfg.family == "hybrid":
+        a_log = grads["mamba"]["m"]["a_log"]
+        norms |= layers("mamba2 a_log", a_log.flatten(0, 1),
+                        a_log.shape[0] * a_log.shape[1])
+        for w in ("wq", "wk", "wv"):
+            norms |= layers(f"attn {w}", grads["attn"]["attn"][w],
+                            a_log.shape[0])
+    if cfg.is_encoder_decoder:
+        for w in ("wq", "wk", "wv"):
+            norms |= layers(f"encoder {w}", grads["enc_blocks"]["attn"][w],
+                            cfg.encoder_layers)
+        for w in ("wk", "wv"):
+            norms |= layers(f"cross {w}",
+                            grads["dec_blocks"]["cross_attn"][w],
+                            cfg.n_layers)
+    for path, g in tree_paths(grads):
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"train {cfg.name}: gradient {path} is "
+                                 "not finite")
+    return norms
+
+
+def recorded_routes(fn):
+    """``fn()`` recording each MoE layer's slots (``moe.route``); returns
+    (fn's result, the slots in call order)."""
+    from repro_torch.models.layers import moe
+    route, slots = moe.route, []
+
+    def spy(p, x, h):
+        out = route(p, x, h)
+        slots.append(out[1].clone())
+        return out
+
+    moe.route = spy
+    try:
+        return fn(), slots
+    finally:
+        moe.route = route
 
 
 def flash_shape_classes(counter):
@@ -4381,27 +4690,59 @@ def main() -> None:
     del model, params, runs, plain                     # free whisper-medium
     gc.collect()
     torch.cuda.empty_cache()
-    # training: kernel #5 under autograd at the training shape, then
-    # llama2-7b at full width (TRAIN_LAYERS layers), then a supervised
-    # restart through launch/train.py
-    t0 = time.perf_counter()
-    flash_train = check_flash_train(card)
-    phase_s["train kernel check"] = time.perf_counter() - t0
-    before = counts.get("flash_attention", 0)
-    train = drive(f"train {TRAIN_ARCH}", run_train, ("flash_attention",))
-    flash_train["launches"] = counts["flash_attention"] - before
-    drive("train restart", run_train_restart, ("flash_attention",))
-    flash_train["launches_restart"] = (counts["flash_attention"] - before
-                                       - flash_train["launches"])
-    kernels[3]["train_shape"] = flash_train
-    print(f"flash_attention launches added by training: "
-          f"{flash_train['launches']} ({TRAIN_ARCH}, {TRAIN_STEPS} steps "
-          f"and one gradient, each block's forward and its recompute), "
-          f"{flash_train['launches_restart']} (the restart phase); train "
-          f"step {train['step_ms']:.1f} ms, "
-          f"{train['tokens_per_s']:.0f} tokens/s")
+    # training: llama2-7b at full width, a supervised restart through
+    # launch/train.py, kernel #6 under autograd, then the other families;
+    # kernel #5 under autograd at every shape these phases gave it
+    from repro_torch.training import CARD_TRAIN_SHAPES
+    train_flash = {}
+    before = dict(counts)
+    train = drive(f"train {TRAIN_ARCH}", lambda: recorded_flash_shapes(
+        lambda: run_train(TRAIN_ARCH, TRAIN_LR, TRAIN_STEPS), train_flash,
+        TRAIN_ARCH), ("flash_attention",))
+    drive("train restart", lambda: recorded_flash_shapes(
+        run_train_restart, train_flash, "restart"), ("flash_attention",))
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssm_train = check_ssm_train(card)
+    phase_s["train ssm kernel check"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {}
+    for arch in CARD_TRAIN_SHAPES:
+        if arch == TRAIN_ARCH:
+            continue
+        families[arch] = drive(
+            f"train {arch}", lambda a=arch: recorded_flash_shapes(
+                lambda: run_train(a, FAMILY_LR, FAMILY_STEPS), train_flash,
+                a),
+            ("ssm_update",) if arch == SSM_ARCH else ("flash_attention",))
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash_launches = counts["flash_attention"] - before["flash_attention"]
+    recorded = sum(e["launches"] for e in train_flash.values())
+    if recorded != flash_launches:
+        raise AssertionError(f"training: {flash_launches} flash_attention "
+                             f"launches, {recorded} through FlashAttentionFn")
+    t0 = time.perf_counter()
+    kernels[3]["train_shapes"] = check_flash_train_shapes(card, train_flash)
+    phase_s["train flash kernel checks"] = time.perf_counter() - t0
+    ssm_train["launches"] = counts["ssm_update"] - before["ssm_update"]
+    kernels[4]["train_shape"] = ssm_train
+    print(f"flash_attention launches added by training: {flash_launches}, "
+          "by shape and phase: " + "; ".join(
+              f"B={r['B']} Sq={r['Sq']} Skv={r['Skv']} H={r['H']} "
+              f"Kv={r['Kv']} hd={r['hd']} "
+              f"{'causal' if r['causal'] else 'non-causal'}: "
+              f"{r['launches']} ({', '.join(r['phases'])})"
+              for r in kernels[3]["train_shapes"])
+          + f"; ssm_update launches added by training: "
+          f"{ssm_train['launches']} ({SSM_ARCH}); train {TRAIN_ARCH} step "
+          f"{train['step_ms']:.1f} ms, {train['tokens_per_s']:.0f} "
+          "tokens/s; " + "; ".join(
+              f"{a} {r['step_ms']:.1f} ms, {r['tokens_per_s']:.0f} "
+              f"tokens/s, peak {r['peak_gb']:.1f} GB"
+              for a, r in families.items()))
     for k in kernels:
         k["launches"] = counts[k["name"]]
     kernels[0]["launches_by_regime"] = regimes

@@ -63,3 +63,10 @@ def ssm_scan(h, dt, x, A, B, C, d_skip):
     fn = (_ssm.ssm_scan_cuda if h.device.type == "cuda"
           else _ssm.ssm_scan_plain)
     return fn(h, dt, x, A, B, C, d_skip)
+
+
+def ssm_scan_autograd(h, dt, x, A, B, C, d_skip):
+    """``ssm_scan`` under autograd (``SSMScanFn``): the same dispatch
+    forward, one launch per 128-token chunk, the plain backward. h is not
+    written; returns (y, the final state)."""
+    return _ssm.SSMScanFn.apply(h, dt, x, A, B, C, d_skip)

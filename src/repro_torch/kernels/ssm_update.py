@@ -19,6 +19,17 @@ the shapes alone; ``scan_cost`` counts its operations and bytes.
 ``ssm_update_plain`` is the plain PyTorch version (the JAX package's
 ``kernels/ref.py::ssm_update_ref``) and ``ssm_scan_plain`` runs it token
 by token; ``kernels.ops`` picks the kernel or the plain version by device.
+
+``SSMScanFn`` puts the scan under autograd for the training forward. Its
+forward launches the kernel (the plain scan on a CPU tensor) once per
+``CHUNK`` tokens, the reference's remat chunk, on a copy of the initial
+state, and saves the state at each chunk's start; its backward is plain
+PyTorch, as the reference differentiates its jnp scan: from the last
+chunk to the first it recomputes the chunk's steps from the saved state
+with the functional ``ssm_update_plain`` and back-propagates the chunk's
+output gradient together with the state gradient carried in from the
+chunk after it (about 35 small launches per token). No kernel of the
+reference has a backward, so there is no hand-written one here.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ STAGE_TOKENS = 64      # tokens per slot of the copy ring, at most
 STAGES = 2             # slots in the ring, at most
 BATCH = 4              # tokens whose inputs a thread holds in registers
 MAX_BATCH = 65535      # the grid's y dimension
+CHUNK = 128            # SSMScanFn's tokens per launch and recompute
 
 # kernel launches so far; chip_smoke.py resets and reads it
 launches = 0
@@ -123,12 +135,14 @@ def scan_cost(Bt: int, I: int, N: int, S: int,
 def ssm_update_plain(h, dt, x, A, B, C, d_skip, *,
                      h_out: Optional[torch.Tensor] = None):
     """Plain PyTorch version; writes h' into ``h_out`` when given (it may
-    be ``h`` itself). Returns (h', y)."""
-    dtf, xf = dt.float(), x.float()
-    dA = torch.exp(dtf[:, :, None] * A[None].float())
-    h_new = dA * h + (dtf * xf)[:, :, None] * B[:, None, :].float()
-    y = (h_new * C[:, None, :].float()).sum(-1) \
-        + d_skip[None].float() * xf
+    be ``h`` itself). Returns (h', y). Computes in fp32 (in fp64 for
+    fp64 inputs, which ``SSMScanFn``'s gradient check uses)."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    dtf, xf = dt.to(f), x.to(f)
+    dA = torch.exp(dtf[:, :, None] * A[None].to(f))
+    h_new = dA * h + (dtf * xf)[:, :, None] * B[:, None, :].to(f)
+    y = (h_new * C[:, None, :].to(f)).sum(-1) \
+        + d_skip[None].to(f) * xf
     if h_out is not None:
         h_out.copy_(h_new)
         h_new = h_out
@@ -215,3 +229,74 @@ def ssm_scan_cuda(h, dt, x, A, B, C, d_skip):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _run(h, h, dt, x, A, B, C, d_skip, y)
     return y
+
+
+class SSMScanFn(torch.autograd.Function):
+    """Kernel #6 under autograd: ``apply(h0, dt, x, A, B, C, d_skip)`` ->
+    (y (Bt, S, I), the final state (Bt, I, N)), the inputs as
+    ``ssm_scan_*`` takes them. h0 is not written. The forward launches
+    the kernel once per ``CHUNK`` tokens (bitwise the one-launch scan's
+    result) and saves the (Bt, ceil(S/CHUNK), I, N) chunk-start states;
+    the backward recomputes each chunk from its start state under autograd
+    through ``ssm_update_plain`` and returns the gradients of h0, dt, x,
+    A, B, C and d_skip in their own dtypes."""
+
+    @staticmethod
+    def forward(ctx, h0, dt, x, A, B, C, d_skip):
+        Bt, S, _ = x.shape
+        h = h0.detach().clone()
+        starts = h.new_empty((Bt, -(-S // CHUNK)) + tuple(h.shape[1:]))
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        for c, s0 in enumerate(range(0, S, CHUNK)):
+            starts[:, c] = h
+            sl = slice(s0, min(s0 + CHUNK, S))
+            if h.device.type == "cuda":
+                _run(h, h, dt[:, sl], x[:, sl], A, B[:, sl], C[:, sl],
+                     d_skip, y[:, sl])
+            else:
+                y[:, sl] = ssm_scan_plain(h, dt[:, sl], x[:, sl], A,
+                                          B[:, sl], C[:, sl], d_skip)
+        ctx.save_for_backward(starts, dt, x, A, B, C, d_skip)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        starts, dt, x, A, B, C, d_skip = ctx.saved_tensors
+        S = x.shape[1]
+        f = starts.dtype
+        g = dh.to(f)             # the state gradient carried backwards
+        grads = {n: torch.empty_like(t) for n, t in
+                 (("dt", dt), ("x", x), ("B", B), ("C", C))}
+        dA = torch.zeros(A.shape, dtype=f, device=A.device)
+        dD = torch.zeros(d_skip.shape, dtype=f, device=d_skip.device)
+        for c in reversed(range(starts.shape[1])):
+            sl = slice(c * CHUNK, min((c + 1) * CHUNK, S))
+            with torch.enable_grad():
+                leaves = [starts[:, c].detach(), dt[:, sl].detach(),
+                          x[:, sl].detach(), A.detach().to(f),
+                          B[:, sl].detach(), C[:, sl].detach(),
+                          d_skip.detach().to(f)]
+                for t in leaves:
+                    t.requires_grad_(True)
+                hs, dt_, x_, A_, B_, C_, D_ = leaves
+                # widened once per chunk and cut into steps by ``unbind``,
+                # whose backward stacks the steps' gradients in one op
+                # (a select per step would zero-fill the chunk each time)
+                ys = []
+                for d, xt, b, ct in zip(*(t.to(f).unbind(1)
+                                          for t in (dt_, x_, B_, C_))):
+                    hs, yt = ssm_update_plain(hs, d, xt, A_, b, ct, D_)
+                    ys.append(yt)
+                got = torch.autograd.grad(
+                    (torch.stack(ys, 1), hs), leaves,
+                    (dy[:, sl].to(f), g))
+            g = got[0]
+            for n, t in zip(("dt", "x"), got[1:3]):
+                grads[n][:, sl] = t
+            for n, t in zip(("B", "C"), got[4:6]):
+                grads[n][:, sl] = t
+            dA += got[3]
+            dD += got[6]
+        return (g.to(starts.dtype), grads["dt"], grads["x"],
+                dA.to(A.dtype), grads["B"], grads["C"],
+                dD.to(d_skip.dtype))

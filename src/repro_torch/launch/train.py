@@ -4,21 +4,24 @@
         --arch qwen2-7b --steps 20 --ckpt-dir /tmp/ckpt --fail-at 7
     PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \
         --seq 2048 --batch 4 --steps 8        # llama2-7b, bf16, one H100
+    PYTHONPATH=src python -m repro_torch.launch.train --full \
+        --arch granite-moe-1b-a400m --seq 2048 --batch 4 --steps 8
 
-Builds a dense model (a reduced smoke config unless ``--full``, then cut
-to ``--layers`` of its layers if given) with random weights from seed 0,
+Builds a model of any family (a reduced smoke config unless ``--full``,
+then cut to ``--layers`` of its layers if given: decoder layers of an
+enc-dec, a multiple of the super-block for a hybrid) with random weights
+from seed 0,
 and trains it with AdamW, chunked cross-entropy and checkpoints under
 the fault supervisor (``distributed/fault.py``), injecting failures at
 ``--fail-at`` steps to exercise the restart path. Batches are a function
-of (seed 0, step). It runs on ``cuda`` in bf16 over an fp32 master
+of (seed 0, step); an enc-dec batch gets ``frames`` of zeros (batch,
+seq, d_model), as the reference's launcher gives it (a VLM batch gets no
+patches, as there). It runs on ``cuda`` in bf16 over an fp32 master
 unless ``--device cpu`` is given (fp32 on the CPU); with no GPU present
 and no ``--device`` it fails instead of falling back to the CPU. Each
 step prints its loss, gradient norm and wall time.
 
-Refused, each naming the ROADMAP.md item that brings it: a ``--mesh``
-other than 1x1 (multi-GPU), and an ``--arch`` outside the dense family
-(MoE training needs its load-balance aux loss; the ssm, hybrid, enc-dec
-and VLM families need their training forwards).
+Refused: a ``--mesh`` other than 1x1 (multi-GPU, ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.configs import get_arch
 from repro_torch.distributed.fault import FailureInjector, run_supervised
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.training import (AdamWConfig, CheckpointManager, DataConfig,
-                                  Trainer, batch_at)
+                                  Trainer, batch_at, side_inputs)
 from repro_torch.training.tree import tree_leaves
 
 def _parser() -> argparse.ArgumentParser:
@@ -79,12 +82,6 @@ def main(argv=None) -> dict:
         p.error(f"--mesh {args.mesh}: sharded training over several cards "
                 "(ROADMAP.md, queue 1: multi-GPU) is not ported to "
                 "repro_torch yet")
-    family = get_arch(args.arch).family
-    if family != "dense":
-        raise NotImplementedError(
-            f"--arch {args.arch}: training of the {family} family "
-            "(ROADMAP.md, queue 1: training beyond the dense family) is "
-            "not ported to repro_torch yet")
     device = resolve_device(args.device)
     cfg, trainer = build(args, device)
     state = trainer.init_state(0)
@@ -104,8 +101,9 @@ def main(argv=None) -> dict:
     def one_step(step: int):
         injector.check(step)
         t0 = time.perf_counter()
-        live["state"], metrics = trainer.train_step(
-            live["state"], batch_at(dc, step, device=device))
+        batch = batch_at(dc, step, device=device) | side_inputs(
+            cfg, args.batch, frames=args.seq, device=device)
+        live["state"], metrics = trainer.train_step(live["state"], batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         losses[step] = loss
         print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "

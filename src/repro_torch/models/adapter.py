@@ -64,10 +64,17 @@ class FamilyAdapter:
         return out["kv"][0][row][0], out["kv"][1][row][0]
 
     def forward(self, params, batch, *, skip_logits: bool = False):
-        raise NotImplementedError(
-            f"{self.model.cfg.name}: the training forward of the "
-            f"{self.model.cfg.family!r} family is not ported yet "
-            "(ROADMAP.md, queue 1: training beyond the dense family)")
+        """The training forward: dict(final_x (B,S,D), aux) with
+        ``skip_logits``, else dict(logits (B,S,V), aux)."""
+        out = self.train_forward(params, batch)
+        if skip_logits:
+            return out
+        from repro_torch.models.layers.embedding import logits
+        c = self.model.cfg
+        return {"logits": logits(params["embed"], out["final_x"],
+                                 softcap=c.logit_softcap,
+                                 true_vocab=c.vocab_size),
+                "aux": out["aux"]}
 
     def decode_step_paged(self, params, cache, tokens):
         raise NotImplementedError(
@@ -110,22 +117,12 @@ class LMAdapter(FamilyAdapter):
             out["patches"] = patches
         return out
 
-    def forward(self, params, batch, *, skip_logits: bool = False):
-        """The training forward of a dense stack; MoE (its load-balance
-        aux loss) and VLM training are not ported yet."""
+    def train_forward(self, params, batch):
+        """A VLM batch's ``patches`` (B, n_vis, D) replace the embeddings
+        of its first n_vis tokens; a MoE stack returns its aux."""
         from repro_torch.models import transformer as tfm
-        from repro_torch.models.layers.embedding import logits
-        if self.model.cfg.family != "dense":
-            return super().forward(params, batch, skip_logits=skip_logits)
-        out = tfm.lm_forward(params, batch["tokens"], self.model.h,
-                             skip_logits=True)
-        if skip_logits:
-            return out
-        c = self.model.cfg
-        return {"logits": logits(params["embed"], out["final_x"],
-                                 softcap=c.logit_softcap,
-                                 true_vocab=c.vocab_size),
-                "aux": out["aux"]}
+        return tfm.lm_train_forward(params, batch["tokens"], self.model.h,
+                                    patch_embeds=batch.get("patches"))
 
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import transformer as tfm
@@ -181,6 +178,10 @@ class SSMAdapter(FamilyAdapter):
                                capture_hidden=capture_hidden,
                                emit_state=True, final_logits_only=True)
 
+    def train_forward(self, params, batch):
+        from repro_torch.models import ssm
+        return ssm.ssm_train_forward(params, batch["tokens"], self.model.h)
+
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import ssm
         return ssm.ssm_decode_step(params, cache, tokens, self.model.h)
@@ -225,6 +226,11 @@ class HybridAdapter(FamilyAdapter):
         return hybrid.hybrid_forward(params, batch["tokens"], self.model.h,
                                      capture_hidden=capture_hidden,
                                      emit_state=True, final_logits_only=True)
+
+    def train_forward(self, params, batch):
+        from repro_torch.models import hybrid
+        return hybrid.hybrid_train_forward(params, batch["tokens"],
+                                           self.model.h)
 
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import hybrid
@@ -309,6 +315,13 @@ class EncDecAdapter(FamilyAdapter):
                                     emit_kv=True, final_logits_only=True)
         out["enc_out"] = enc_out
         return out
+
+    def train_forward(self, params, batch):
+        """The encoder over ``batch["frames"]`` (B, S_enc, D), then the
+        decoder over ``batch["tokens"]``."""
+        from repro_torch.models import encdec
+        return encdec.encdec_train_forward(params, batch["frames"],
+                                           batch["tokens"], self.model.h)
 
     def decode_step_full(self, params, cache, tokens):
         from repro_torch.models import encdec

@@ -21,6 +21,8 @@ Entry points (functions over the parameter dict):
   decode_step       -> one decode token per sequence (contiguous cache)
   decode_step_paged -> the same over a paged self-K/V pool
   restore_self_kv   -> the paper's op for the decoder self-attention
+  encdec_train_forward -> the training forward (encoder, then the
+                       decoder over the targets' inputs)
 
 Every K/V goes through the grouped restoration kernel
 (``kernels.ops.restore_kv_grouped``): the encoder's and the decoder's
@@ -35,7 +37,9 @@ for bit. Attention runs through the kernels: the encoder non-causal
 (#5), decoder self-attention causal (#5) in prefill and through the
 decode kernels (#3 contiguous, #4 paged) at decode, cross-attention
 non-causal (#5) in prefill and through #3 at decode, with each row's
-``enc_len`` as its live length.
+``enc_len`` as its live length. The training forward projects every
+K/V by plain products instead (kernel #1 has no backward) and takes
+kernel #5 under autograd.
 """
 from __future__ import annotations
 
@@ -139,7 +143,7 @@ def encode(params: dict, frames: torch.Tensor, h: EncDecHyper, *,
         q, k, v = tfm._attn_qkv(blocks, li, x, h.lm, cos, sin)
         a = attn_lib.flash_attention(q, k, v, h.attn, q_offset=0,
                                      causal=False)
-        x = tfm._block_tail(tfm.layer_params(blocks, li), x, a, h.lm)
+        x = tfm._block_tail(tfm.layer_params(blocks, li), x, a, h.lm)[0]
     x = apply_norm(params["enc_norm"], x, c.norm, c.norm_eps)
     return x, (torch.stack(hidden) if capture_hidden else None)
 
@@ -328,3 +332,51 @@ def restore_self_kv(params: dict, hidden: torch.Tensor, h: EncDecHyper, *,
     launch, as ``transformer.lm_restore_kv``."""
     return tfm.lm_restore_kv({"blocks": self_view(params["dec_blocks"])},
                              hidden, h.lm, positions=positions)
+
+
+# ------------------------------------------------------------- training
+def _dec_block_train(p: dict, x, enc_out, h: EncDecHyper):
+    """One decoder layer ``p`` for training: causal self-attention, then
+    cross-attention over K/V projected from ``enc_out`` (B, S_enc, D) by
+    plain products (no bias, as the reference's ``cross_kv``), then the
+    FFN. Attention is kernel #5 under autograd."""
+    c, a = h.cfg, h.attn
+    B, Se, _ = enc_out.shape
+    normed = apply_norm(p["ln1"], x, c.norm, c.norm_eps)
+    q, k, v = attn_lib.project_qkv(p["self_attn"], normed, a, None, None)
+    x = x + attn_lib.attn_output(p["self_attn"], attn_lib.flash_attention(
+        q, k, v, a, q_offset=0, causal=True))
+    ca = p["cross_attn"]
+    ck = torch.matmul(enc_out, ca["wk"]).reshape(B, Se, a.n_kv_heads,
+                                                 a.head_dim)
+    cv = torch.matmul(enc_out, ca["wv"]).reshape(B, Se, a.n_kv_heads,
+                                                 a.head_dim)
+    return _cross_and_ffn(p, x, h, ck, cv, None)
+
+
+def encdec_train_forward(params: dict, frames: torch.Tensor,
+                         tokens: torch.Tensor, h: EncDecHyper) -> dict:
+    """Training forward (the JAX package's ``encode`` then
+    ``decode_prefill(..., skip_logits=True)``): frames (B, S_enc, D),
+    tokens (B, S) -> dict(final_x (B, S, D) after the final norm, aux
+    0.0). The encoder's blocks are ``transformer.block_train`` without a
+    causal mask; each block, encoder and decoder, runs under
+    ``transformer.remat``."""
+    c = h.cfg
+    B, Se, D = frames.shape
+    x = frames.to(h.dtype) + sinusoidal_positions(Se, D, h.dtype,
+                                                  frames.device)[None]
+    for p in tfm.unstack_layers(params["enc_blocks"]):
+        x, _ = tfm.remat(functools.partial(tfm.block_train, p, h=h.lm,
+                                           cos=None, sin=None, window=None,
+                                           causal=False), x)
+    enc_out = apply_norm(params["enc_norm"], x, c.norm, c.norm_eps)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = _embed(params, h, tokens, positions, S)
+    for p in tfm.unstack_layers(params["dec_blocks"]):
+        x = tfm.remat(functools.partial(_dec_block_train, p, h=h), x,
+                      enc_out)
+    return {"final_x": apply_norm(params["final_norm"], x, c.norm,
+                                  c.norm_eps),
+            "aux": 0.0}

@@ -18,6 +18,10 @@ stacked (n_super, k-1, ...); ``attn`` stacked (n_super, ...);
                                  the Mamba2 states
   hybrid_decode_step          -> one decode token per sequence over a
                                  cache, which it updates in place
+  hybrid_train_forward        -> the training forward: final hidden states
+                                 for the chunked loss, each block under
+                                 activation checkpointing, the attention
+                                 blocks through ``transformer.block_train``
   hybrid_restore_attn_kv      -> the paper's op on the attention blocks
   hybrid_restore_mamba_states -> ssm-rescan of every Mamba2 block
 
@@ -106,6 +110,33 @@ def _mamba_block(mp: dict, x, h: HybridHyper, **state):
 def _embed(params: dict, tokens, h: HybridHyper):
     return embed_tokens(params["embed"], tokens, scale=False,
                         d_model=h.cfg.d_model).to(h.dtype)
+
+
+def hybrid_train_forward(params: dict, tokens: torch.Tensor,
+                         h: HybridHyper) -> dict:
+    """Training forward (the JAX package's ``hybrid_forward`` with
+    ``skip_logits``): tokens (B,S) -> dict(final_x (B,S,D) after the final
+    norm, aux summed over the attention blocks, as the reference's scan
+    carry sums it: 0.0, their FFNs being dense). The attention blocks
+    project q/k/v by plain products (``transformer.block_train``, kernel
+    #5 under autograd): ``block_forward``'s K/V come from kernel #1,
+    which has no backward. Each block runs under ``transformer.remat``."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    cos, sin = tfm.rope_at(h.lm.attn, positions, S)
+    x = _embed(params, tokens, h)
+    aux = 0.0
+    for mps, ap in zip(tfm.unstack_layers(params["mamba"]),
+                       tfm.unstack_layers(params["attn"])):
+        for mp in tfm.unstack_layers(mps):
+            x = tfm.remat(lambda xx, mp=mp: _mamba_block(mp, xx, h)[0], x)
+        x, a = tfm.remat(functools.partial(tfm.block_train, ap, h=h.lm,
+                                           cos=cos, sin=sin, window=None), x)
+        aux = aux + a
+    c = h.cfg
+    return {"final_x": apply_norm(params["final_norm"], x, c.norm,
+                                  c.norm_eps),
+            "aux": aux}
 
 
 def hybrid_forward(params: dict, tokens: torch.Tensor, h: HybridHyper, *,

@@ -11,7 +11,9 @@ launch of the hand-written scan kernel per layer call walks all S tokens
 with the (B, I, N) state held on chip and writes it back into its buffer
 in place, so nothing of size S·I·N exists (on the CPU the plain version
 steps token by token). Decode is the same call at S = 1 on the cache's
-state.
+state. The training forward takes the scan under autograd
+(``kernels/ssm_update.py::SSMScanFn``: one launch per 128-token chunk, a
+plain backward).
 
 Mamba2 is the SSD chunked form, as the JAX package computes it in jnp
 (no Pallas kernel there, so none here): within a chunk of ``chunk``
@@ -101,7 +103,10 @@ def apply_mamba1(p: dict, x, h: Mamba1Hyper, *,
     """x (B,S,D) -> (out (B,S,D), (conv_state (B,W-1,I), ssm_state
     (B,I,N) fp32)). ``init_state``, when given, must be a contiguous fp32
     (B,I,N) tensor: the recurrence updates it in place and returns it as
-    the new ssm state (the JAX package returns a new array)."""
+    the new ssm state (the JAX package returns a new array). Under
+    autograd (grad enabled and a scan input that requires grad) the scan
+    goes through ``ops.ssm_scan_autograd`` instead, which leaves
+    ``init_state`` as it is and returns a new state."""
     I, N, R = h.d_inner, h.d_state, h.dt_rank
     xz = torch.matmul(x, p["in_proj"])
     xi, z = xz[..., :I], xz[..., I:]
@@ -115,9 +120,13 @@ def apply_mamba1(p: dict, x, h: Mamba1Hyper, *,
     if init_state is None:
         init_state = torch.zeros((x.shape[0], I, N), dtype=torch.float32,
                                  device=x.device)
-    y = ops.ssm_scan(init_state, dt, xc, A, Bm, Cm, p["d_skip"])
+    scan_in = (dt, xc, A, Bm, Cm, p["d_skip"])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in scan_in):
+        y, state = ops.ssm_scan_autograd(init_state, *scan_in)
+    else:
+        y, state = ops.ssm_scan(init_state, *scan_in), init_state
     y = (y.float() * F.silu(z.float())).to(x.dtype)
-    return torch.matmul(y, p["out_proj"]), (new_conv, init_state)
+    return torch.matmul(y, p["out_proj"]), (new_conv, state)
 
 
 def decode_mamba1_step(p: dict, x, h: Mamba1Hyper, *, conv_state,
@@ -211,11 +220,16 @@ def apply_mamba2(p: dict, x, h: Mamba2Hyper, *,
     a_cs = torch.cumsum(a, dim=2)
     a_total = a_cs[:, :, -1, :]                           # (B,nc,H)
 
-    # intra-chunk: L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j
+    # intra-chunk: L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j, else 0.
+    # The segment sums above the diagonal are masked to -inf BEFORE the
+    # exp (the reference masks after it): there they are >= 0 and overflow
+    # fp32 at full width (zamba2-2.7b: |A| up to 80), and the exp's
+    # backward then multiplies the masked zero gradient by inf (NaN). The
+    # forward values are the same either way.
     seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]  # (B,nc,Q,Q,H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                    torch.zeros((), device=x.device))
+    L = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                  float("-inf")))
     if Q == 1:          # decode: the sum over n in a fixed order
         scores = row_sum(C_c * B_c)[:, :, :, None, :]
     else:

@@ -25,8 +25,12 @@ products are batched matmuls over the expert axis (the reference's
 ``einsum``s, outside any Pallas kernel); sort, gather and the slot
 buffers are plain torch ops.
 
-The shard_map path (``late_combine``) is tensor parallelism and the
-load-balancing aux a training term: neither is ported.
+``route`` also returns the full softmax ``probs`` (B, S, E), which
+``apply_moe`` hands out beside its output for the training forward's
+GShard load-balance aux (``load_balance_aux``, the reference's
+``transformer._ffn``). The shard_map path (``late_combine``) exists only
+on a mesh with a model axis above 1 (tensor parallelism), where the
+reference falls back to this path without one: it is not ported.
 """
 from __future__ import annotations
 
@@ -71,9 +75,9 @@ def init_moe(gen: torch.Generator, h: MoEHyper, dtype, device) -> dict:
 
 def route(p: dict, x: torch.Tensor, h: MoEHyper):
     """Per-row routing of x (B, S, D): the top-k probabilities (B, S·K) in
-    token-major order (token s's ranks at s·K .. s·K+K-1), and each
+    token-major order (token s's ranks at s·K .. s·K+K-1), each
     assignment's slot (B, S·K) in [0, E·C), or E·C where the capacity
-    dropped it."""
+    dropped it, and the router's full softmax (B, S, E) fp32."""
     B, S, _ = x.shape
     E, K = h.n_experts, h.top_k
     C = capacity(S, h)
@@ -92,16 +96,28 @@ def route(p: dict, x: torch.Tensor, h: MoEHyper):
     sorted_slot = torch.where(pos < C, sorted_e * C + pos,
                               torch.full_like(pos, E * C))
     slot = torch.empty_like(sorted_slot).scatter_(1, order, sorted_slot)
-    return top_p.reshape(B, T), slot
+    return top_p.reshape(B, T), slot, probs
 
 
-def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D), each row routed on its own."""
+def load_balance_aux(probs: torch.Tensor) -> torch.Tensor:
+    """The GShard load-balance aux of one layer from its router softmax
+    (B, S, E): E · sum_e f_e · P_e, f the share of tokens whose top-1
+    expert is e, P the mean probability of e (the reference's
+    ``transformer._ffn``); the gradient flows through P alone."""
+    E = probs.shape[-1]
+    top1 = torch.nn.functional.one_hot(probs.argmax(-1), E).float()
+    f = top1.mean(dim=(0, 1))
+    return E * torch.sum(f * probs.mean(dim=(0, 1)))
+
+
+def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper):
+    """x (B, S, D) -> (out (B, S, D), the router softmax (B, S, E)),
+    each row routed on its own."""
     B, S, D = x.shape
     E, K = h.n_experts, h.top_k
     C = capacity(S, h)
     T, EC = S * K, E * C
-    weight, slot = route(p, x, h)
+    weight, slot, probs = route(p, x, h)
     # the token of each slot (B, E·C): kept slots are unique, so the
     # scatter is a permutation; the sentinel column takes the dropped
     tok = torch.full((B, EC + 1), -1, dtype=torch.long, device=x.device)
@@ -130,4 +146,4 @@ def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper) -> torch.Tensor:
     out = contrib[:, :, 0] * w[:, :, 0]
     for k in range(1, K):
         out = out + contrib[:, :, k] * w[:, :, k]
-    return out
+    return out, probs

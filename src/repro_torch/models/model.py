@@ -11,8 +11,9 @@ frame embeddings feed the encoder, ``models/encdec.py``).
 to its family adapter (models/adapter.py):
 
     init(seed)                          -> parameter dict on the device
-    forward(params, batch, skip_logits) -> the training forward (dense:
-                                           final hidden states or logits)
+    forward(params, batch, skip_logits) -> the training forward (every
+                                           family: final hidden states or
+                                           logits, and the MoE aux)
     prefill(params, batch, ...)         -> logits + K/V or final recurrent
                                            states (+ hidden states)
     decode_step(params, cache, tokens)  -> (logits, cache)
@@ -92,9 +93,13 @@ class Model:
             torch.Generator(device=self.device).manual_seed(seed))
 
     def forward(self, params, batch, *, skip_logits: bool = False) -> dict:
-        """Training forward over ``batch["tokens"]`` (B,S): dict(logits
-        (B,S,V), aux), or dict(final_x (B,S,D), aux) with ``skip_logits``
-        (the chunked loss computes the logits). Dense family only."""
+        """Training forward over ``batch["tokens"]`` (B,S), with
+        ``batch["patches"]`` (B, n_vis, D) for a VLM and
+        ``batch["frames"]`` (B, S_enc, D) for an encoder-decoder:
+        dict(logits (B,S,V), aux), or dict(final_x (B,S,D), aux) with
+        ``skip_logits`` (the chunked loss computes the logits). aux is the
+        MoE layers' summed load-balance aux (a tensor), 0.0 for the other
+        families."""
         return self.adapter.forward(params, batch, skip_logits=skip_logits)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,

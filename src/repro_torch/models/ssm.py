@@ -7,6 +7,10 @@ Entry points (functions over the parameter dict):
   ssm_forward        -> full-sequence forward (prefill) from zero state,
                         optionally capturing per-layer hidden states and
                         emitting the final conv/ssm states of every layer
+  ssm_train_forward  -> the training forward: final hidden states for the
+                        chunked loss, each block under activation
+                        checkpointing, the scan through kernel #6 under
+                        autograd (``SSMScanFn``)
   ssm_decode_step    -> one decode token per sequence over a cache of
                         states, which it updates in place
   ssm_restore_states -> ssm-rescan: each layer's final states recomputed
@@ -31,7 +35,8 @@ from repro_torch.models.layers.mamba import (Mamba1Hyper, apply_mamba1,
                                              init_mamba1)
 from repro_torch.models.layers.norm import apply_norm, init_norm
 from repro_torch.models.module import stacked_init
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import (layer_params, remat,
+                                            unstack_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +82,20 @@ def _logits(params: dict, x, h: SSMHyper):
     c = h.cfg
     x = apply_norm(params["final_norm"], x, c.norm, c.norm_eps)
     return embed_logits(params["embed"], x, true_vocab=c.vocab_size)
+
+
+def ssm_train_forward(params: dict, tokens: torch.Tensor,
+                      h: SSMHyper) -> dict:
+    """Training forward (the JAX package's ``ssm_forward`` with
+    ``skip_logits``): tokens (B,S) -> dict(final_x (B,S,D) after the final
+    norm, aux 0.0); each block under ``transformer.remat``."""
+    x = _embed(params, tokens, h)
+    for bp in unstack_layers(params["blocks"]):
+        x = remat(lambda xx, bp=bp: _block(bp, xx, h)[0], x)
+    c = h.cfg
+    return {"final_x": apply_norm(params["final_norm"], x, c.norm,
+                                  c.norm_eps),
+            "aux": 0.0}
 
 
 def ssm_forward(params: dict, tokens: torch.Tensor, h: SSMHyper, *,

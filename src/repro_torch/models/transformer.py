@@ -12,11 +12,11 @@ Entry points (functions over the parameter dict):
   lm_decode_step_paged -> the same over a paged KV pool (block tables)
   lm_restore_kv   -> the paper's op: stacked K/V from stacked saved
                      hidden states (norm + projection + RoPE only)
-  lm_train_forward -> the training forward (``lm_forward(...,
-                     skip_logits=True)``): final hidden states for the
-                     chunked loss, each block under activation
-                     checkpointing, differentiable through
-                     kernel #5
+  lm_train_forward -> the training forward (the reference's ``lm_forward(
+                     ..., skip_logits=True)``): final hidden states for the
+                     chunked loss and the MoE load-balance aux, each
+                     block under activation checkpointing,
+                     differentiable through kernel #5
 
 The saved hidden state of layer i is the residual-stream INPUT to layer i.
 Prefill, decode and restoration all compute K/V with ``norm_rows`` and
@@ -55,7 +55,8 @@ from repro_torch.models.layers.embedding import (MAX_POSITIONS, embed_tokens,
                                                  logits as embed_logits,
                                                  positional)
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
-from repro_torch.models.layers.moe import MoEHyper, apply_moe, init_moe
+from repro_torch.models.layers.moe import (MoEHyper, apply_moe, init_moe,
+                                           load_balance_aux)
 from repro_torch.models.layers.norm import apply_norm, init_norm
 from repro_torch.models.layers.rope import rope_table
 from repro_torch.models.module import stacked_init
@@ -189,22 +190,26 @@ def _attn_qkv(blocks, li, x, h: LMHyper, cos, sin):
 
 
 def _ffn(p: dict, x, h: LMHyper):
-    if h.moe is not None:
-        return apply_moe(p["moe"], x, h.moe)
-    return apply_mlp(p["mlp"], x, h.cfg.ffn_activation)
+    """The block's FFN: (out, the MoE router's softmax (B,S,E), or None
+    for a dense FFN)."""
+    if h.moe is None:
+        return apply_mlp(p["mlp"], x, h.cfg.ffn_activation), None
+    return apply_moe(p["moe"], x, h.moe)
 
 
 def _block_tail(p: dict, x, attn_out, h: LMHyper):
+    """Output projection, residual and FFN of a block: (x_out, the FFN's
+    router softmax or None)."""
     c = h.cfg
     attn_out = attn_lib.attn_output(p["attn"], attn_out)
     if c.post_attn_norm:
         attn_out = apply_norm(p["post_ln1"], attn_out, c.norm, c.norm_eps)
     x = x + attn_out
     normed2 = apply_norm(p["ln2"], x, c.norm, c.norm_eps)
-    ff = _ffn(p, normed2, h)
+    ff, probs = _ffn(p, normed2, h)
     if c.post_attn_norm:
         ff = apply_norm(p["post_ln2"], ff, c.norm, c.norm_eps)
-    return x + ff
+    return x + ff, probs
 
 
 # ---------------------------------------------------------------- blocks
@@ -226,7 +231,7 @@ def block_forward(blocks: dict, li: int, x, h: LMHyper, *, cos, sin,
     attn_out = attn_lib.flash_attention(
         q, k_all, v_all, h.attn, q_offset=hist_len or 0, causal=True,
         window=window, kv_len=kv_len)
-    return _block_tail(layer_params(blocks, li), x, attn_out, h), (k, v)
+    return _block_tail(layer_params(blocks, li), x, attn_out, h)[0], (k, v)
 
 
 def write_step_kv(k_cache, v_cache, k, v, lengths) -> None:
@@ -261,7 +266,7 @@ def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
     write_step_kv(k_cache, v_cache, k, v, lengths)
     attn_out = attn_lib.decode_attention(q, k_cache, v_cache, h.attn,
                                          kv_len=lengths + 1, window=window)
-    return _block_tail(layer_params(blocks, li), x, attn_out, h)
+    return _block_tail(layer_params(blocks, li), x, attn_out, h)[0]
 
 
 def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
@@ -281,21 +286,24 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
     attn_out = attn_lib.decode_attention_paged(
         q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
         window=window)
-    return _block_tail(layer_params(blocks, li), x, attn_out, h)
+    return _block_tail(layer_params(blocks, li), x, attn_out, h)[0]
 
 
 def block_train(p: dict, x, h: LMHyper, *, cos, sin,
-                window: Optional[int]):
+                window: Optional[int], causal: bool = True):
     """Full-sequence block for training: ``p`` one layer's parameters, x
-    (B,S,D) at positions [0, S), cos/sin (B,S,hd/2). Q, K and V come from
-    plain products (``layers.attention.project_qkv``) and attention from
-    kernel #5 under autograd. Returns x_out."""
+    (B,S,D) at positions [0, S), cos/sin (B,S,hd/2) (None without RoPE).
+    Q, K and V come from plain products (``layers.attention.project_qkv``)
+    and attention from kernel #5 under autograd, causal unless ``causal``
+    is False (an encoder). Returns (x_out, the FFN's load-balance aux:
+    a tensor for a MoE block, else 0.0)."""
     c = h.cfg
     normed = apply_norm(p["ln1"], x, c.norm, c.norm_eps)
     q, k, v = attn_lib.project_qkv(p["attn"], normed, h.attn, cos, sin)
     attn_out = attn_lib.flash_attention(q, k, v, h.attn, q_offset=0,
-                                        causal=True, window=window)
-    return _block_tail(p, x, attn_out, h)
+                                        causal=causal, window=window)
+    x, probs = _block_tail(p, x, attn_out, h)
+    return x, (0.0 if probs is None else load_balance_aux(probs))
 
 
 def unstack_layers(blocks: dict) -> List[dict]:
@@ -310,29 +318,40 @@ def unstack_layers(blocks: dict) -> List[dict]:
     return split(blocks)
 
 
-def lm_train_forward(params: dict, tokens: torch.Tensor, h: LMHyper) -> dict:
-    """Training forward of a dense stack (the JAX package's ``lm_forward``
-    with ``skip_logits``): tokens (B,S) at positions [0, S) -> dict(final_x
-    (B,S,D) after the final norm, aux 0.0). With grad enabled each block
-    runs under ``torch.utils.checkpoint`` (the reference's ``remat=
-    "full"``, the only setting its launcher and tests use): backward
-    recomputes it from its input, so only the block inputs stay alive."""
+def remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when grad is on
+    (the reference's ``remat="full"``, the only setting its launcher and
+    tests use): backward recomputes ``fn`` from its inputs, so only they
+    stay alive."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def lm_train_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
+                     patch_embeds=None) -> dict:
+    """Training forward of an ``lm`` stack (the JAX package's
+    ``lm_forward`` with ``skip_logits``): tokens (B,S) at positions [0, S),
+    optional patch embeddings (B, n_vis, D) in place of the first n_vis
+    tokens' (a VLM) -> dict(final_x (B,S,D) after the final norm, aux: the
+    MoE layers' load-balance aux summed over layers, as the reference's
+    scan carry sums it; 0.0 for a dense stack). Each block runs under
+    ``remat``."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = rope_at(h.attn, positions, S)
-    x = _embed_input(params, h, tokens, positions, S)
+    x = _embed_input(params, h, tokens, positions, S, patch_embeds)
     windows = layer_windows(h)
-    remat = torch.is_grad_enabled()
+    aux = 0.0
     for li, p in enumerate(unstack_layers(params["blocks"])):
-        fn = functools.partial(block_train, p, h=h, cos=cos, sin=sin,
-                               window=windows[li])
-        x = (torch.utils.checkpoint.checkpoint(
-            fn, x, use_reentrant=False, preserve_rng_state=False)
-            if remat else fn(x))
+        x, a = remat(functools.partial(block_train, p, h=h, cos=cos, sin=sin,
+                                       window=windows[li]), x)
+        aux = aux + a
     c = h.cfg
     return {"final_x": apply_norm(params["final_norm"], x, c.norm,
                                   c.norm_eps),
-            "aux": 0.0}
+            "aux": aux}
 
 
 # ------------------------------------------------------------ full forward
@@ -366,22 +385,15 @@ def _final_logits(params: dict, x, h: LMHyper):
 def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
                patch_embeds=None, hist_kv=None,
                hist_len: Optional[int] = None, capture_hidden: bool = False,
-               emit_kv: bool = False, final_logits_only: bool = False,
-               skip_logits: bool = False) -> dict:
+               emit_kv: bool = False,
+               final_logits_only: bool = False) -> dict:
     """Prefill forward. tokens (B,S) int; patch_embeds optional (B,n_vis,D)
     in place of the first n_vis tokens' embeddings; hist_kv optional
     restored history, a stacked (L,B,Sh,Kv,hd) pair, with ``hist_len``
     live positions. Returns dict(logits, kv, hidden): kv a (k, v) pair of
     (L,B,S,Kv,hd) when ``emit_kv``, hidden (L,B,S,D) when
-    ``capture_hidden``, else None. ``skip_logits`` runs the training
-    forward instead (``lm_train_forward``: dict(final_x, aux)), which
-    takes none of the other options."""
-    if skip_logits:
-        if (patch_embeds is not None or hist_kv is not None
-                or hist_len is not None or capture_hidden or emit_kv
-                or final_logits_only):
-            raise ValueError("the training forward takes tokens only")
-        return lm_train_forward(params, tokens, h)
+    ``capture_hidden``, else None. The training forward is
+    ``lm_train_forward``."""
     B, S = tokens.shape
     base = 0 if hist_len is None else int(hist_len)
     positions = base + torch.arange(S, device=tokens.device)[None, :]

@@ -21,7 +21,10 @@ prefill of a 2000-token prompt (``ssm_forward``, the lifecycle's round 0).
 restores of (1) alone, ``--windows train`` (7) alone: one training step
 of llama2-7b at full width and 4 of its 32 layers on 4 x 2048 tokens
 (bf16 over an fp32 master, chunked loss, each block recomputed, AdamW),
-as ``chip_smoke.py`` trains it; ``--src`` profiles the
+as ``chip_smoke.py`` trains it, or with ``--arch`` of another family at
+its training shape on the card (``training.data.CARD_TRAIN_SHAPES``:
+granite-moe-1b-a400m at all 24 layers on 4 x 2048 tokens, falcon-mamba-7b
+at 4 layers on 2 x 512, ...); ``--src`` profiles the
 ``repro_torch`` of another ``src`` directory (``git archive`` of another
 commit unpacked under the gitignored ``build/``), so one chip call can
 hold two trees against each other. For each window it prints the wall
@@ -87,6 +90,9 @@ def main() -> None:
     ap.add_argument("--src", default=None)
     ap.add_argument("--windows", choices=("all", "ssm", "restore", "train"),
                     default="all")
+    ap.add_argument("--arch", default="llama2-7b",
+                    help="the model of --windows train, one of "
+                    "training.data.CARD_TRAIN_SHAPES")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
@@ -97,7 +103,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     if args.windows == "train":
-        profile_train()
+        profile_train(args.arch)
         return
     if args.windows != "ssm":
         profile_llama(restore_only=args.windows == "restore")
@@ -105,19 +111,30 @@ def main() -> None:
         profile_ssm()
 
 
-def profile_train() -> None:
-    """One AdamW step of llama2-7b at full width and 4 of its 32 layers
-    on 4 x 2048 seeded tokens, after two warm steps."""
+def profile_train(arch: str) -> None:
+    """One AdamW step of ``arch`` at full width and its
+    ``CARD_TRAIN_SHAPES`` depth on seeded tokens (and seeded frames or
+    patches), after two warm steps."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
-    from repro_torch.training import (AdamWConfig, DataConfig, Trainer,
-                                      batch_at)
-    cfg = get_arch("llama2-7b").scaled(n_layers=4)
+    from repro_torch.training import (CARD_TRAIN_FRAMES, CARD_TRAIN_PATCHES,
+                                      CARD_TRAIN_SHAPES, AdamWConfig,
+                                      DataConfig, Trainer, batch_at,
+                                      side_inputs)
+    if arch not in CARD_TRAIN_SHAPES:
+        raise SystemExit(f"profile_main_path: --arch {arch} has no training "
+                         f"shape; one of {sorted(CARD_TRAIN_SHAPES)}")
+    layers, B, S = CARD_TRAIN_SHAPES[arch]
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
     trainer = Trainer(Model(cfg, dtype=torch.bfloat16), AdamWConfig(),
                       loss_chunks=4)
     live = {"state": trainer.init_state(0)}
-    batch = batch_at(DataConfig(cfg.vocab_size, 2048, 4), 0,
-                     device=trainer.model.device)
+    dev = trainer.model.device
+    batch = batch_at(DataConfig(cfg.vocab_size, S, B), 0, device=dev) | \
+        side_inputs(cfg, B, frames=CARD_TRAIN_FRAMES,
+                    patches=CARD_TRAIN_PATCHES, seed=28, device=dev)
 
     def step():
         live["state"], m = trainer.train_step(live["state"], batch)
@@ -126,8 +143,8 @@ def profile_train() -> None:
     for _ in range(2):                              # warm
         step()
     _, prof, wall = profiled(step)
-    report("llama2-7b train step (4 layers, 4 x 2048 tokens)", prof, wall,
-           top=16)
+    report(f"{arch} train step ({cfg.n_layers} layers, {B} x {S} tokens)",
+           prof, wall, top=16)
     # the device time of the kernels each autograd node launched, for the
     # attention backward (plain PyTorch) and the products' backward
     nodes = [e for e in prof.key_averages() if e.device_time_total > 0

@@ -43,6 +43,47 @@ def batch_at(cfg: DataConfig, step: int, *, targets: bool = True,
     return out
 
 
+# Each family's training shape at full width on one 80 GB card: arch ->
+# (layers, None for all; batch; tokens). falcon-mamba-7b's depth and
+# sequence are cut for the plain backward of kernel #6 (~35 launches per
+# token and layer), zamba2-2.7b runs 2 of its 9 super-blocks and
+# internvl2-26b 1 of 48 layers (its untied 92553 x 6144 embeddings are
+# most of it). An enc-dec batch carries CARD_TRAIN_FRAMES frames, a VLM's
+# CARD_TRAIN_PATCHES patch positions (``side_inputs``).
+CARD_TRAIN_SHAPES = {"llama2-7b": (4, 4, 2048),
+                     "granite-moe-1b-a400m": (None, 4, 2048),
+                     "falcon-mamba-7b": (4, 2, 512),
+                     "zamba2-2.7b": (12, 2, 2048),
+                     "whisper-medium": (None, 4, 448),
+                     "internvl2-26b": (1, 2, 2048)}
+CARD_TRAIN_FRAMES = 1500         # whisper-medium's encoder frames
+CARD_TRAIN_PATCHES = 256         # internvl2-26b's patch positions
+
+
+def side_inputs(arch_cfg, batch: int, *, frames: int, patches: int = 0,
+                seed: Optional[int] = None, device="cpu") -> dict:
+    """The inputs beside the tokens that ``arch_cfg``'s training forward
+    takes: an enc-dec's ``frames`` (batch, frames, d_model) and, with
+    ``patches`` above 0, a VLM's ``patches`` (batch, patches, d_model),
+    fp32: normals x 0.1 and x 0.02 from numpy's ``default_rng(seed)``, or
+    zeros when ``seed`` is None (the JAX package's launcher gives an
+    enc-dec zero frames and a VLM no patches)."""
+    rng = None if seed is None else np.random.default_rng(seed)
+
+    def draw(n: int, scale: float) -> torch.Tensor:
+        shape = (batch, n, arch_cfg.d_model)
+        x = (np.zeros(shape, np.float32) if rng is None else
+             (rng.standard_normal(shape) * scale).astype(np.float32))
+        return torch.from_numpy(x).to(device)
+
+    out = {}
+    if arch_cfg.is_encoder_decoder:
+        out["frames"] = draw(frames, 0.1)
+    if arch_cfg.family == "vlm" and patches:
+        out["patches"] = draw(patches, 0.02)
+    return out
+
+
 def stream(cfg: DataConfig, start_step: int = 0, *,
            device="cpu") -> Iterator[dict]:
     step = start_step

@@ -4,10 +4,12 @@ checkpointing.
   master params: fp32; each step casts the floating leaves to the model
                  dtype (bf16 on the card) differentiably, so gradients
                  land on the fp32 master
-  fwd/bwd:       ``Model.forward(..., skip_logits=True)``, each block
-                 recomputed in backward (the reference's
-                 ``remat="full"``), attention through kernel #5 under
-                 autograd
+  fwd/bwd:       ``Model.forward(..., skip_logits=True)`` of any family,
+                 each block recomputed in backward (the reference's
+                 ``remat="full"``), attention through kernel #5 and the
+                 Mamba1 scan through kernel #6 under autograd; a MoE
+                 stack's load-balance aux joins the loss with
+                 ``aux_weight`` (``parts["aux"]`` comes back detached)
   loss:          a loop over sequence chunks; each chunk's logits are
                  recomputed in backward, so (B, S, V) never exists at once
 

@@ -89,8 +89,8 @@ def _both(p, x, E, K, rules):
     want, _ = jmoe.apply_moe({k: jnp.asarray(v) for k, v in p.items()},
                              jnp.asarray(x), jmoe.MoEHyper(E, K, D, F),
                              rules)
-    got = tmoe.apply_moe({k: torch.from_numpy(v) for k, v in p.items()},
-                         torch.from_numpy(x), tmoe.MoEHyper(E, K, D, F))
+    got, _ = tmoe.apply_moe({k: torch.from_numpy(v) for k, v in p.items()},
+                            torch.from_numpy(x), tmoe.MoEHyper(E, K, D, F))
     return got, np.asarray(want)
 
 
@@ -112,8 +112,8 @@ def test_apply_moe_matches_the_reference(case, rules):
     got, want = _both(p, x, E, K, rules)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     h = tmoe.MoEHyper(E, K, D, F)
-    _, slot = tmoe.route({k: torch.from_numpy(v) for k, v in p.items()},
-                         torch.from_numpy(x), h)
+    _, slot, _ = tmoe.route({k: torch.from_numpy(v) for k, v in p.items()},
+                            torch.from_numpy(x), h)
     assert slot.shape == (B, S * K)
     assert int((slot == E * C).sum()) == n_drop
     if S == 1:
@@ -127,16 +127,16 @@ def test_apply_moe_rows_are_routed_alone(dtype):
     h = tmoe.MoEHyper(8, 2, 32, 16)
     pt = {k: torch.from_numpy(v).to(dtype) for k, v in p.items()}
     xt = torch.from_numpy(x).to(dtype)
-    a = tmoe.apply_moe(pt, xt, h)
+    a, _ = tmoe.apply_moe(pt, xt, h)
     other = xt.clone()
     other[1:] = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 20, 32)).astype(np.float32)).to(dtype)
-    b = tmoe.apply_moe(pt, other, h)
+    b, _ = tmoe.apply_moe(pt, other, h)
     assert torch.equal(a[0], b[0])
     assert not torch.equal(a[1], b[1])
     # and alone: a batch of one routes row 0 the same way
-    _, slot_a = tmoe.route(pt, xt, h)
-    _, slot_1 = tmoe.route(pt, xt[:1], h)
+    _, slot_a, _ = tmoe.route(pt, xt, h)
+    _, slot_1, _ = tmoe.route(pt, xt[:1], h)
     assert torch.equal(slot_a[:1], slot_1)
 
 
@@ -145,7 +145,8 @@ def test_apply_moe_is_deterministic():
     h = tmoe.MoEHyper(4, 2, 32, 16)
     pt = {k: torch.from_numpy(v) for k, v in p.items()}
     xt = torch.from_numpy(x)
-    assert torch.equal(tmoe.apply_moe(pt, xt, h), tmoe.apply_moe(pt, xt, h))
+    assert torch.equal(tmoe.apply_moe(pt, xt, h)[0],
+                       tmoe.apply_moe(pt, xt, h)[0])
 
 
 # ------------------------------------------------------------------ engine

@@ -2,7 +2,8 @@
 (convergence, deterministic and resumable data, checkpoint round trips
 with retention, supervised restarts, the supervisor giving up, ZeRO-1
 axes), the serving traces and input shapes against the JAX package's
-(exactly), and ``launch/train.py`` on the CPU with its refusals."""
+(exactly), and ``launch/train.py`` on the CPU for every family, with its
+refusal."""
 import dataclasses
 
 import pytest
@@ -20,9 +21,10 @@ from repro_torch.distributed.fault import (FailureInjector, InjectedFailure,
                                            run_supervised)
 from repro_torch.launch import train as train_cli
 from repro_torch.models import Model
-from repro_torch.training import (AdamWConfig, CheckpointManager, DataConfig,
-                                  Trainer, batch_at, leval_trace,
-                                  sharegpt_trace)
+from repro_torch.training import (CARD_TRAIN_SHAPES, AdamWConfig,
+                                  CheckpointManager, DataConfig, Trainer,
+                                  batch_at, leval_trace, sharegpt_trace,
+                                  side_inputs)
 from repro_torch.training.optimizer import opt_axes, opt_axes_tree
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -192,6 +194,31 @@ def test_cells_for_equals_jax(name):
 
 
 # ---------------------------------------------------------- launch/train
+@pytest.mark.parametrize("arch", list(CARD_TRAIN_SHAPES))
+def test_side_inputs_and_card_train_shapes(arch):
+    """Each card training shape cuts its config to a depth the family
+    takes, and ``side_inputs`` gives an enc-dec frames and a VLM patches
+    of its width: zeros without a seed (no patches then, as the JAX
+    package's launcher), the same normals for the same seed."""
+    layers, batch, seq = CARD_TRAIN_SHAPES[arch]
+    full = get_arch(arch)
+    cfg = full if layers is None else full.scaled(n_layers=layers)
+    assert cfg.n_layers == (layers or full.n_layers) and batch * seq > 0
+    kinds = (["frames"] if cfg.is_encoder_decoder else []) + \
+        (["patches"] if cfg.family == "vlm" else [])
+    small = reduced_for_smoke(full)
+    a = side_inputs(small, 2, frames=6, patches=3, seed=5)
+    assert sorted(a) == sorted(kinds)
+    for k, t in a.items():
+        assert t.shape == (2, 6 if k == "frames" else 3, small.d_model)
+        assert t.dtype == torch.float32 and bool(t.any())
+        assert torch.equal(t, side_inputs(small, 2, frames=6, patches=3,
+                                          seed=5)[k])
+    zeros = side_inputs(small, 2, frames=6)
+    assert sorted(zeros) == (["frames"] if cfg.is_encoder_decoder else [])
+    assert not any(bool(t.any()) for t in zeros.values())
+
+
 def test_train_cli_runs_and_restarts_on_the_cpu(tmp_path, capsys):
     argv = ["--device", "cpu", "--arch", "llama2-7b", "--steps", "5",
             "--seq", "16", "--batch", "2", "--ckpt-every", "2",
@@ -218,8 +245,30 @@ def test_train_cli_refuses_unported_parts(tmp_path):
     base = ["--device", "cpu", "--ckpt-dir", str(tmp_path)]
     with pytest.raises(SystemExit):
         train_cli.main(base + ["--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="moe"):
-        train_cli.main(base + ["--arch", "granite-moe-1b-a400m"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced_for_smoke(get_arch("falcon-mamba-7b")),
-              device="cpu").forward({}, {"tokens": torch.zeros(1, 4)})
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b",
+                                  "internvl2-26b", "falcon-mamba-7b",
+                                  "zamba2-2.7b", "whisper-medium"])
+def test_train_cli_trains_every_family_and_restarts(tmp_path, capsys, arch):
+    """Each family trains through ``launch/train.py`` on the CPU (an
+    enc-dec batch with zero frames), and a failure injected at step 3
+    lands, after the restart, bit for bit on the uninterrupted run."""
+    argv = ["--device", "cpu", "--arch", arch, "--steps", "5", "--seq",
+            "16", "--batch", "2", "--ckpt-every", "2"]
+    out = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "a"),
+                                 "--fail-at", "3"])
+    text = capsys.readouterr().out
+    assert out["report"]["restarts"] == 1 and out["report"]["final_step"] == 5
+    assert f"{arch}: " in text and "step     4 loss" in text
+    assert all(v == v and abs(v) < 1e4 for v in out["losses"].values())
+    clean = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+    assert clean["report"]["restarts"] == 0
+    _equal_trees(out["state"], clean["state"])
+    if get_arch(arch).n_experts:            # the aux reached the loss
+        cfg = reduced_for_smoke(get_arch(arch))
+        tr = Trainer(Model(cfg, device="cpu"), AdamWConfig(lr=1e-3))
+        _, parts, _ = tr.value_and_grad(
+            clean["state"]["params"],
+            batch_at(DataConfig(cfg.vocab_size, 16, 2), 0))
+        assert float(parts["aux"]) > 0
