@@ -113,7 +113,17 @@ Needs one CUDA GPU and the repository checkout around this file. It
      copy-on-write pages, restore-skip) against its twin without: the
      same tokens, hits, skipped tokens, copies and shared pages, every
      page free after ``close``, the pool pages each run held at its peak
-     and the copy debt held back beside them; then the HTTP front door
+     and the copy debt held back beside them; then tensor-parallel
+     serving (``TPContext``, every shard on the one card): a short
+     workload (4 sessions x 2 rounds over 2 slots, preemptions, every
+     layer restored by the hidden method) on the paged engine at tp 1, 2
+     and 4 (the pool split by KV heads) and on the contiguous engine at
+     tp 1 and 2 (only the restoration pack split): at each tp > 1 the
+     tokens and every restored session's K/V bitwise those of tp 1,
+     kernel #1's launches inside the projection groups and #4's exactly
+     tp times those of tp 1 and the other launches the same, with wall,
+     decode per step, projection device time and per-device gauges
+     printed per width; then the HTTP front door
      (``repro_torch.frontend``: pump, router, API, socket) in front of
      the engine on the contiguous backend and on the paged one with
      prefix sharing, driven through the socket by a stdlib client
@@ -123,10 +133,12 @@ Needs one CUDA GPU and the repository checkout around this file. It
      to the same requests driven straight through an engine built the
      same way, its logits against the plain forward, per-route TTFT
      beside the twin's, no thread left running;
-  7. frees llama2-7b and serves qwen2-7b at full width and depth in
+  7. frees llama2-7b and serves qwen2-7b at full width and QWEN_LAYERS
+     of its 28 layers in
      bf16 (random weights from a seed) through the lifecycle of step 4
      and the engine of step 6 on both backends (phased), under the same
-     gates; frees it and serves gemma2-9b at full width and depth through
+     gates; frees it and serves gemma2-9b at full width and GEMMA_LAYERS
+     of its 42 layers (local and global alternate) through
      the lifecycle with a 4608-token and a 1024-token session, so that
      the 4096-token window of its local layers cuts the history in
      prefill, restore, the recompute replay and decode; frees it and
@@ -137,7 +149,8 @@ Needs one CUDA GPU and the repository checkout around this file. It
      prefill chunks and one-token decodes (a MoE layer's capacity depends
      on the segment's length), printing the share of expert assignments
      the capacity dropped per prefill chunk; frees it and serves
-     internvl2-26b at full size through the lifecycle with 256 seeded
+     internvl2-26b at full width and VLM_LAYERS of its 48 layers
+     through the lifecycle with 256 seeded
      patch embeddings at the head of each round-0 prompt (every restore,
      of recompute layers too, bitwise equal to the K/V prefill emitted)
      and the paged engine, text only (4 sessions x 2 rounds over 4
@@ -248,12 +261,20 @@ SEED = 0
 PROMPTS = (1024, 1536, 2000)      # round 0; 2000 exercises bucket padding
 # gemma2-9b's lifecycle: a prompt past its 4096-token window, a short one
 GEMMA_PROMPTS = (4608, 1024)
+# Depth cuts that keep the whole script inside its time budget (900 s on
+# a slow host, where the tensor-parallel phase pushed it past that):
+# qwen2-7b's lifecycle and engines, gemma2-9b's lifecycle and
+# internvl2-26b's lifecycle and engine run at half depth; widths, head
+# groupings, windows and every gate are the full configs'.
+QWEN_LAYERS = 14
+GEMMA_LAYERS = 22
+VLM_LAYERS = 24
 # The MoE and VLM paths, after gemma2-9b, each model freed before the
 # next loads: granite-moe-1b-a400m at full width and GRANITE_LAYERS of its
 # 24 layers (the depth cut keeps the whole script inside its time limit:
 # its engines' MoE replay, ~90 launches per layer, is host-bound and took
 # ~180 s at full depth) through the lifecycle and the engine on both
-# backends; internvl2-26b at full size through a
+# backends; internvl2-26b at full width and VLM_LAYERS layers through a
 # lifecycle whose round-0 prompts start with its frontend_dim (256) patch
 # embeddings (seeded normals: the ViT front end is a stub in the
 # reference too), then the paged engine, text only (4 sessions x 2
@@ -1875,6 +1896,23 @@ PREFIX_DOC = 1024
 PREFIX_QUESTION = (64, 256)
 PREFIX_SESSIONS = 6
 
+# The tensor-parallel phase: llama2-7b's engine (every layer planned
+# "hidden", so that the schedule and the launches depend on nothing the
+# width prices) over TP_BATCH slots, one session per TP_PROMPTS entry x 2
+# rounds (round 1 TP_ROUND1_TOKENS), at each width of TP_WIDTHS on the
+# paged backend and of TP_CONTIGUOUS_WIDTHS on the contiguous one, every
+# shard on the card, with a preemption quantum of TP_QUANTUM steps. The
+# tp 1 run of each backend keeps every restore's K/V on the card, and
+# the wider runs hold each of theirs against it as it completes.
+TP_PROMPTS = (512, 768, 384, 640)
+TP_ROUND1_TOKENS = 64
+TP_BATCH = 2
+TP_QUANTUM = 8
+TP_MAX_SEQ = 896             # 768 + 16 + 64 + 16 tokens fit, in pages
+TP_WIDTHS = (1, 2, 4)
+TP_CONTIGUOUS_WIDTHS = (1, 2)
+TP_PHASE_BUDGET_S = 60.0
+
 
 def engine_classes():
     """The engine and manager of the port, instrumented for this phase:
@@ -1945,10 +1983,18 @@ def engine_classes():
             ssm = self.model.kind == "ssm"
             encdec = self.model.adapter.has_cross
             paged = isinstance(self.kv, PagedBackend)
-            # decode launches (contiguous #3, paged #4) of one step
+            # decode launches (contiguous #3, paged #4) of one step; a
+            # pool split over tensor-parallel shards launches #4 per shard
+            shards = getattr(self.kv, "shards", 1)
             per_step = ((L,) if ssm else (L, L) if encdec and paged
-                        else (2 * L, 0) if encdec else (0, L) if paged
-                        else (L, 0))
+                        else (2 * L, 0) if encdec else (0, L * shards)
+                        if paged else (L, 0))
+            # set by the tensor-parallel phase: every restore's K/V kept
+            # (keep_restores), or held bitwise against the restores of a
+            # run kept so (restore_refs, in order); restores lists each
+            # restore's (session, length, K, V), K and V when kept
+            self.keep_restores, self.restore_refs = False, None
+            self.restores = []
             # an enc-dec session's cross K/V as its first prefill wrote
             # them, against which its restores are held
             self.cross_refs = {}
@@ -2093,6 +2139,22 @@ def engine_classes():
                                 f"{self.kv.name}: restored {m} layer {li} "
                                 f"of {sid} ({s.history_len} tokens) "
                                 "differs from its K/V before the pause")
+                if self.restore_refs is not None:
+                    i = len(self.restores)
+                    ref = (self.restore_refs[i]
+                           if i < len(self.restore_refs) else None)
+                    if ref is None or ref[:2] != (sid, s.history_len) \
+                            or not (torch.equal(k, ref[2])
+                                    and torch.equal(v, ref[3])):
+                        raise AssertionError(
+                            f"{self.kv.name}: restore {i} ({sid}, "
+                            f"{s.history_len} tokens) is not the reference "
+                            "run's restore, bit for bit")
+                if self.keep_restores or self.restore_refs is not None:
+                    self.restores.append(
+                        (sid, s.history_len)
+                        + ((k.clone(), v.clone()) if self.keep_restores
+                           else (None, None)))
                 if sid in self.cross_refs:
                     ck, cv, _ = s.view.cross_state()
                     rk, rv = self.cross_refs[sid]
@@ -2352,7 +2414,8 @@ def budget_capacity(mgr, eng, budget):
 def run_engine(model, params, backend: str, *, phased=True, profile=None,
                group=8, restore_tasks=8, budget=None,
                prompts=ENGINE_PROMPTS, round1=ROUND1_TOKENS,
-               max_seq=ENGINE_MAX_SEQ, frames=None, enc_seq=None):
+               max_seq=ENGINE_MAX_SEQ, frames=None, enc_seq=None, tp=None,
+               batch=ENGINE_BATCH, quantum=ENGINE_QUANTUM, ref=None):
     """A session per round-0 prompt of ``prompts`` (6 unless given) x 2
     rounds (round 1 ``round1`` tokens) through the continuous-batching
     engine on ``backend``; returns tokens, metrics, what was checked and,
@@ -2362,20 +2425,47 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
     ``restore_tasks`` the restore tasks each engine step runs; ``budget``
     the hot-tier bytes of a ``CapacityManager`` (``budget_capacity``);
     ``frames`` an enc-dec model's frame embeddings per session (numpy,
-    round 0 only) and ``enc_seq`` its slots' encoder positions."""
+    round 0 only) and ``enc_seq`` its slots' encoder positions; ``tp`` a
+    tensor-parallel width with every shard on the card (every layer then
+    planned "hidden", every restore's K/V kept, or with ``ref`` (a run
+    that kept them) held bitwise against that run's, and the launches of
+    kernels #1 (inside projection groups and outside), #3 and #4
+    returned), ``batch`` the slots, ``quantum`` the preemption
+    quantum."""
     import numpy as np
     import torch
+    from repro_torch.core import restoration
+    from repro_torch.distributed.tp import TPContext
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import restore_kv as rkv
     from repro_torch.serving import Request
     from repro_torch.storage import ChunkStore, make_array
     Manager, Engine = engine_classes()
     store = ChunkStore(make_array("ssd", 4), chunk_tokens=64)
     mgr = Manager(model, store, restore_group_size=group,
                   **({} if profile is None else {"profile": profile}))
-    eng = Engine(model, params, mgr, max_batch=ENGINE_BATCH,
+    mgr.all_hidden = tp is not None
+    eng = Engine(model, params, mgr, max_batch=batch,
                  max_seq=max_seq, prefill_chunk=ENGINE_CHUNK,
-                 preempt_quantum=ENGINE_QUANTUM, backend=backend,
+                 preempt_quantum=quantum, backend=backend,
                  restore_tasks_per_step=restore_tasks, phased=phased,
-                 enc_seq=enc_seq)
+                 enc_seq=enc_seq,
+                 tp=1 if tp is None else TPContext(tp, ["cuda"] * tp))
+    if tp is not None:
+        eng.keep_restores = ref is None
+        eng.restore_refs = None if ref is None else ref["restores"]
+    # kernel #1's launches inside projection groups, the part that the
+    # width multiplies
+    project, grouped = restoration.project_group, [0]
+
+    def counted_project(*args, **kw):
+        before = rkv.launches
+        out = project(*args, **kw)
+        grouped[0] += rkv.launches - before
+        return out
+
+    restoration.project_group = counted_project
+    launches0 = (rkv.launches, dec.launches, dec.paged_launches)
     cap = None
     if budget is not None:
         cap = budget_capacity(mgr, eng, budget)
@@ -2385,7 +2475,8 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
             + ("" if phased else " unphased")
             + (" whole restores" if restore_tasks == WHOLE_RESTORES else "")
             + (f" calibrated ({group})" if profile is not None else "")
-            + (" budget" if budget is not None else ""))
+            + (" budget" if budget is not None else "")
+            + (f" tp={tp}" if tp is not None else ""))
     rng = np.random.default_rng(SEED)
     tokens, rows, requests, keys = {}, [], {}, {}
     torch.cuda.synchronize()
@@ -2438,6 +2529,13 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
                     f"{seq.restore_wall * 1e3:.0f} ms")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    restoration.project_group = project
+    launches = dict(zip(("restore_kv_grouped", "decode_attention",
+                         "decode_attention_paged"),
+                        (b - a for a, b in zip(launches0, (
+                            rkv.launches, dec.launches,
+                            dec.paged_launches)))))
+    launches["restore_kv_grouped in groups"] = grouped[0]
     m = eng.metrics
     methods = set().union(*(c[2] for c in eng.checked)) if eng.checked \
         else set()
@@ -2449,7 +2547,11 @@ def run_engine(model, params, backend: str, *, phased=True, profile=None,
            "prefills": eng.prefills, "decodes": eng.decodes,
            "profile": profile, "bytes_peak": eng.bytes_peak,
            "ungated": {(rnd, sid) for (rnd, sid), key in keys.items()
-                       if key in eng.req_tainted}}
+                       if key in eng.req_tainted},
+           "launches": launches, "restores": eng.restores,
+           "decode_ms": (1e3 * eng.walls["decode"]
+                         / max(m.decode_steps, 1)),
+           "backend_name": eng.kv.name}
     mean = lambda xs: 1e3 * sum(xs) / max(len(xs), 1)  # noqa: E731
     walls = dict(eng.walls)
     walls["other"] = wall - sum(walls.values())
@@ -2618,6 +2720,93 @@ def check_prefix(on, off):
           f"{mean(off['restored_ttft']):.0f} ms; pool pages at the peak "
           f"{on['pages_peak']} held, {on['committed_peak']} with the copy "
           f"debt held back (sharing), {off['pages_peak']} (no sharing)")
+
+
+def run_tp_phase(model, params):
+    """Tensor-parallel serving with every shard on the card: the paged
+    engine at each width of TP_WIDTHS and the contiguous one at each of
+    TP_CONTIGUOUS_WIDTHS (``run_engine`` with ``tp``), each wider run held
+    against its backend's tp 1 run (``check_tp``). Returns
+    {(backend, tp): the run's summary}."""
+    import gc
+
+    import torch
+    out = {}
+    for backend, widths in (("paged", TP_WIDTHS),
+                            ("contiguous", TP_CONTIGUOUS_WIDTHS)):
+        ref = None
+        for tp in widths:
+            run = run_engine(model, params, backend, prompts=TP_PROMPTS,
+                             round1=TP_ROUND1_TOKENS, max_seq=TP_MAX_SEQ,
+                             tp=tp, batch=TP_BATCH, quantum=TP_QUANTUM,
+                             ref=ref)
+            m = run["metrics"]
+            out[backend, tp] = {
+                "wall_s": run["wall"], "decode_ms": run["decode_ms"],
+                "project_ms": 1e3 * m.restore_project_wall,
+                "restores": len(run["restores"]),
+                "launches": run["launches"], "gauges": m.device_gauges}
+            print(f"engine {backend} tp={tp} ({run['backend_name']}): wall "
+                  f"{run['wall']:.2f} s, decode {run['decode_ms']:.2f} ms "
+                  f"per step over {m.decode_steps} steps, projection "
+                  f"{1e3 * m.restore_project_wall:.2f} device ms over "
+                  f"{len(run['restores'])} restores, launches "
+                  f"{run['launches']}; per-device gauges: " + "; ".join(
+                      f"device {r['device']}: free pages {r['free_pages']}, "
+                      f"occupancy {r['occupancy_pct']}%, live/reserved "
+                      f"{r['util_pct']}%, projection {r['proj_util_pct']}%"
+                      + (f", pool {r['pool_bytes'] / 1e6:.1f} MB"
+                         if "pool_bytes" in r else "")
+                      for r in m.device_gauges))
+            if ref is None:
+                ref = run
+                if m.preemptions <= 0 or not run["restores"]:
+                    raise AssertionError(f"{backend} tp=1: no preemption or "
+                                         "no restore")
+            else:
+                check_tp(backend, tp, run, ref)
+            del run
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_tp(backend, tp, run, ref):
+    """A run at width ``tp`` against its backend's tp 1 run: the same
+    tokens, the same restores (session, length; ``run_engine`` held each
+    one's K/V bitwise against tp 1's as it completed), kernel
+    #1's launches inside projection groups and the paged decode kernel's
+    ``tp`` times those of tp 1 (every shard launched), the rest of #1's
+    and the contiguous decode kernel's the same, and one gauge row per
+    shard of a split pool."""
+    name = f"engine {backend} tp={tp}"
+    check_same_tokens(name, run, ref, "tp=1")
+    got, want = run["restores"], ref["restores"]
+    if [(s, n) for s, n, _, _ in got] != [(s, n) for s, n, _, _ in want]:
+        raise AssertionError(f"{name}: restored other sessions or lengths "
+                             "than tp=1")
+    a, b = run["launches"], ref["launches"]
+    grouped = "restore_kv_grouped in groups"
+    scaled = {grouped: tp, "decode_attention_paged": tp}
+    for k, n in b.items():
+        want_n = n * scaled.get(k, 1)
+        if k == "restore_kv_grouped":
+            want_n = n + (tp - 1) * b[grouped]
+        if a[k] != want_n:
+            raise AssertionError(f"{name}: {a[k]} {k} launches, not "
+                                 f"{want_n} (tp=1: {n})")
+    if b[grouped] <= 0 or (backend == "paged"
+                           and b["decode_attention_paged"] <= 0):
+        raise AssertionError(f"{name}: tp=1 launched no sharded kernel")
+    rows = len(run["metrics"].device_gauges)
+    if rows != (tp if backend == "paged" else 1):
+        raise AssertionError(f"{name}: {rows} gauge rows")
+    print(f"{name}: tokens of all {len(run['tokens'])} requests and the K/V "
+          f"of all {len(got)} restores bitwise those of tp=1; kernel #1 in "
+          f"projection groups {a[grouped]} = {tp} x {b[grouped]}, paged "
+          f"decode {a['decode_attention_paged']} = {tp} x "
+          f"{b['decode_attention_paged']}")
 
 
 # The front-door phase: llama2-7b (full size, bf16) behind the HTTP front
@@ -3067,8 +3256,8 @@ def check_same_tokens(name, run, ref, ref_name="phased"):
                              f"run's for {bad}")
     if run["checked"] <= 0:
         raise AssertionError(f"{name}: no restore was checked")
-    print(f"{name}: tokens identical to the {ref_name} run's for all 12 "
-          "requests")
+    print(f"{name}: tokens identical to the {ref_name} run's for all "
+          f"{len(ref['tokens'])} requests")
 
 
 def check_calibration(run):
@@ -3869,7 +4058,7 @@ def serve_moe_vlm(drive):
     engine on both backends, the engine's requests against a plain
     computation that follows each session's prefill chunks, with the share
     of expert assignments dropped per prefill chunk; internvl2-26b at full
-    width and depth through a lifecycle whose round-0 prompts start with
+    width and VLM_LAYERS layers through a lifecycle whose round-0 prompts start with
     patch embeddings, restored bitwise on recompute layers too (the replay
     splices the stored patches back), then the paged engine, text only;
     grok-1-314b at full width and GROK_LAYERS of its 64 layers through a
@@ -3900,7 +4089,7 @@ def serve_moe_vlm(drive):
     del model, params, runs                            # free granite
     gc.collect()
     torch.cuda.empty_cache()
-    model, params = build_model(VLM_ARCH)
+    model, params = build_model(VLM_ARCH, layers=VLM_LAYERS)
     drive(f"{VLM_ARCH} lifecycle",
           lambda: run_main_path(model, params, patches=True), lm_needs)
     run = drive(f"{VLM_ARCH} engine paged", lambda: run_engine(
@@ -4595,6 +4784,17 @@ def main() -> None:
     check_prefix(shared, unshared)
     against_plain("engine paged prefix sharing", shared, {})
     del budgeted, shared, unshared
+    gc.collect()
+    torch.cuda.empty_cache()
+    # tensor-parallel serving, every shard on the card: the paged engine
+    # at tp 1, 2, 4 and the contiguous one at tp 1, 2, each held against
+    # tp 1
+    drive("engine paged tp", lambda: run_tp_phase(model, params),
+          ("restore_kv_grouped", "decode_attention",
+           "decode_attention_paged", "flash_attention"))
+    if phase_s["engine paged tp"] > TP_PHASE_BUDGET_S:
+        print(f"engine paged tp: {phase_s['engine paged tp']:.1f} s, over "
+              f"its budget of {TP_PHASE_BUDGET_S:.0f} s")
     # the HTTP front door on both backends, each against its twin
     for backend, decode_kernel in (("contiguous", "decode_attention"),
                                    ("paged", "decode_attention_paged")):
@@ -4611,9 +4811,10 @@ def main() -> None:
     del model, params, runs, plain, twin, calibrated   # free llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
-    # qwen2-7b at full width and depth: the lifecycle, then the engine on
-    # both backends (phased), under every gate of llama2-7b's runs
-    model, params = build_model("qwen2-7b")
+    # qwen2-7b at full width and QWEN_LAYERS layers: the lifecycle, then
+    # the engine on both backends (phased), under every gate of llama2-7b's
+    # runs
+    model, params = build_model("qwen2-7b", layers=QWEN_LAYERS)
     drive("qwen2-7b lifecycle", lambda: run_main_path(model, params),
           lm_needs)
     runs, plain = {}, {}
@@ -4628,10 +4829,11 @@ def main() -> None:
     del model, params, runs, plain                     # free qwen2-7b
     gc.collect()
     torch.cuda.empty_cache()
-    # gemma2-9b at full width and depth through the lifecycle: a session
-    # whose prompt outruns the 4096-token window of the local layers in
-    # prefill, restore, the recompute replay and decode, and a short one
-    model, params = build_model("gemma2-9b")
+    # gemma2-9b at full width and GEMMA_LAYERS layers through the
+    # lifecycle: a session whose prompt outruns the 4096-token window of
+    # the local layers in prefill, restore, the recompute replay and
+    # decode, and a short one
+    model, params = build_model("gemma2-9b", layers=GEMMA_LAYERS)
     drive("gemma2-9b lifecycle",
           lambda: run_main_path(model, params, GEMMA_PROMPTS), lm_needs)
     del model, params                                  # free gemma2-9b

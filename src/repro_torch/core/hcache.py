@@ -115,6 +115,10 @@ class HCacheManager:
             self.restore_group_size = max(int(restore_group_size), 1)
         self._pack = None
         self._pack_params = None
+        # the tensor-parallel context the pack is sharded under (None: one
+        # device) and the hardware profile before its mesh pricing
+        self._tp = None
+        self._hw_base = hw.with_mesh(1)
         self._ring: Optional[StagingRing] = None
         self._launched: Set[tuple] = set()
         self.saver = saver or TwoStageSaver(store)
@@ -147,14 +151,30 @@ class HCacheManager:
         if self._ring is not None:
             self._ring.close()
 
+    def set_tp(self, tp_ctx) -> None:
+        """Attach the engine's tensor-parallel context: the restoration
+        pack is rebuilt sharded over its devices (KV output axis), and
+        ``hw`` is re-priced for its width (``with_mesh``), which flushes
+        the memoized plans (their key holds the width too)."""
+        if tp_ctx is not self._tp:
+            self._tp = tp_ctx
+            self._pack = None
+            self._pack_params = None
+        hw = self._hw_base.with_mesh(
+            tp_ctx.tp if tp_ctx is not None and tp_ctx.spmd else 1)
+        if hw is not self.hw:
+            self.hw = hw
+            self.invalidate_plans()
+
     def param_pack(self, params):
         """Restoration weights for ``params`` (a hybrid stack's attention
-        blocks), built once and reused; None for an attention-free
-        stack."""
+        blocks), built once and reused, sharded under the attached
+        context (``set_tp``); None for an attention-free stack."""
         if self.model.kind == "ssm":
             return None
         if self._pack is None or self._pack_params is not params:
-            self._pack = RestoreParamPack(self.model, params)
+            self._pack = None        # free the old pack's shard copies first
+            self._pack = RestoreParamPack(self.model, params, self._tp)
             self._pack_params = params
         return self._pack
 
@@ -198,11 +218,12 @@ class HCacheManager:
 
     def _price_key(self) -> tuple:
         """The calibration state a plan was priced under: the profile's
-        epoch (it bumps when a fit drifts), the IO multiplicity and the
-        per-link load."""
+        epoch (it bumps when a fit drifts), the IO multiplicity, the
+        per-link load and the tensor-parallel mesh width."""
         epoch = self.profile.epoch if self.profile is not None else -1
         load = self.link_load.key() if self.link_load is not None else None
-        return (epoch, self.io_streams, load)
+        return (epoch, self.io_streams, load,
+                getattr(self.hw, "mesh_devices", 1))
 
     # ------------------------------------------------------------- planning
     def plan(self, n_tokens: int) -> Schedule:

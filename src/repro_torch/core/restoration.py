@@ -52,6 +52,7 @@ from repro_torch.config.arch import BlockKind
 from repro_torch.core.cost_model import (MethodTimes, layer_costs,
                                          link_priced_times, method_times)
 from repro_torch.core.scheduler import Schedule
+from repro_torch.distributed.tp import Sharded, gathered, on_device
 from repro_torch.models.layers.rope import rope_table
 
 # Task kinds. IO-stream: io_h (hidden fetch), io_kv (raw KV fetch),
@@ -572,7 +573,9 @@ class RestoreSink:
 
     def put_kv_group(self, rows: Sequence[int], k, v,
                      start: int = 0) -> None:
-        """A whole projection group's K/V; k/v (G, 1, n, kv_heads, hd)."""
+        """A whole projection group's K/V; k/v (G, 1, n, kv_heads, hd),
+        or ``Sharded`` on the head axis from a sharded pack (a sink whose
+        buffers are whole gathers them)."""
         for g, row in enumerate(rows):
             self.put_kv(row, k[g], v[g], start)
 
@@ -620,6 +623,9 @@ class CacheAssembler(RestoreSink):
             self.v = torch.zeros_like(self.k)
         return self.k, self.v
 
+    def put_kv_group(self, rows, k, v, start=0):
+        super().put_kv_group(rows, gathered(k), gathered(v), start)
+
     def put_kv(self, row, k, v, start=0):
         n = k.shape[1]
         kb, vb = self._buffers(start + n)
@@ -663,9 +669,18 @@ class RestoreParamPack:
     model's layer-stacked parameters (no copy; a hybrid stack's attention
     blocks, row ``s`` for block ``s``; an enc-dec decoder's ``ln1`` and
     ``self_attn``), and RoPE tables cut from the shared table that prefill
-    and decode gather from too."""
+    and decode gather from too.
 
-    def __init__(self, model, params):
+    Under an SPMD ``tp`` context (``distributed/tp.py``) the pack also
+    holds ``shards``: per shard, contiguous copies of its slice of
+    ``wk``/``wv`` (and ``bk``/``bv``) on the flattened KV output axis,
+    which is heads-leading, so each slice is one group of KV heads, on
+    the shard's device. Kernel #1 takes contiguous weight stacks only, so
+    the slices are copies: one more copy of ``wk`` and ``wv`` in all,
+    2.1 GB at llama2-7b's full width. ``shard_attn`` is the attention
+    geometry of one shard."""
+
+    def __init__(self, model, params, tp=None):
         from repro_torch.models import encdec
         self.model = model
         if model.kind == "hybrid":
@@ -675,6 +690,18 @@ class RestoreParamPack:
             self.attn = model.h.attn
         else:
             self.blocks, self.attn = params["blocks"], model.h.attn
+        self.tp = tp if tp is not None and tp.spmd else None
+        self.shards = None
+        if self.tp is not None:
+            self.tp.validate_heads(self.attn.n_kv_heads)
+            a = self.blocks["attn"]
+            parts = {n: self.tp.shard_kv(a[n], a[n].dim() - 1).parts
+                     for n in ("wk", "wv", "bk", "bv") if n in a}
+            self.shards = [{"attn": {n: p[s] for n, p in parts.items()}}
+                           for s in range(self.tp.tp)]
+            self.shard_attn = dataclasses.replace(
+                self.attn, n_heads=self.attn.n_heads // self.tp.tp,
+                n_kv_heads=self.attn.n_kv_heads // self.tp.tp)
         self._tables: Dict[Tuple[int, int],
                            Tuple[torch.Tensor, torch.Tensor]] = {}
         self._rows: Dict[Tuple[int, ...], torch.Tensor] = {}
@@ -711,11 +738,30 @@ def project_group(pack: RestoreParamPack, hidden: torch.Tensor,
     """One projection group: hidden (G, S_bucket, D) in the model dtype,
     rows (G,) int32 pack rows -> k, v (G, S_bucket, Kv, hd). The same norm
     and kernel calls as prefill (``models/transformer.py``), so restored
-    K/V equals prefill K/V."""
+    K/V equals prefill K/V.
+
+    A sharded pack launches kernel #1 once per shard, on the shard's
+    weights and the normed stack replicated to its device, and returns
+    k, v as ``Sharded`` values split on the head axis (2); each shard's
+    heads are the bits of the whole launch (no sum runs over KV
+    columns). The compute stream of the first device then waits for every
+    other device's launches, so events around the call span them all."""
     from repro_torch.models import transformer as tfm
     normed = tfm.norm_rows(pack.blocks, rows, hidden, pack.model.cfg)
-    return tfm.project_kv_rows(pack.blocks, rows, normed, cos, sin,
-                               pack.attn)
+    tp = pack.tp
+    if tp is None:
+        return tfm.project_kv_rows(pack.blocks, rows, normed, cos, sin,
+                                   pack.attn)
+    ks, vs = [], []
+    for dev, blocks, r, x, c, s in zip(
+            tp.devices, pack.shards, *(tp.replicate(t)
+                                       for t in (rows, normed, cos, sin))):
+        with on_device(dev):
+            k, v = tfm.project_kv_rows(blocks, r, x, c, s, pack.shard_attn)
+        ks.append(k)
+        vs.append(v)
+    tp.join()
+    return Sharded(ks, 2), Sharded(vs, 2)
 
 
 # --------------------------------------------------------------- executor
@@ -1069,13 +1115,19 @@ class RestorationExecutor:
             self._book(start.elapsed_time(end) / 1e3, samples)
 
     def _book(self, seconds: float, samples) -> None:
+        # a sharded projection group's seconds (every shard's launches)
+        # go to its mesh width's own cell (profiler.mesh_kind), so the
+        # single-device fit stays clean; nothing else is sharded
+        mesh = self.pack.tp.tp if self.pack is not None and self.pack.tp \
+            else None
         for idx, kind, work, share, keep in samples:
             s = seconds * share
             if kind == "project":
                 self.project_wall += s
             if self.profile is not None and keep and s > 0.0:
                 self.observed[idx] = s
-                self.profile.record(kind, self._bucket_of(kind), work, s)
+                self.profile.record(kind, self._bucket_of(kind), work, s,
+                                    mesh=mesh if kind == "project" else None)
 
     # ---------------------------------------------------------- task bodies
     def _run_task(self, idx: int) -> None:
@@ -1215,7 +1267,7 @@ class RestorationExecutor:
         k, v = self._timed(
             project,
             [(self._cur_idx, "project", self._task_work(t), 1.0, not first)])
-        self._emit("put_kv_group", rows, k[:, None], v[:, None],
+        self._emit("put_kv_group", rows, k.unsqueeze(1), v.unsqueeze(1),
                    self.start_token)
         self.host_split["launch"] += time.perf_counter() - t0
 

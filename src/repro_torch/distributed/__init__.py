@@ -1,2 +1,3 @@
-"""Fault supervision of training runs (``fault``). Sharding over cards
-is not ported yet."""
+"""Fault supervision of training runs (``fault``) and the tensor-parallel
+serving context (``tp``). Sharded training over cards is not ported
+yet."""

@@ -60,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -477,8 +479,8 @@ template <typename T, typename Addr, int GB>
 int launch_g(const Params& p, const Addr& a, int BKv, int smem,
              cudaStream_t st) {
   auto kernel = decode_split_kernel<T, Addr, GB>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  const cudaError_t attr =
+      max_dynamic_smem(reinterpret_cast<const void*>(kernel), MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<dim3(BKv, p.splits), THREADS, smem, st>>>(p, a);
   return static_cast<int>(cudaGetLastError());

@@ -70,6 +70,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -261,8 +262,8 @@ flash_attention_simt(SimtParams p) {
 
 template <int HD>
 int launch_simt(const SimtParams& p, int B, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_attention_simt<HD>),
       (int)SimtLd<HD>::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((p.Sq + BQ - 1) / BQ, B * p.H);
@@ -750,8 +751,8 @@ int launch_tma(const void* q, const void* k, const void* v, const Params& p,
                cudaStream_t st) {
   using L = Layout<HDP, BN, STAGES>;
   auto kernel = flash_attention_tma<HDP, BN, STAGES>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  const cudaError_t attr =
+      max_dynamic_smem(reinterpret_cast<const void*>(kernel), L::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int Kv = p.H / p.group;
   CUtensorMap qmap, kmap, vmap;

@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -218,9 +219,9 @@ int launch_simt(const void* hidden, const void* wk, const void* wv,
                  const float* cos_t, const float* sin_t, void* k_out,
                  void* v_out, int G, int S, int D, int KV, int use_rope,
                  cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      restore_kv_grouped_simt<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem<HD>());
+  const cudaError_t attr = max_dynamic_smem(
+      reinterpret_cast<const void*>(restore_kv_grouped_simt<HD>),
+      simt_smem<HD>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + BM - 1) / BM, KV / HD, G);
   restore_kv_grouped_simt<HD><<<grid, TX * TY, simt_smem<HD>(), stream>>>(
@@ -477,8 +478,8 @@ int launch_tma(const void* hidden, const void* wk, const void* wv, Params p,
   constexpr int SMEM =
       STAGES * (MW * A_TILE + NPIECE * B_TILE) + 16 * STAGES + 1024;
   auto kernel = restore_kv_grouped_tma<MW, NPB, BOTH, STAGES>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  const cudaError_t attr =
+      max_dynamic_smem(reinterpret_cast<const void*>(kernel), SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap hmap, kmap, vmap;
   // hidden (G, S, D) in 64 x 64 MW boxes; weights (A, D, KV) in 32 x 64

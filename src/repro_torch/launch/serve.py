@@ -21,11 +21,18 @@ conversation trace.
         --backend paged --prefix-sharing            # shared prefixes
     PYTHONPATH=src python -m repro_torch.launch.serve --serve-http \
         --port 8080 --backend paged --prefix-sharing   # HTTP front door
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --backend paged --tp 2                      # 2 CPU shards
 
 It runs on ``cuda`` in bf16 unless ``--device cpu`` is given (fp32 on the
 CPU); with no GPU present and no ``--device`` it fails instead of falling
-back to the CPU. Weights are random, from seed 0. Flags of parts that are
-not ported yet are refused with a message that names the missing part.
+back to the CPU. Weights are random, from seed 0.
+``--tp N`` serves tensor-parallel (DESIGN.md §16): the restoration pack
+and, with ``--backend paged``, the KV pool are split by KV heads over N
+shards, the first N cards (refused when fewer are visible, never run on
+fewer), or N CPU shards with ``--device cpu``; a width that does not
+divide the model's KV heads is refused. The tokens are those of ``--tp
+1``. The weights are not sharded.
 ``--budget-kb`` caps the store's hot tier and adds a DRAM cold tier
 under a ``CapacityManager`` (its ladder's actions are printed);
 ``--prefix-sharing`` turns on shared prefixes and copy-on-write pages
@@ -69,6 +76,7 @@ from repro_torch.core.capacity import (ADMISSION_POLICIES, EVICTION_POLICIES,
                                        RestoreCostAwareAdmission)
 from repro_torch.core.hcache import HCacheManager
 from repro_torch.core.profiler import MeasuredProfile
+from repro_torch.distributed.tp import context as tp_context
 from repro_torch.frontend import serve_engine, unservable
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving import BACKENDS, InferenceEngine, Request
@@ -78,12 +86,6 @@ from repro_torch.storage import (AsyncIOEngine, ChunkStore, make_array,
 # device memory of the card the port serves on (one H100), against which
 # --full is checked when the run is not on a card
 CARD_BYTES = 80e9
-
-# flags of the JAX package's serve.py whose parts are not ported yet, and
-# the ROADMAP item that brings each
-NOT_PORTED = {
-    "--tp": "tensor parallelism (multi-GPU)",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -176,18 +178,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-pending", type=int, default=64,
                    help="--serve-http backpressure: queue-depth cap "
                         "before requests are shed with 429/overloaded")
-    for flag in NOT_PORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width: split the restoration "
+                        "projection and the paged KV pool by KV heads over "
+                        "this many shards (the first N cards; N CPU shards "
+                        "with --device cpu); refused when fewer cards are "
+                        "visible")
     return p
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args):
-    """Refuse the flags of parts not ported yet; returns the group plan."""
-    for flag, what in NOT_PORTED.items():
-        val = getattr(args, flag[2:].replace("-", "_"))
-        if val is not None and not (flag == "--tp" and str(val) == "1"):
-            p.error(f"{flag}: {what} is not ported to repro_torch yet")
+def _group_plan(p: argparse.ArgumentParser, args):
+    """The manager's projection group plan from ``--restore-group-size``."""
     if args.restore_group_size in ("auto", "fetch"):
         return args.restore_group_size
     try:
@@ -200,7 +201,8 @@ def _refuse_unported(p: argparse.ArgumentParser, args):
 def _refuse_oversized(p: argparse.ArgumentParser, cfg, device) -> None:
     """Refuse a published size whose bf16 weights exceed one card's
     memory (the card's own, or an H100's 80 GB off the card): serving
-    it needs its weights sharded over several cards."""
+    it needs its weights sharded over several cards, which ``--tp`` does
+    not do (it splits the KV pool and the restoration pack)."""
     need = 2 * cfg.param_count()
     have = (torch.cuda.get_device_properties(device).total_memory
             if device.type == "cuda" else CARD_BYTES)
@@ -208,15 +210,21 @@ def _refuse_oversized(p: argparse.ArgumentParser, cfg, device) -> None:
         p.error(f"--full {cfg.name}: its {cfg.n_layers} layers hold "
                 f"{cfg.param_count() / 1e9:.1f} B parameters, "
                 f"{need / 1e9:.1f} GB in bf16, more than the "
-                f"{have / 1e9:.1f} GB of one card's memory; sharding them "
-                f"over cards ({NOT_PORTED['--tp']}) is not ported yet")
+                f"{have / 1e9:.1f} GB of one card's memory; --tp does "
+                "not shard the weights (it splits the KV pool and the "
+                "restoration pack), and sharding them over cards comes "
+                "with sharded training, which is not ported yet")
 
 
 def main(argv=None) -> None:
     p = _parser()
     args = p.parse_args(argv)
-    group_size = _refuse_unported(p, args)
+    group_size = _group_plan(p, args)
     device = resolve_device(args.device)
+    try:
+        tp = tp_context(args.tp, device)
+    except ValueError as e:
+        p.error(f"--tp {args.tp}: {e}")
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     cfg = get_arch(args.arch)
@@ -224,6 +232,10 @@ def main(argv=None) -> None:
         _refuse_oversized(p, cfg, device)
     else:
         cfg = reduced_for_smoke(cfg)
+    try:
+        tp.validate_heads(cfg.n_kv_heads)
+    except ValueError as e:
+        p.error(f"--tp {args.tp}: {e}")
     model = Model(cfg, dtype=dtype, device=device)
     if args.serve_http and unservable(model):
         p.error(f"--serve-http: {unservable(model)}")
@@ -270,9 +282,11 @@ def main(argv=None) -> None:
                              block_size=args.block_size,
                              cache_blocks=args.cache_blocks,
                              enc_seq=args.enc_seq,
-                             prefix_sharing=args.prefix_sharing)
+                             prefix_sharing=args.prefix_sharing, tp=tp)
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {dtype} on "
-          f"{device}")
+          f"{device}" + (f", tp={tp.tp} over "
+                         f"{', '.join(str(d) for d in tp.devices)}"
+                         if tp.spmd else ""))
     if args.serve_http:
         try:
             asyncio.run(serve_engine(engine, args.host, args.port,
@@ -302,8 +316,8 @@ def main(argv=None) -> None:
         engine.run()
         for s in range(args.sessions):
             seq = engine.sessions[f"user{s}"]
-            print(f"round {rnd} user{s}: {len(seq.generated)} tokens, "
-                  f"restore_sim {seq.restore_sim * 1e3:.2f} ms, "
+            print(f"round {rnd} user{s}: {len(seq.generated)} tokens "
+                  f"{[int(t) for t in seq.generated]}, restore_sim {seq.restore_sim * 1e3:.2f} ms, "
                   f"ttft_wall {seq.ttft_wall:.3f} s")
     m = engine.metrics
     print(f"\nrestored {m.restored_tokens} tokens over "
@@ -330,7 +344,9 @@ def main(argv=None) -> None:
         print(f"device {r['device']}: free pages {r['free_pages']}, "
               f"pool occupancy {r['occupancy_pct']}%, live/reserved "
               f"{r['util_pct']}%, restore-projection utilization "
-              f"{r['proj_util_pct']}%")
+              f"{r['proj_util_pct']}%"
+              + (f", pool {r['pool_bytes'] / 1e6:.2f} MB"
+                 if "pool_bytes" in r else ""))
     if measured is not None:
         print(f"scheduler calibration: observed bubble "
               f"{m.restore_bubble_mean:.1%} over {m.restore_bubble_n} "

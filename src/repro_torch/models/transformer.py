@@ -47,6 +47,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config.arch import ArchConfig, AttnKind
+from repro_torch.distributed.tp import Sharded, on_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.attention import AttnHyper
@@ -282,11 +283,47 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
     full row owns no page to write to. The write is in place; attention
     then reads the pool in place through the block table."""
     q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
-    write_pool_kv(k_pool, v_pool, k, v, write)
-    attn_out = attn_lib.decode_attention_paged(
-        q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
-        window=window)
+    if isinstance(k_pool, Sharded):
+        attn_out = sharded_decode_attention(q, k, v, k_pool, v_pool,
+                                            block_table, write, lengths,
+                                            h, window)
+    else:
+        write_pool_kv(k_pool, v_pool, k, v, write)
+        attn_out = attn_lib.decode_attention_paged(
+            q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
+            window=window)
     return _block_tail(layer_params(blocks, li), x, attn_out, h)[0]
+
+
+def sharded_decode_attention(q, k, v, k_pool: Sharded, v_pool: Sharded,
+                             block_tables, writes, lengths, h: LMHyper,
+                             window: Optional[int]):
+    """Decode attention over a pool split on the KV-head axis
+    (``serving.kv_cache.ShardedPagedBackend``): q (B,1,H,hd) and the new
+    k/v (B,1,Kv,hd), projected whole; pools ``Sharded`` on axis 2, part s
+    (NB,bs,Kv/tp,hd) on its shard's device; ``block_tables``/``writes``
+    the step's table and write addresses on each shard's device. Shard s
+    writes its KV heads' slice of the new token, then launches kernel #4
+    on the query heads [s·H/tp, (s+1)·H/tp), which are exactly the
+    queries of its KV heads (GQA groups are contiguous). The shards'
+    outputs are gathered over heads onto the first shard's device: the
+    one gather of the step, before ``wo``."""
+    tp = len(k_pool.parts)
+    kvs, qs = h.attn.n_kv_heads // tp, h.attn.n_heads // tp
+    attn = dataclasses.replace(h.attn, n_heads=qs, n_kv_heads=kvs)
+    kv_len = lengths + 1
+    outs = []
+    for s, (kp, vp, table, write) in enumerate(zip(
+            k_pool.parts, v_pool.parts, block_tables, writes)):
+        dev = kp.device
+        with on_device(dev):
+            heads = slice(s * kvs, (s + 1) * kvs)
+            write_pool_kv(kp, vp, k[:, :, heads].to(dev),
+                          v[:, :, heads].to(dev), write)
+            outs.append(attn_lib.decode_attention_paged(
+                q[:, :, s * qs:(s + 1) * qs].to(dev), kp, vp, table, attn,
+                kv_len=kv_len.to(dev), window=window))
+    return Sharded(outs, 2).gather(q.device)
 
 
 def block_train(p: dict, x, h: LMHyper, *, cos, sin,
@@ -452,7 +489,10 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     tokens (B,1). Returns (logits (B,1,V), new cache, hidden (L,B,1,D));
     the new cache shares the pools, which this step wrote into in place.
     With every live position mapped by the table this gives the bits of
-    ``lm_decode_step`` at logical width MB·bs."""
+    ``lm_decode_step`` at logical width MB·bs. Pools split on the KV-head
+    axis (``Sharded``, a tensor-parallel backend) come with a table and
+    write addresses per shard (``sharded_decode_attention``), and give the
+    same bits."""
     lengths, table = cache["lengths"], cache["block_table"]
     k_pool, v_pool, write = cache["k_pool"], cache["v_pool"], cache["write"]
     end = int(lengths.max()) + 1

@@ -5,7 +5,8 @@ from repro_torch.serving.kv_cache import (BACKENDS, BlockAllocator, CacheView,
                                           ContiguousBackend, EncDecBackend,
                                           KVCacheBackend, OccupancyStats,
                                           PagedBackend, PagedEncDecBackend,
-                                          ViewSink, make_backend)
+                                          ShardedPagedBackend, ViewSink,
+                                          make_backend)
 from repro_torch.serving.request import Phase, Request, SequenceState
 from repro_torch.serving.sampling import sample
 
@@ -13,4 +14,4 @@ __all__ = ["BACKENDS", "BlockAllocator", "CacheView", "ContiguousBackend",
            "EncDecBackend", "EngineMetrics", "InferenceEngine",
            "KVCacheBackend", "OccupancyStats", "PagedBackend",
            "PagedEncDecBackend", "Phase", "Request", "SequenceState",
-           "ViewSink", "make_backend", "sample"]
+           "ShardedPagedBackend", "ViewSink", "make_backend", "sample"]

@@ -75,12 +75,19 @@ fork to adopt. Sessions in the int8 codec or with recompute layers are
 not shared: shared pages hold exact K/V, and a restore of theirs would
 not give those bits.
 
-Not ported yet, and refused at construction with the ROADMAP item that
-brings it: tensor parallelism (``tp > 1``). Prefix sharing is refused for
-an enc-dec model: every decoder layer after the first attends to the
-session's own audio, so decoder K/V cannot be shared between sessions by
-their tokens (the JAX package shares them, and the adopting session's
-cross-attention then runs over a cross state that was never written).
+Tensor parallelism (``tp``; DESIGN.md §16): a ``TPContext`` of ``tp``
+shards (an int: the first ``tp`` cards, or CPU shards for a model on the
+CPU). The manager shards its restoration pack over it and prices its
+plans for its width; the paged backend of an lm-family model splits its
+pool by KV heads (``ShardedPagedBackend``), and every other backend
+ignores it. Tokens and restored K/V are those of ``tp == 1``, bit for
+bit.
+
+Prefix sharing is refused for an enc-dec model: every decoder layer
+after the first attends to the session's own audio, so decoder K/V
+cannot be shared between sessions by their tokens (the JAX package
+shares them, and the adopting session's cross-attention then runs over
+a cross state that was never written).
 
 A family whose adapter cannot resume (``supports_resume`` false: the
 ``ssm`` family, whose prefill starts from zero state) serves each
@@ -104,6 +111,8 @@ from repro_torch.core.capacity import (AdmissionPolicy, CapacityManager,
                                        LRUEviction)
 from repro_torch.core.cost_model import LinkLoad
 from repro_torch.core.hcache import HCacheManager
+from repro_torch.distributed.tp import TPContext
+from repro_torch.distributed.tp import context as tp_context
 from repro_torch.serving.kv_cache import (KVCacheBackend, PagedBackend,
                                           ViewSink, make_backend)
 from repro_torch.serving.prefix_index import HostPin, PrefixIndex
@@ -246,11 +255,13 @@ class InferenceEngine:
                  cache_blocks: Optional[int] = None,
                  prefix_sharing: bool = False,
                  enc_seq: Optional[int] = None,
-                 tp: int = 1):
-        if tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP queue 1: "
-                "multi-GPU)")
+                 tp: Union[int, TPContext] = 1):
+        # tensor parallelism (DESIGN.md §16): an int is that many shards
+        # of the model's device kind (the first tp cards on CUDA; too few
+        # is a ValueError), a TPContext its own device list
+        self.tp = tp_context(tp, model.device)
+        if model.cfg.n_heads:
+            self.tp.validate_heads(model.cfg.n_kv_heads)
         if prefix_sharing and model.adapter.has_cross:
             raise NotImplementedError(
                 f"prefix sharing of {model.cfg.name} sessions: an enc-dec "
@@ -277,9 +288,12 @@ class InferenceEngine:
         self.capacity = capacity
         if capacity is not None:
             capacity.attach_engine(self)
+        # the manager shards its restoration pack and prices its plans
+        # for the context's width; a paged lm backend splits its pool
+        manager.set_tp(self.tp)
         self.kv = make_backend(backend, model, max_batch, max_seq,
                                block_size=block_size, num_blocks=cache_blocks,
-                               enc_seq=enc_seq)
+                               enc_seq=enc_seq, tp=self.tp)
         # cross-session prefix sharing: host chunk aliasing on fork works
         # on every backend; the token-hash index needs pages
         self.prefix_sharing = bool(prefix_sharing)
@@ -960,8 +974,10 @@ class InferenceEngine:
             m.prefix_hit_tokens = pi.hit_tokens
             m.cow_copies = self.kv.cow_copies
             m.shared_pages, m.private_pages = self.kv.shared_page_stats()
-        # one device: the pool row, plus the share of completed-restore
-        # wall spent inside the projection launches
+        # per-device gauges: the backend's pool rows (one per shard of a
+        # sharded pool), plus the share of completed-restore wall spent
+        # inside the projection launches (every shard takes part in each
+        # group, so it is common to all rows)
         util = (int(round(100.0 * m.restore_project_wall
                           / m.restore_wall_sum))
                 if m.restore_wall_sum > 0 else 0)

@@ -65,8 +65,19 @@ Index-held pages are a cache: a reservation short of pages spills them
 that writes into shared pages may still demand (``copy_debt``): a
 reservation, an adoption or a fork's parked pages that would leave less
 than that is refused (``reserve`` returns False, ``hold_blocks`` parks
-nothing), so a copy-on-write write always finds its page. Not ported:
-the sharded pool.
+nothing), so a copy-on-write write always finds its page.
+
+Tensor parallelism (``ShardedPagedBackend``, "paged-tp"; DESIGN.md §16):
+under an SPMD ``TPContext`` the pool is split on the KV-head axis, one
+``(L, NB, bs, Kv/tp, hd)`` pool per shard on the shard's device (a
+``Sharded`` value); the host block table and lengths are the same for
+every shard and go up once per device. Writes put each shard's head
+slice at the same page positions, a copy-on-write clones the page on
+every shard, and history gathers and snapshots gather the shards onto the
+first device, where prefill and the host store stay whole. The other
+layouts (contiguous, ssm, hybrid, enc-dec) ignore the context: only the
+restoration pack shards for them, and the sink gathers projected heads
+back onto the buffer's device.
 """
 from __future__ import annotations
 
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.restoration import RestoreSink, s_bucket
+from repro_torch.distributed.tp import Sharded, TPContext, gathered
 
 
 @dataclasses.dataclass
@@ -162,7 +174,11 @@ class BlockAllocator:
 # -------------------------------------------------------------------- views
 class CacheView:
     """Slot-bound handle; the only way engine, restoration and save code
-    touch cache state."""
+    touch cache state. ``takes_shards``: the group writes take K/V split
+    by heads (``Sharded``) as they come from a sharded restoration pack;
+    other views are given them whole."""
+
+    takes_shards = False
 
     def write_layer(self, row: int, k, v, start: int = 0) -> None:
         """One attention layer's restored K/V at tokens [start, start+n);
@@ -226,6 +242,8 @@ class ViewSink(RestoreSink):
         self.view.write_layer(row, k, v, start)
 
     def put_kv_group(self, rows, k, v, start=0):
+        if not self.view.takes_shards:
+            k, v = gathered(k), gathered(v)
         self.view.write_layer_group(rows, k, v, start)
 
     def put_states(self, conv, ssm):
@@ -540,9 +558,7 @@ class PagedBackend(KVCacheBackend):
         self.blocks_per_seq = -(-max_seq // block_size)
         self.num_blocks = (max_batch * self.blocks_per_seq
                            if num_blocks is None else num_blocks)
-        cache = model.init_paged_cache(max_batch, self.num_blocks,
-                                       block_size, self.blocks_per_seq)
-        self.k_pool, self.v_pool = cache["k_pool"], cache["v_pool"]
+        self.k_pool, self.v_pool = self._make_pools()
         self.table_np = np.full((max_batch, self.blocks_per_seq),
                                 self.num_blocks, np.int32)
         self.lengths_np = np.zeros((max_batch,), np.int64)
@@ -552,6 +568,12 @@ class PagedBackend(KVCacheBackend):
         # are reclaimable under pressure (``_alloc_pages``)
         self.prefix_index = None
         self.cow_copies = 0
+
+    def _make_pools(self):
+        cache = self.model.init_paged_cache(self.max_batch, self.num_blocks,
+                                            self.block_size,
+                                            self.blocks_per_seq)
+        return cache["k_pool"], cache["v_pool"]
 
     def flat_pools(self):
         """The pools as (L, num_blocks·bs, Kv, hd) views."""
@@ -627,12 +649,16 @@ class PagedBackend(KVCacheBackend):
                     "the copy debt was not held back (a bug in the "
                     "backend's accounting)")
             dst = fresh[0]
-            self.k_pool[:, dst] = self.k_pool[:, src]
-            self.v_pool[:, dst] = self.v_pool[:, src]
+            self._copy_page(src, dst)
             self.allocator.free([src])          # drop this slot's hold
             blks[lp] = dst
             self.table_np[slot, lp] = dst
             self.cow_copies += 1
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Page ``src`` of every layer into page ``dst``, in both pools."""
+        self.k_pool[:, dst] = self.k_pool[:, src]
+        self.v_pool[:, dst] = self.v_pool[:, src]
 
     def hold_blocks(self, blocks: Sequence[int]) -> bool:
         """Add a caller-owned hold on each page (a fork's parked pages)
@@ -728,13 +754,18 @@ class PagedBackend(KVCacheBackend):
             tokens, self.lengths_np, self.table_np, rows, slots,
             *extras.values())
         cache = {"k_pool": self.k_pool, "v_pool": self.v_pool,
-                 "block_table": table.to(torch.int32),
+                 "block_table": self._per_pool(table.to(torch.int32)),
                  "lengths": lengths.to(torch.int32),
-                 "write": (rows_t, slots_t), **self.cross}
+                 "write": self._per_pool(rows_t, slots_t), **self.cross}
         cache.update((k, t.to(torch.int32)) for k, t in zip(extras, more))
         lg, _, hidden = self.model.decode_step_paged(params, cache, tok)
         self.lengths_np += 1
         return lg, hidden
+
+    def _per_pool(self, *ts):
+        """A decode step's table or write addresses as its pools take
+        them: ``ts`` itself (one tensor, or the tuple)."""
+        return ts[0] if len(ts) == 1 else ts
 
     def occupancy(self):
         live = int(sum(int(self.lengths_np[i])
@@ -743,6 +774,148 @@ class PagedBackend(KVCacheBackend):
         return OccupancyStats(live, reserved,
                               self.num_blocks * self.block_size,
                               self.allocator.free_count)
+
+
+# ------------------------------------------------------------------ sharded
+class DeviceAllocatorView:
+    """Read-only per-shard window onto the shared ``BlockAllocator``.
+
+    Head sharding replicates the page structure: every shard holds the
+    same page ids (1/tp of each page's bytes), so the free list and
+    refcounts are common state; a per-shard allocator would desynchronise
+    the block tables. The view proxies the shared counts and scales only
+    the byte gauges by its shard."""
+
+    def __init__(self, backend: "ShardedPagedBackend", device: int):
+        self.b = backend
+        self.device = device
+
+    @property
+    def num_blocks(self) -> int:
+        return self.b.allocator.num_blocks
+
+    @property
+    def free_count(self) -> int:
+        return self.b.allocator.free_count
+
+    def refcount(self, block: int) -> int:
+        return self.b.allocator.refcount(block)
+
+    def pool_bytes(self) -> int:
+        return sum(p.parts[self.device].numel()
+                   * p.parts[self.device].element_size()
+                   for p in (self.b.k_pool, self.b.v_pool))
+
+
+class _ShardedPagedView(_PagedView):
+    """Writes put each shard's head slice into its own pool at the same
+    page positions; gathers bring the shards whole onto the first
+    device."""
+
+    takes_shards = True
+
+    def _parts(self, x, axis: int) -> List[torch.Tensor]:
+        """The shards' head slices of ``x`` (whole, or ``Sharded`` on
+        ``axis``), each on its shard's device."""
+        tp = self.b.tp
+        parts = (x.parts if isinstance(x, Sharded)
+                 else x.chunk(tp.tp, axis))
+        return [p.to(d) for p, d in zip(parts, tp.devices)]
+
+    def _write(self, rows, k, v, start: int) -> None:
+        b = self.b
+        n = k.shape[2]
+        self._private(start, n)
+        idxs = b.tp.replicate(self._slots(start, n))
+        for kf, vf, ks, vs, idx in zip(*b.flat_pools(), self._parts(k, 3),
+                                       self._parts(v, 3), idxs):
+            if rows is None:
+                kf[:, idx] = ks[:, 0]
+                vf[:, idx] = vs[:, 0]
+                continue
+            for g, row in enumerate(rows):
+                kf[row, idx] = ks[g, 0]
+                vf[row, idx] = vs[g, 0]
+
+    def write_layer_group(self, rows, k, v, start=0):
+        self._write(rows, k, v, start)
+
+    def write_kv(self, k, v, start):
+        self._write(None, k, v, start)
+
+    def _gather(self, n_pages: int):
+        b = self.b
+        pages = b.tp.replicate(b._upload(b.table_np[self.slot][:n_pages])[0])
+        out = []
+        for pool in (b.k_pool, b.v_pool):
+            parts = [p[:, pg].reshape((p.shape[0], 1, n_pages * b.block_size)
+                                      + tuple(p.shape[3:]))
+                     for p, pg in zip(pool.parts, pages)]
+            out.append(b.tp.unshard(Sharded(parts, 3)))
+        return tuple(out)
+
+
+class ShardedPagedBackend(PagedBackend):
+    """The paged backend with its pool split on the KV-head axis over an
+    SPMD ``TPContext``: ``k_pool``/``v_pool`` are ``Sharded`` (L, NB, bs,
+    Kv, hd) values, one (L, NB, bs, Kv/tp, hd) pool per shard. Allocator,
+    tables, copy debt and prefix sharing are the single-device code over
+    the one page structure; a decode step uploads table, lengths and
+    write addresses once and copies them to each other device, and
+    ``transformer.block_decode_paged`` runs kernel #4 once per shard."""
+
+    name = "paged-tp"
+
+    def __init__(self, model, max_batch: int, max_seq: int, *,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 tp: Optional[TPContext] = None):
+        if tp is None or not tp.spmd:
+            raise ValueError("the sharded page pool needs a tensor-"
+                             "parallel context of tp > 1")
+        if model.adapter.has_cross:
+            raise ValueError(f"the sharded page pool holds no cross state; "
+                             f"{model.cfg.name} is served by the paged "
+                             "enc-dec backend, unsharded")
+        tp.validate_heads(model.cfg.n_kv_heads)
+        self.tp = tp
+        self.shards = tp.tp
+        super().__init__(model, max_batch, max_seq, block_size=block_size,
+                         num_blocks=num_blocks)
+
+    def _make_pools(self):
+        c = self.model.cfg
+        shape = (c.n_layers, self.num_blocks, self.block_size,
+                 c.n_kv_heads // self.tp.tp, c.head_dim_)
+        return tuple(Sharded([torch.zeros(shape, dtype=self.model.dtype,
+                                          device=d)
+                              for d in self.tp.devices], 3)
+                     for _ in range(2))
+
+    def flat_pools(self):
+        """Per shard, the pools as (L, num_blocks·bs, Kv/tp, hd) views."""
+        return tuple([p.view((p.shape[0], self.num_blocks * self.block_size)
+                             + tuple(p.shape[3:])) for p in pool.parts]
+                     for pool in (self.k_pool, self.v_pool))
+
+    def view(self, slot):
+        return _ShardedPagedView(self, slot)
+
+    def _copy_page(self, src, dst):
+        for pool in (self.k_pool, self.v_pool):
+            for p in pool.parts:
+                p[:, dst] = p[:, src]
+
+    def _per_pool(self, *ts):
+        per = list(zip(*(self.tp.replicate(t) for t in ts)))
+        return [p[0] if len(ts) == 1 else p for p in per]
+
+    def device_views(self) -> List[DeviceAllocatorView]:
+        return [DeviceAllocatorView(self, d) for d in range(self.shards)]
+
+    def device_occupancy(self):
+        base = super().device_occupancy()[0]
+        return [dict(base, device=v.device, pool_bytes=v.pool_bytes())
+                for v in self.device_views()]
 
 
 # ------------------------------------------------------------------ encdec
@@ -858,17 +1031,26 @@ BACKENDS = {"contiguous": ContiguousBackend, "paged": PagedBackend}
 def make_backend(spec: Union[str, KVCacheBackend], model, max_batch: int,
                  max_seq: int, *, block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 enc_seq: Optional[int] = None) -> KVCacheBackend:
-    """Engine-facing factory: a name ('contiguous' | 'paged') or an
-    already-built backend instance. For an enc-dec model 'contiguous'
-    resolves to ``EncDecBackend`` and 'paged' to ``PagedEncDecBackend``,
-    each with ``enc_seq`` encoder positions per slot."""
+                 enc_seq: Optional[int] = None,
+                 tp: Optional[TPContext] = None) -> KVCacheBackend:
+    """Engine-facing factory: a name ('contiguous' | 'paged' |
+    'paged-tp') or an already-built backend instance. For an enc-dec
+    model 'contiguous' resolves to ``EncDecBackend`` and 'paged' to
+    ``PagedEncDecBackend``, each with ``enc_seq`` encoder positions per
+    slot. An SPMD ``tp`` upgrades 'paged' to the sharded pool
+    (``ShardedPagedBackend``), which 'paged-tp' names (a ValueError
+    without an SPMD ``tp``); the other layouts ignore ``tp``."""
     if isinstance(spec, KVCacheBackend):
         return spec
-    if spec not in BACKENDS:
+    if spec not in BACKENDS and spec != "paged-tp":
         raise ValueError(f"unknown KV-cache backend {spec!r}; "
                          f"one of {sorted(BACKENDS)}")
     encdec = model.kind == "encdec"
+    if spec == "paged-tp" or (spec == "paged" and not encdec
+                              and tp is not None and tp.spmd):
+        return ShardedPagedBackend(model, max_batch, max_seq,
+                                   block_size=block_size,
+                                   num_blocks=num_blocks, tp=tp)
     if spec == "paged":
         if encdec:
             return PagedEncDecBackend(model, max_batch, max_seq,

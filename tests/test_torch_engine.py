@@ -236,10 +236,19 @@ def test_restores_rebuild_the_snapshot_bitwise(checked_runs, backend):
 
 
 def test_engine_refuses_unported_parts(pair):
+    """Tensor parallelism is ported: ``tp=2`` on a CPU model gives two
+    CPU shards and, on the paged backend, the sharded pool, with prefix
+    sharing too. Still refused: a width that does not divide the KV
+    heads."""
     _, _, _, tm, tparams = pair
+    for kw in (dict(tp=2), dict(tp=2, prefix_sharing=True)):
+        mgr = HCacheManager(tm, ChunkStore(make_array("dram", 1)))
+        eng = InferenceEngine(tm, tparams, mgr, backend="paged", **kw)
+        assert eng.tp.spmd and eng.tp.devices == [torch.device("cpu")] * 2
+        assert eng.kv.name == "paged-tp"
+        assert mgr.hw.mesh_devices == 2
+        eng.close()
     mgr = HCacheManager(tm, ChunkStore(make_array("dram", 1)))
-    for kw, item in ((dict(tp=2), "multi-GPU"),
-                     (dict(tp=2, prefix_sharing=True), "multi-GPU")):
-        with pytest.raises(NotImplementedError, match=item):
-            InferenceEngine(tm, tparams, mgr, **kw)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        InferenceEngine(tm, tparams, mgr, tp=3)
     mgr.close()

@@ -292,22 +292,71 @@ def test_serve_runs_end_to_end_on_the_cpu(tmp_path, capsys):
     assert m["device_gauges"][0]["device"] == 0
 
 
-# every case but argv0 and argv4 pairs ported flags with one still
-# refused: the ported flags must not get the other through
+# --tp once was refused as not ported. Now every case but argv4 serves
+# on 2 CPU shards, alone and beside the other flags (argv2, argv3 and
+# argv6 through a stand-in for the front door), and must emit the tokens
+# of the same command at --tp 1; argv4's width does not divide the smoke
+# config's 4 KV heads and is refused.
+SERVE_TP = ["--device", "cpu", "--sessions", "2", "--rounds", "2",
+            "--prompt-len", "10", "--gen", "3", "--max-batch", "2",
+            "--max-seq", "64", "--backend", "paged", "--preempt-quantum",
+            "2"]
+
+
+def _served_tokens(argv, monkeypatch):
+    """Every token serve.py's engine emitted, as (session, token), and the
+    engine; under --serve-http a stand-in front door serves the synthetic
+    trace's two rounds through the engine it was given."""
+    engines, emitted = [], []
+
+    class Kept(InferenceEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+        def _emit_token(self, seq, tok):
+            emitted.append((seq.request.session_id, int(tok)))
+            super()._emit_token(seq, tok)
+
+    async def door(engine, host, port, max_pending=64):
+        rng = np.random.default_rng(0)
+        for _ in range(2):
+            for s in range(2):
+                engine.submit(Request(f"user{s}", rng.integers(
+                    0, engine.model.cfg.vocab_size, 10).astype(np.int32),
+                    max_new_tokens=3))
+            engine.run()
+
+    monkeypatch.setattr(serve_cli, "InferenceEngine", Kept)
+    monkeypatch.setattr(serve_cli, "serve_engine", door)
+    serve_cli.main(SERVE_TP + argv)
+    return emitted, engines[0]
+
+
 @pytest.mark.parametrize("argv", [["--tp", "2"],
                                   ["--prefix-sharing", "--tp", "2"],
                                   ["--budget-kb", "64", "--serve-http",
                                    "--tp", "2"],
                                   ["--serve-http", "--tp", "2"],
-                                  ["--tp", "4"],
-                                  ["--enc-seq", "16", "--tp", "2"],
-                                  ["--budget-kb", "1", "--enc-seq", "16",
+                                  ["--tp", "3"],
+                                  ["--budget-kb", "64", "--tp", "2"],
+                                  ["--backend", "contiguous",
                                    "--serve-http", "--tp", "2"]])
-def test_serve_refuses_unported_flags(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve_cli.main(["--device", "cpu"] + argv)
-    assert exc.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+def test_serve_refuses_unported_flags(argv, capsys, monkeypatch):
+    if argv == ["--tp", "3"]:
+        with pytest.raises(SystemExit) as exc:
+            serve_cli.main(SERVE_TP + argv)
+        assert exc.value.code != 0
+        assert "must divide the model's n_kv_heads=4" \
+            in capsys.readouterr().err
+        return
+    got, eng = _served_tokens(argv, monkeypatch)
+    want, ref = _served_tokens(argv[:-1] + ["1"], monkeypatch)
+    assert eng.tp.tp == 2 and not ref.tp.spmd
+    assert eng.kv.name == ("contiguous" if "contiguous" in argv
+                           else "paged-tp")
+    assert len(got) == 2 * 2 * 3 and got == want
+    assert eng.metrics.restored_tokens > 0
 
 
 def test_serve_http_answers_two_rounds_and_stops_cleanly(tmp_path):
