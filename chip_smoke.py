@@ -159,7 +159,7 @@ Needs one CUDA GPU and the repository checkout around this file. It
      sessions, its attention softcap through kernels #3-#5; each phase
      prints its peak allocated device memory;
   8. frees it and drives the ssm path: falcon-mamba-7b at full
-     width and depth in bf16 (random weights from a seed) through the
+     width and SSM_LAYERS of its 64 layers in bf16 (random weights from a seed) through the
      lifecycle (3 sessions: prefill -> save -> decode -> pause dump ->
      evict -> restore, the restored conv and ssm states bitwise equal to
      the live ones, greedy decoding MATCH against the never-evicted
@@ -168,9 +168,9 @@ Needs one CUDA GPU and the repository checkout around this file. It
      unbatched forward over its stream, every retired session's restore
      bitwise equal to the states the engine held at retire, every prefill
      and decode step one scan launch per layer);
-  9. frees it and drives the hybrid path: zamba2-2.7b (54 layers: 9
-     super-blocks of 5 Mamba2 blocks and an attention block) at full
-     width and depth in bf16 through the lifecycle (3 sessions of 1024,
+  9. frees it and drives the hybrid path: zamba2-2.7b (HYBRID_LAYERS of
+     its 54 layers: super-blocks of 5 Mamba2 blocks and an attention
+     block) at full width in bf16 through the lifecycle (3 sessions of 1024,
      1536 and 2000 tokens, 16 decode tokens saved row by row, pause,
      evict, restore: the attention blocks' restored K/V bitwise equal to
      the live cache on every token, prefill and decode rows alike, the
@@ -181,8 +181,9 @@ Needs one CUDA GPU and the repository checkout around this file. It
      pass over its session's own prompt and tokens, so every token is that
      pass's greedy choice; every retired session's restore bitwise equal
      to its K/V and states at retire);
- 10. frees it and drives the enc-dec path: whisper-medium (24 encoder
-     and 24 decoder layers, d=1024) at full size in bf16 through the
+ 10. frees it and drives the enc-dec path: whisper-medium (ENCDEC_LAYERS
+     of its 24 encoder and of its 24 decoder layers, d=1024) at full
+     width in bf16 through the
      lifecycle (sessions of 1500, 3000 and 4096 frames with 448-, 256-
      and 128-token prompts: 16 decode tokens saved, pause, evict,
      restore: the self K/V bitwise equal to the live cache on every
@@ -261,19 +262,27 @@ SEED = 0
 PROMPTS = (1024, 1536, 2000)      # round 0; 2000 exercises bucket padding
 # gemma2-9b's lifecycle: a prompt past its 4096-token window, a short one
 GEMMA_PROMPTS = (4608, 1024)
-# Depth cuts that keep the whole script inside its time budget (900 s on
-# a slow host, where the tensor-parallel phase pushed it past that):
-# qwen2-7b's lifecycle and engines, gemma2-9b's lifecycle and
-# internvl2-26b's lifecycle and engine run at half depth; widths, head
-# groupings, windows and every gate are the full configs'.
+# Depth cuts that keep the whole script near its time budget of 900 s on
+# a slow host: qwen2-7b's lifecycle and engines, gemma2-9b's lifecycle
+# and internvl2-26b's lifecycle and engine run at half depth since the
+# tensor-parallel phase, falcon-mamba-7b's, zamba2-2.7b's and
+# whisper-medium's (encoder and decoder) at about half since the sharded
+# training phase; widths, head groupings, windows, super-block layouts
+# and every gate are the full configs'. The lm stacks go no lower: the
+# planner's layer methods follow the depth, and at 7 layers qwen2-7b's
+# engine planned no recompute layer, which its gates need.
 QWEN_LAYERS = 14
 GEMMA_LAYERS = 22
 VLM_LAYERS = 24
+SSM_LAYERS = 32
+HYBRID_LAYERS = 30      # 5 of zamba2-2.7b's 9 super-blocks
+ENCDEC_LAYERS = 12      # encoder and decoder each
 # The MoE and VLM paths, after gemma2-9b, each model freed before the
 # next loads: granite-moe-1b-a400m at full width and GRANITE_LAYERS of its
 # 24 layers (the depth cut keeps the whole script inside its time limit:
 # its engines' MoE replay, ~90 launches per layer, is host-bound and took
-# ~180 s at full depth) through the lifecycle and the engine on both
+# ~180 s at full depth, ~40 s at 8) through the lifecycle and the
+# engine on both
 # backends; internvl2-26b at full width and VLM_LAYERS layers through a
 # lifecycle whose round-0 prompts start with its frontend_dim (256) patch
 # embeddings (seeded normals: the ViT front end is a stub in the
@@ -3289,14 +3298,15 @@ SSM_ARCH = "falcon-mamba-7b"
 
 
 def build_ssm_model():
-    """falcon-mamba-7b at full width and depth, bf16, random weights from
-    SEED, warmed by one short prefill and decode step."""
+    """falcon-mamba-7b at full width and SSM_LAYERS of its 64 layers,
+    bf16, random weights from SEED, warmed by one short prefill and
+    decode step."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
 
-    cfg = get_arch(SSM_ARCH)
+    cfg = get_arch(SSM_ARCH).scaled(n_layers=SSM_LAYERS)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -3436,14 +3446,15 @@ HYBRID_ENGINE_MAX_SEQ = 1088     # 1024 + 16 tokens fit
 
 
 def build_hybrid_model():
-    """zamba2-2.7b at full width and depth, bf16, random weights from
-    SEED, warmed by one short prefill and decode step."""
+    """zamba2-2.7b at full width and HYBRID_LAYERS of its 54 layers,
+    bf16, random weights from SEED, warmed by one short prefill and
+    decode step."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
 
-    cfg = get_arch(HYBRID_ARCH)
+    cfg = get_arch(HYBRID_ARCH).scaled(n_layers=HYBRID_LAYERS)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -3710,15 +3721,16 @@ def encdec_cache(model, out, capacity):
 
 
 def build_encdec_model():
-    """whisper-medium at full width and depth, bf16, random weights from
-    SEED, warmed by one short prefill (64 frames, 16 tokens) and decode
-    step."""
+    """whisper-medium at full width and ENCDEC_LAYERS of its 24 encoder
+    and 24 decoder layers, bf16, random weights from SEED, warmed by one
+    short prefill (64 frames, 16 tokens) and decode step."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
     from repro_torch.models.module import count_params
 
-    cfg = get_arch(ENCDEC_ARCH)
+    cfg = get_arch(ENCDEC_ARCH).scaled(n_layers=ENCDEC_LAYERS,
+                                       encoder_layers=ENCDEC_LAYERS)
     model = Model(cfg, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -4613,6 +4625,230 @@ def recorded_routes(fn):
         moe.route = route
 
 
+# Sharded training over a (data x model) mesh (``training/sharded.py``)
+# with every shard on the card: llama2-7b at full width and
+# SHARDED_LAYERS of its layers over a 2x2 mesh (4 x 2048 tokens a step,
+# 2 x 2048 per data shard; the fp32 master and moments are replicated
+# over data, so its state is twice the 1x1 state, which is why the depth
+# is cut to 2), then granite-moe-1b-a400m at GRANITE_LAYERS over 1x2
+# (the MoE layer combines on each shard, then sums once); each against
+# its 1x1 twin, the plain ``Trainer`` on the same seeded weights and
+# batch. The mesh changes only the order and precision of sums (each
+# row-parallel product's partial sums are rounded to bf16 before they
+# are added, one more bf16 rounding, 2^-8 relative, than the twin's
+# single product), and the losses and gradient norm are means over
+# millions of such elements, so each step's loss must stay within
+# SHARDED_RTOL of the twin's and the step-0 gradient norm within
+# SHARDED_GNORM_RTOL (a root of a sum of squares that a few large
+# leaves, the router's among them, dominate). The card's readings
+# behind them (NVIDIA H100 80GB HBM3, 700 W): step-0 gaps 4.4e-6
+# (loss) and 2.2e-5 (norm) for llama2-7b, 2.7e-5 and 3.3e-4 for granite;
+# later losses within 1.9e-5 (llama2-7b) and 8.2e-5 (granite) relative
+# of the twin's. Every step is gated: a
+# fault in the update (a ZeRO slice written back to the wrong data
+# shard, a clip scale or an AdamW part on the wrong device) leaves the
+# step-0 loss and norm as they were.
+SHARDED_ARCH, SHARDED_LAYERS, SHARDED_MESH = "llama2-7b", 2, (2, 2)
+SHARDED_BATCH, SHARDED_SEQ = 4, 2048
+# AdamW's rate: at 1e-3 the 2-layer model fits the repeated batch in one
+# step (loss 10.88 -> 0.13) and then overshoots
+SHARDED_STEPS, SHARDED_LR = 4, 1e-4
+SHARDED_MOE_MESH, SHARDED_MOE_STEPS = (1, 2), 3
+SHARDED_RTOL, SHARDED_GNORM_RTOL = 1e-3, 2e-3
+SHARDED_PHASE_BUDGET_S = 60.0
+
+
+def sharded_steps(step, state, data, steps):
+    """``steps`` calls of ``step(state, data)``: (final state, losses,
+    gradient norms, auxes, walls in s)."""
+    losses, gnorms, auxes, walls = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        walls.append(_sync_s(t0))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux"]))
+    return state, losses, gnorms, auxes, walls
+
+
+def run_sharded_train(card, arch, layers, shape, steps, lr, repeat=False):
+    """``arch`` at full width and ``layers`` layers: its 1x1 twin (the
+    plain ``Trainer``), then ``training/sharded.py`` over a ``shape``
+    mesh of ``["cuda"] * D·M`` from the same seeded weights and batch
+    (twice with ``repeat``), under deterministic algorithms (the
+    embedding's and the loss's gathers accumulate with atomics
+    otherwise). Gates: every step's loss within SHARDED_RTOL of the
+    twin's and the step-0 gradient norm within SHARDED_GNORM_RTOL; every
+    loss finite; kernel #5's launches
+    D·M times the twin's; each device part of each state leaf the shape
+    its spec gives; with ``repeat`` every later loss below the one
+    before and the second run bitwise equal to the first (losses,
+    gradient norms, every part of every state leaf); for a MoE stack the
+    recompute's routing equal to the forward's and the aux finite and
+    positive. Prints step ms, tokens/s, peak memory and state bytes per
+    shard beside ``card`` (its name and power limit)."""
+    import gc
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, DataConfig, Trainer, \
+        batch_at
+    from repro_torch.training.sharded import ShardedTrainer
+    from repro_torch.training.tree import tree_paths
+    cfg = get_arch(arch)
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
+    D, M = shape
+    name = f"train {arch} {D}x{M}"
+    data = batch_at(DataConfig(cfg.vocab_size, SHARDED_SEQ, SHARDED_BATCH,
+                               seed=SEED), 0, device="cuda")
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            twin = Trainer(Model(cfg, dtype=torch.bfloat16),
+                           AdamWConfig(lr=lr), loss_chunks=4)
+            state = twin.init_state(SEED)
+            n0 = fa.launches
+            torch.cuda.reset_peak_memory_stats()
+            state, t_loss, t_gn, _, t_walls = sharded_steps(
+                twin.train_step, state, data, steps)
+            twin_launches = fa.launches - n0
+            twin_peak = torch.cuda.max_memory_allocated() / 1e9
+            del state, twin
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = Trainer(Model(cfg, dtype=torch.bfloat16, model_axis=M),
+                              AdamWConfig(lr=lr), loss_chunks=4)
+            st = ShardedTrainer(trainer, make_mesh(
+                shape, ("data", "model"), ["cuda"] * (D * M)))
+            runs = []
+            for _ in range(2 if repeat else 1):
+                pstate = st.init_state(SEED)
+                torch.cuda.reset_peak_memory_stats()
+                n0 = fa.launches
+                (pstate, losses, gnorms, auxes, walls), slots = \
+                    recorded_routes(lambda: sharded_steps(
+                        st.train_step, pstate, data, steps))
+                runs.append({"state": pstate, "losses": losses,
+                             "gnorms": gnorms, "auxes": auxes,
+                             "walls": walls, "launches": fa.launches - n0,
+                             "peak": torch.cuda.max_memory_allocated() / 1e9,
+                             "slots": slots})
+                del pstate
+    finally:
+        torch.use_deterministic_algorithms(False)
+    alerts = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    run = runs[0]
+    losses, gnorms = run["losses"], run["gnorms"]
+    per_shard = st.state_bytes(run["state"])
+    step_ms = statistics.median(run["walls"][1:]) * 1e3
+    twin_ms = statistics.median(t_walls[1:]) * 1e3
+    print(f"{name}: {cfg.n_layers} of {full_layers} layers at full width, "
+          f"bf16 over an fp32 master, {D}x{M} mesh with every shard on "
+          f"cuda, batch {SHARDED_BATCH} x {SHARDED_SEQ} tokens "
+          f"({SHARDED_BATCH // D} rows per data shard)")
+    print(f"{name}: losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + "; the twin's " + ", ".join(f"{x:.5f}" for x in t_loss)
+          + "; gaps " + ", ".join(f"{a - b:+.2e}" for a, b in
+                                  zip(losses, t_loss))
+          + "; relative gaps " + ", ".join(
+              f"{abs(a - b) / abs(b):.2e}" for a, b in zip(losses, t_loss))
+          + f"; gradient norms {gnorms[0]:.5f} / twin {t_gn[0]:.5f} at "
+          f"step 0 (rtol {SHARDED_RTOL:.4g} on every loss, "
+          f"{SHARDED_GNORM_RTOL:.4g} on this norm)"
+          + ("; aux " + ", ".join(f"{x:.4f}" for x in run["auxes"])
+             if cfg.n_experts else ""))
+    print(f"{name} on {card}: step {step_ms:.1f} ms (twin {twin_ms:.1f} "
+          f"ms; medians of steps 2-{steps}), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s "
+          f"(twin {tokens / twin_ms * 1e3:.0f}), peak allocated "
+          f"{run['peak']:.1f} GB (twin {twin_peak:.1f} GB); state bytes "
+          "per shard " + ", ".join(f"{b / 1e9:.3f} GB" for b in per_shard)
+          + f"; flash_attention launches {run['launches']} (twin "
+          f"{twin_launches})"
+          + f"; determinism alerts: {alerts or 'none'}")
+    for what, got, want, rtol in (
+            [(f"step-{i} loss", a, b, SHARDED_RTOL)
+             for i, (a, b) in enumerate(zip(losses, t_loss))]
+            + [("step-0 gradient norm", gnorms[0], t_gn[0],
+                SHARDED_GNORM_RTOL)]):
+        if not abs(got - want) <= rtol * abs(want):
+            raise AssertionError(f"{name}: {what} {got} against the 1x1 "
+                                 f"twin's {want} (rtol {rtol})")
+    if not all(x == x and abs(x) < 1e4 for x in losses + gnorms):
+        raise AssertionError(f"{name}: losses {losses}, norms {gnorms}")
+    if run["launches"] != D * M * twin_launches or twin_launches <= 0:
+        raise AssertionError(f"{name}: {run['launches']} flash_attention "
+                             f"launches, not {D * M} x {twin_launches}")
+    for path, leaf in tree_paths(run["state"]):
+        for coord, part in zip(st.coords, leaf.parts):
+            want = tuple(sl.stop - sl.start for sl in leaf.block(coord))
+            if tuple(part.shape) != want:
+                raise AssertionError(f"{name}: {path} part at {coord} has "
+                                     f"shape {tuple(part.shape)}, not {want}")
+    if repeat:
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"{name}: the loss did not fall: {losses}")
+        again = runs[1]
+        same = (again["losses"] == losses and again["gnorms"] == gnorms
+                and all(torch_equal(a, b) for (_, x), (_, y) in zip(
+                    tree_paths(run["state"]), tree_paths(again["state"]))
+                    for a, b in zip(x.parts, y.parts)))
+        if not same:
+            raise AssertionError(f"{name}: a second run differs from the "
+                                 "first")
+    if cfg.n_experts:
+        L, S = cfg.n_layers, run["slots"]
+        per_step = 2 * L * M             # forward, then backward's recompute
+        for i in range(steps):
+            fwd = S[i * per_step:i * per_step + L * M]
+            bwd = S[i * per_step + L * M:(i + 1) * per_step]
+            for li in range(L):
+                for m in range(M):
+                    if not torch_equal(fwd[li * M + m],
+                                       bwd[(L - 1 - li) * M + m]):
+                        raise AssertionError(f"{name}: step {i} layer {li} "
+                                             f"shard {m}: the recompute's "
+                                             "routing differs")
+        if not all(0 < a < 1e4 for a in run["auxes"]):
+            raise AssertionError(f"{name}: aux {run['auxes']}")
+    print(f"{name}: gates held" + ("; a second run bitwise equal to "
+                                   "the first" if repeat else "")
+          + (f"; the recompute's routing equal to the forward's in all "
+             f"{cfg.n_layers} layers x {M} shards x {steps} steps"
+             if cfg.n_experts else ""))
+    out = {"arch": arch, "layers": cfg.n_layers, "mesh": f"{D}x{M}",
+           "losses": losses, "twin_losses": t_loss, "grad_norms": gnorms,
+           "twin_grad_norms": t_gn, "step_ms": step_ms, "twin_ms": twin_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": run["peak"],
+           "state_bytes_per_shard": per_shard, "launches": run["launches"],
+           "twin_launches": twin_launches}
+    del runs, run, st, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_sharded_phase(card):
+    """llama2-7b over SHARDED_MESH, then granite-moe-1b-a400m over
+    SHARDED_MOE_MESH (``run_sharded_train``)."""
+    return [run_sharded_train(card, SHARDED_ARCH, SHARDED_LAYERS,
+                              SHARDED_MESH, SHARDED_STEPS, SHARDED_LR,
+                              repeat=True),
+            run_sharded_train(card, MOE_ARCH, GRANITE_LAYERS,
+                              SHARDED_MOE_MESH, SHARDED_MOE_STEPS,
+                              FAMILY_LR)]
+
+
 def flash_shape_classes(counter):
     """Launches by (new tokens, self-prefill or over history)."""
     out = {}
@@ -4921,6 +5157,16 @@ def main() -> None:
             ("ssm_update",) if arch == SSM_ARCH else ("flash_attention",))
         gc.collect()
         torch.cuda.empty_cache()
+    # sharded training, every shard on the card, each mesh against its
+    # 1x1 twin
+    drive("train sharded", lambda: recorded_flash_shapes(
+        lambda: run_sharded_phase(card), train_flash, "sharded"),
+        ("flash_attention",))
+    if phase_s["train sharded"] > SHARDED_PHASE_BUDGET_S:
+        print(f"train sharded: {phase_s['train sharded']:.1f} s, over its "
+              f"budget of {SHARDED_PHASE_BUDGET_S:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_launches = counts["flash_attention"] - before["flash_attention"]
     recorded = sum(e["launches"] for e in train_flash.values())
     if recorded != flash_launches:

@@ -97,9 +97,10 @@ class LMAdapter(FamilyAdapter):
     supports_recompute = True
     kv_names = ("k", "v")
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, device=None) -> dict:
         from repro_torch.models import transformer as tfm
-        return tfm.init_lm(generator, self.model.h, self.model.device)
+        return tfm.init_lm(generator, self.model.h,
+                           device or self.model.device)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):
@@ -167,9 +168,10 @@ class SSMAdapter(FamilyAdapter):
     kind = "ssm"
     n_state_blobs = 1
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, device=None) -> dict:
         from repro_torch.models import ssm
-        return ssm.init_ssm_lm(generator, self.model.h, self.model.device)
+        return ssm.init_ssm_lm(generator, self.model.h,
+                               device or self.model.device)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):
@@ -216,9 +218,10 @@ class HybridAdapter(FamilyAdapter):
     kv_names = ("attn_k", "attn_v")
     n_state_blobs = 1
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, device=None) -> dict:
         from repro_torch.models import hybrid
-        return hybrid.init_hybrid(generator, self.model.h, self.model.device)
+        return hybrid.init_hybrid(generator, self.model.h,
+                                  device or self.model.device)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):
@@ -292,9 +295,10 @@ class EncDecAdapter(FamilyAdapter):
     kv_names = ("self_k", "self_v")
     has_cross = True
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, device=None) -> dict:
         from repro_torch.models import encdec
-        return encdec.init_encdec(generator, self.model.h, self.model.device)
+        return encdec.init_encdec(generator, self.model.h,
+                                  device or self.model.device)
 
     def prefill(self, params, batch, *, capture_hidden=False, hist_kv=None,
                 hist_len=None):

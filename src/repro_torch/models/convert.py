@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.arch import ArchConfig
+from repro_torch.distributed.sharding import pad_heads
 from repro_torch.models.layers.embedding import MAX_POSITIONS, padded_vocab
 
 
@@ -38,7 +39,9 @@ def _take(tree, path, shape, *, device, dtype):
 
 
 def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
-                    dtype=torch.float32) -> dict:
+                    dtype=torch.float32, model_axis: int = 1) -> dict:
+    """``model_axis``: the JAX model's, whose query heads an lm tree
+    carries padded to a multiple of it (``pad_heads``)."""
     L, D = cfg.n_layers, cfg.d_model
     vp = padded_vocab(cfg.vocab_size)
 
@@ -72,7 +75,9 @@ def from_jax_params(np_tree: dict, cfg: ArchConfig, *, device,
                         "m": _mamba2(take, cfg, lead)}
         out["attn"] = _dense_blocks(take, norm, cfg, "attn", L // k)
     else:
-        out["blocks"] = _dense_blocks(take, norm, cfg, "blocks", L)
+        out["blocks"] = _dense_blocks(take, norm, cfg, "blocks", L,
+                                      pad_heads(cfg.n_heads, cfg.n_kv_heads,
+                                                model_axis)[0])
     return out
 
 
@@ -102,9 +107,9 @@ def _mamba2(take, cfg: ArchConfig, lead: tuple) -> dict:
     return m
 
 
-def _attn_shapes(cfg: ArchConfig, L: int) -> dict:
+def _attn_shapes(cfg: ArchConfig, L: int, q_heads: int = 0) -> dict:
     D, hd = cfg.d_model, cfg.head_dim_
-    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    qd, kvd = (q_heads or cfg.n_heads) * hd, cfg.n_kv_heads * hd
     shapes = {"wq": (L, D, qd), "wk": (L, D, kvd), "wv": (L, D, kvd),
               "wo": (L, qd, D)}
     if cfg.qkv_bias:
@@ -127,9 +132,10 @@ def _dec_blocks(take, norm, cfg: ArchConfig) -> dict:
     return blocks
 
 
-def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int) -> dict:
+def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int,
+                  q_heads: int = 0) -> dict:
     D, F = cfg.d_model, cfg.d_ff
-    attn_shapes = _attn_shapes(cfg, L)
+    attn_shapes = _attn_shapes(cfg, L, q_heads)
     if cfg.n_experts:
         E = cfg.n_experts
         ffn, ffn_shapes = "moe", {"router": (L, D, E), "w_up": (L, E, D, F),
@@ -151,7 +157,7 @@ def _dense_blocks(take, norm, cfg: ArchConfig, root: str, L: int) -> dict:
 
 
 def from_jax_train_state(np_state: dict, cfg: ArchConfig, *,
-                         device) -> dict:
+                         device, model_axis: int = 1) -> dict:
     """The JAX package's train state ``{"params", "opt": {"m", "v",
     "step"[, "ef"]}}`` (as numpy) as the port's: params and each moment
     tree through ``from_jax_params``'s leaf mapping in fp32, so that m
@@ -159,7 +165,8 @@ def from_jax_train_state(np_state: dict, cfg: ArchConfig, *,
     opt = np_state["opt"]
 
     def tree(t):
-        return from_jax_params(t, cfg, device=device, dtype=torch.float32)
+        return from_jax_params(t, cfg, device=device, dtype=torch.float32,
+                               model_axis=model_axis)
 
     out = {"m": tree(opt["m"]), "v": tree(opt["v"]),
            "step": torch.tensor(int(np.asarray(opt["step"])),

@@ -31,19 +31,44 @@ class AttnHyper:
     use_rope: bool = True
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
+    padded_heads: int = 0        # query heads padded for a model axis; 0: none
+
+    @property
+    def q_heads(self) -> int:
+        """Query heads as the projections lay them out: ``padded_heads``
+        when the model axis pads them, else ``n_heads``."""
+        return self.padded_heads or self.n_heads
+
+    @property
+    def group(self) -> int:
+        return self.q_heads // self.n_kv_heads
+
+
+def live_q_columns(h: AttnHyper) -> torch.Tensor:
+    """(q_heads·hd,) bool: the query columns of real heads. Padding grows
+    each KV head's group of query heads; the first n_heads/n_kv_heads of
+    every group are real (the JAX package's layout)."""
+    qd = h.q_heads * h.head_dim
+    return (torch.arange(qd) % (h.group * h.head_dim)
+            < (h.n_heads // h.n_kv_heads) * h.head_dim)
 
 
 def init_attention(gen: torch.Generator, d_model: int, h: AttnHyper, dtype,
                    device) -> dict:
-    qd = h.n_heads * h.head_dim
+    """wq, wk, wv, wo (and bq, bk, bv); with padded heads the padded
+    columns of wq and rows of wo are zero."""
+    qd = h.q_heads * h.head_dim
     kvd = h.n_kv_heads * h.head_dim
     scale = d_model ** -0.5
-    p = {
-        "wq": normal_init(gen, (d_model, qd), dtype, scale, device),
-        "wk": dense_param(gen, d_model, kvd, dtype, device, scale),
-        "wv": dense_param(gen, d_model, kvd, dtype, device, scale),
-        "wo": normal_init(gen, (qd, d_model), dtype, qd ** -0.5, device),
-    }
+    wq = normal_init(gen, (d_model, qd), dtype, scale, device)
+    wk = dense_param(gen, d_model, kvd, dtype, device, scale)
+    wv = dense_param(gen, d_model, kvd, dtype, device, scale)
+    wo = normal_init(gen, (qd, d_model), dtype, qd ** -0.5, device)
+    if h.q_heads != h.n_heads:
+        live = live_q_columns(h).to(device)
+        wq = wq * live[None, :].to(dtype)
+        wo = wo * live[:, None].to(dtype)
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
     if h.qkv_bias:
         p["bq"] = bias_param(qd, dtype, device)
         p["bk"] = bias_param(kvd, dtype, device)
@@ -52,15 +77,37 @@ def init_attention(gen: torch.Generator, d_model: int, h: AttnHyper, dtype,
 
 
 def project_q(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
-    """x (B,S,D) -> q (B,S,H,hd), RoPE applied from cos/sin (B,S,hd/2)."""
+    """x (B,S,D) -> q (B,S,H,hd) (H = ``q_heads``), RoPE applied from
+    cos/sin (B,S,hd/2)."""
     B, S, _ = x.shape
     q = torch.matmul(x, p["wq"])
     if h.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, S, h.n_heads, h.head_dim)
+    q = q.reshape(B, S, h.q_heads, h.head_dim)
     if h.use_rope:
         q = apply_rope_tables(q, cos, sin)
     return q
+
+
+def project_kv(p: dict, x: torch.Tensor, h: AttnHyper):
+    """x (B,S,D) -> k, v (B,S,cols) by plain products, biases added: every
+    K/V column, or a model shard's slice of them."""
+    k = torch.matmul(x, p["wk"])
+    v = torch.matmul(x, p["wv"])
+    if h.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def kv_heads(k: torch.Tensor, v: torch.Tensor, h: AttnHyper, cos, sin):
+    """k, v (B,S,n·hd) -> (B,S,n,hd) each, RoPE on k from cos/sin
+    (B,S,hd/2)."""
+    B, S, _ = k.shape
+    k = k.reshape(B, S, -1, h.head_dim)
+    v = v.reshape(B, S, -1, h.head_dim)
+    if h.use_rope:
+        k = apply_rope_tables(k, cos, sin)
+    return k, v
 
 
 def project_qkv(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
@@ -68,15 +115,7 @@ def project_qkv(p: dict, x: torch.Tensor, h: AttnHyper, cos, sin):
     on q and k from cos/sin (B,S,hd/2): the training forward's projection
     (the JAX package's ``project_qkv``); serving projects K/V through the
     restoration kernel instead (``transformer._attn_qkv``)."""
-    B, S, _ = x.shape
-    k = torch.matmul(x, p["wk"])
-    v = torch.matmul(x, p["wv"])
-    if h.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, h.n_kv_heads, h.head_dim)
-    v = v.reshape(B, S, h.n_kv_heads, h.head_dim)
-    if h.use_rope:
-        k = apply_rope_tables(k, cos, sin)
+    k, v = kv_heads(*project_kv(p, x, h), h, cos, sin)
     return project_q(p, x, h, cos, sin), k, v
 
 

@@ -32,8 +32,21 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
     return p
 
 
-def embed_tokens(p: dict, ids: torch.Tensor, *, scale: bool, d_model: int):
-    x = p["table"][ids]
+def embed_tokens(p: dict, ids: torch.Tensor, *, scale: bool, d_model: int,
+                 first_row: Optional[int] = None):
+    """The rows ``ids`` of the table. ``first_row`` set: the table is a
+    model shard's rows [first_row, first_row + n) of a vocab-sharded one,
+    and an id outside them gives zeros (the shards' lookups sum to the
+    whole one)."""
+    table = p["table"]
+    if first_row is None:
+        x = table[ids]
+    else:
+        n = table.shape[0]
+        local = ids - first_row
+        own = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)]
+        x = torch.where(own[..., None], x, torch.zeros_like(x))
     if scale:
         x = x * torch.tensor(d_model ** 0.5, dtype=x.dtype)
     return x
@@ -52,7 +65,11 @@ def positional(p: dict, positions: torch.Tensor, end: int):
 
 
 def logits(p: dict, x: torch.Tensor, *, softcap: Optional[float] = None,
-           true_vocab: Optional[int] = None):
+           true_vocab: Optional[int] = None, first_col: int = 0):
+    """x (..., D) -> logits over the table's rows; ``first_col`` is the
+    vocabulary index of its first row (a model shard's slice of a
+    vocab-sharded table). Columns at or past ``true_vocab`` (the padding)
+    are masked."""
     if "unembed" in p:
         out = torch.matmul(x, p["unembed"])
     else:
@@ -60,7 +77,7 @@ def logits(p: dict, x: torch.Tensor, *, softcap: Optional[float] = None,
     if softcap is not None:
         out = torch.tanh(out.float() / softcap) * softcap
     vp = out.shape[-1]
-    if true_vocab is not None and vp != true_vocab:
-        pad = torch.arange(vp, device=out.device) >= true_vocab
-        out = out.masked_fill(pad, -1e30)
+    if true_vocab is not None and first_col + vp > true_vocab:
+        col = first_col + torch.arange(vp, device=out.device)
+        out = out.masked_fill(col >= true_vocab, -1e30)
     return out

@@ -27,10 +27,20 @@ buffers are plain torch ops.
 
 ``route`` also returns the full softmax ``probs`` (B, S, E), which
 ``apply_moe`` hands out beside its output for the training forward's
-GShard load-balance aux (``load_balance_aux``, the reference's
-``transformer._ffn``). The shard_map path (``late_combine``) exists only
-on a mesh with a model axis above 1 (tensor parallelism), where the
-reference falls back to this path without one: it is not ported.
+GShard load-balance aux (``routing_stats``, ``load_balance_aux``: the
+reference's ``transformer._ffn``, with f and P taken over the whole
+batch when it is split over data shards).
+
+``apply_moe_sharded`` is the layer over M model shards, with the expert
+FFNs' ``d_ff`` split over them (the training forward of
+``models/transformer.py``): every model shard routes its (replicated)
+tokens alike, runs the experts on its ``d_ff`` slice, weights and
+combines its partial outputs at their tokens and then sums once over
+the shards, (B, S, D) (the reference's ``late_combine``,
+``_apply_moe_shard_map``). The reference's default sums the partial
+expert outputs (B, E·C, D) over the shards before the combine instead:
+the same function with its sums in another order. On one shard it is
+``apply_moe``.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.collectives import (copy_to_shards,
+                                                 reduce_from_shards)
 from repro_torch.models.layers.mlp import ACTS
 from repro_torch.models.module import normal_init
 
@@ -99,25 +111,38 @@ def route(p: dict, x: torch.Tensor, h: MoEHyper):
     return top_p.reshape(B, T), slot, probs
 
 
-def load_balance_aux(probs: torch.Tensor) -> torch.Tensor:
-    """The GShard load-balance aux of one layer from its router softmax
-    (B, S, E): E · sum_e f_e · P_e, f the share of tokens whose top-1
-    expert is e, P the mean probability of e (the reference's
-    ``transformer._ffn``); the gradient flows through P alone."""
+def routing_stats(probs: torch.Tensor):
+    """What the load-balance aux needs of one layer's router softmax
+    (B, S, E): (its sum over tokens (E,), the top-1 counts (E,)); the
+    gradient flows through the first alone."""
     E = probs.shape[-1]
-    top1 = torch.nn.functional.one_hot(probs.argmax(-1), E).float()
-    f = top1.mean(dim=(0, 1))
-    return E * torch.sum(f * probs.mean(dim=(0, 1)))
+    top1 = torch.nn.functional.one_hot(probs.detach().argmax(-1), E)
+    return probs.sum(dim=(0, 1)), top1.float().sum(dim=(0, 1))
 
 
-def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper):
-    """x (B, S, D) -> (out (B, S, D), the router softmax (B, S, E)),
-    each row routed on its own."""
+def load_balance_aux(stats, n_tokens: int):
+    """The GShard load-balance aux summed over layers: ``stats[li]`` layer
+    li's ``routing_stats`` of every data shard in shard order, over
+    ``n_tokens`` tokens in all. Per layer E · sum_e f_e · P_e, f the share
+    of tokens whose top-1 expert is e and P the mean probability of e,
+    both over the whole batch (f·P is not linear: a mean of per-shard
+    auxes is another value)."""
+    aux = 0.0
+    for layer in stats:
+        P, f = layer[0]
+        for psum, top1 in layer[1:]:
+            P, f = P + psum.to(P.device), f + top1.to(P.device)
+        aux = aux + P.shape[0] * torch.sum((f / n_tokens) * (P / n_tokens))
+    return aux
+
+
+def _dispatch(x: torch.Tensor, slot: torch.Tensor, h: MoEHyper):
+    """x (B, S, D) gathered into expert-major slots (E, B·C, D); an
+    empty slot holds zeros."""
     B, S, D = x.shape
     E, K = h.n_experts, h.top_k
     C = capacity(S, h)
     T, EC = S * K, E * C
-    weight, slot, probs = route(p, x, h)
     # the token of each slot (B, E·C): kept slots are unique, so the
     # scatter is a permutation; the sentinel column takes the dropped
     tok = torch.full((B, EC + 1), -1, dtype=torch.long, device=x.device)
@@ -129,21 +154,63 @@ def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper):
         0, (tok.clamp_min(0) + base).reshape(-1)).view(B, EC, D)
     ge = torch.where((tok >= 0)[..., None], ge, torch.zeros_like(ge))
     # expert-major (E, B·C, D) for one batched product per weight
-    ge = ge.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    return ge.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+
+
+def _experts(p: dict, ge: torch.Tensor, h: MoEHyper) -> torch.Tensor:
+    """The expert FFNs over their slots (E, B·C, D) -> (E, B·C, D); with
+    a ``d_ff`` slice of the weights, a partial sum."""
     act = ACTS[h.activation]
     up = torch.bmm(ge, p["w_up"])
     if "w_gate" in p:
         up = act(torch.bmm(ge, p["w_gate"])) * up
     else:
         up = act(up)
-    out_e = torch.bmm(up, p["w_down"])                           # (E, B·C, D)
+    return torch.bmm(up, p["w_down"])
+
+
+def _combine(out_e: torch.Tensor, slot: torch.Tensor, weight: torch.Tensor,
+             B: int, S: int, h: MoEHyper) -> torch.Tensor:
+    """Expert outputs (E, B·C, D) weighted and summed back at their
+    tokens, rank 0 first -> (B, S, D)."""
+    E, K = h.n_experts, h.top_k
+    C = capacity(S, h)
+    EC, D = E * C, out_e.shape[-1]
     out_e = out_e.view(E, B, C, D).transpose(0, 1).reshape(B, EC, D)
     out_e = torch.cat([out_e, out_e.new_zeros(B, 1, D)], dim=1)
-    rows = (slot + torch.arange(B, device=x.device)[:, None] * (EC + 1))
+    rows = (slot + torch.arange(B, device=slot.device)[:, None] * (EC + 1))
     contrib = out_e.reshape(B * (EC + 1), D).index_select(
         0, rows.reshape(-1)).view(B, S, K, D)
-    w = weight.to(x.dtype).view(B, S, K, 1)
+    w = weight.to(out_e.dtype).view(B, S, K, 1)
     out = contrib[:, :, 0] * w[:, :, 0]
     for k in range(1, K):
         out = out + contrib[:, :, k] * w[:, :, k]
-    return out, probs
+    return out
+
+
+def apply_moe(p: dict, x: torch.Tensor, h: MoEHyper):
+    """x (B, S, D) -> (out (B, S, D), the router softmax (B, S, E)),
+    each row routed on its own."""
+    B, S, _ = x.shape
+    weight, slot, probs = route(p, x, h)
+    out_e = _experts(p, _dispatch(x, slot, h), h)
+    return _combine(out_e, slot, weight, B, S, h), probs
+
+
+def apply_moe_sharded(ps: list, xs: list, h: MoEHyper):
+    """The layer over M model shards: ``ps[m]`` shard m's parameters (the
+    router whole, the expert weights' ``d_ff`` slice), ``xs[m]`` the
+    (replicated) input (B, S, D) on its device. Returns (the output on
+    every shard, each shard's router softmax (B, S, E)). Routing runs on
+    the replicated inputs, outside the parallel region, so the router's
+    gradient is whole on every shard."""
+    if len(ps) == 1:
+        out, probs = apply_moe(ps[0], xs[0], h)
+        return [out], [probs]
+    B, S, _ = xs[0].shape
+    routes = [route(p, x, h) for p, x in zip(ps, xs)]
+    xin = copy_to_shards(xs)
+    weights = copy_to_shards([r[0] for r in routes])
+    outs = [_combine(_experts(p, _dispatch(x, r[1], h), h), r[1], w, B, S, h)
+            for p, x, r, w in zip(ps, xin, routes, weights)]
+    return reduce_from_shards(outs), [r[2] for r in routes]

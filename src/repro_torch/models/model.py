@@ -39,11 +39,14 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.config.arch import ArchConfig
+from repro_torch.distributed.sharding import pad_heads
 from repro_torch.models import transformer as tfm
 from repro_torch.models.adapter import (EncDecAdapter, HybridAdapter,
                                        LMAdapter, SSMAdapter)
 from repro_torch.models.encdec import EncDecHyper
 from repro_torch.models.hybrid import HybridHyper
+from repro_torch.models.layers.attention import live_q_columns
+from repro_torch.models.module import param_axes
 from repro_torch.models.ssm import SSMHyper
 
 LM_FAMILIES = ("dense", "moe", "vlm")
@@ -61,16 +64,32 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 
 
 class Model:
+    """``model_axis``: the width of the mesh's model axis the parameters
+    are laid out for: an ``lm`` stack pads its query heads to a multiple
+    of it (``distributed.sharding.pad_heads``; the padded slices of wq,
+    bq and wo are zero and stay zero through training). A family whose
+    heads would need padding for other stacks is refused."""
+
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype = torch.float32,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 model_axis: int = 1):
         self.cfg = cfg
         self.dtype = dtype
+        self.model_axis = int(model_axis)
+        if cfg.family not in LM_FAMILIES and cfg.n_heads and pad_heads(
+                cfg.n_heads, cfg.n_kv_heads, self.model_axis)[0] \
+                != cfg.n_heads:
+            raise ValueError(
+                f"{cfg.name}: padding its {cfg.n_heads} heads for a model "
+                f"axis of {self.model_axis} is ported for the lm families "
+                "only (ROADMAP.md, queue 1)")
         if cfg.is_encoder_decoder:
             self.h = EncDecHyper(cfg=cfg, dtype=dtype)
             self.kind = "encdec"
             self.adapter = EncDecAdapter(self)
         elif cfg.family in LM_FAMILIES:
-            self.h = tfm.LMHyper(cfg=cfg, dtype=dtype)
+            self.h = tfm.LMHyper(cfg=cfg, dtype=dtype,
+                                 model_axis=self.model_axis)
             self.kind = "lm"
             self.adapter = LMAdapter(self)
         elif cfg.family == "ssm":
@@ -91,6 +110,25 @@ class Model:
         device, seeded with ``seed``."""
         return self.adapter.init(
             torch.Generator(device=self.device).manual_seed(seed))
+
+    def param_axes(self) -> dict:
+        """The logical axes of every parameter leaf (the JAX package's
+        ``split(model.init(...))[1]``), from an init on the meta device."""
+        return param_axes(self.adapter.init(torch.Generator(),
+                                            torch.device("meta")))
+
+    def head_pad_masks(self) -> dict:
+        """{leaf path: bool mask broadcastable to the leaf} of the live
+        query columns of an lm stack's wq, bq (the last dimension) and wo
+        (its rows); empty when no head is padded."""
+        if self.kind != "lm" or not self.h.attn.padded_heads:
+            return {}
+        live = live_q_columns(self.h.attn).to(self.device)
+        out = {"['blocks']['attn']['wq']": live[None, None, :],
+               "['blocks']['attn']['wo']": live[None, :, None]}
+        if self.cfg.qkv_bias:
+            out["['blocks']['attn']['bq']"] = live[None, :]
+        return out
 
     def forward(self, params, batch, *, skip_logits: bool = False) -> dict:
         """Training forward over ``batch["tokens"]`` (B,S), with

@@ -16,7 +16,12 @@ Entry points (functions over the parameter dict):
                      ..., skip_logits=True)``): final hidden states for the
                      chunked loss and the MoE load-balance aux, each
                      block under activation checkpointing,
-                     differentiable through kernel #5
+                     differentiable through kernel #5; it is
+                     ``lm_train_forward_shards`` on one shard, which runs
+                     the same blocks over the model shards of a mesh
+                     (``training/sharded.py``), joined by the collectives
+                     of ``distributed/collectives.py`` (each the identity
+                     on one shard)
 
 The saved hidden state of layer i is the residual-stream INPUT to layer i.
 Prefill, decode and restoration all compute K/V with ``norm_rows`` and
@@ -47,6 +52,10 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config.arch import ArchConfig, AttnKind
+from repro_torch.distributed.collectives import (copy_to_shards,
+                                                 gather_from_shards,
+                                                 reduce_from_shards)
+from repro_torch.distributed.sharding import pad_heads
 from repro_torch.distributed.tp import Sharded, on_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as attn_lib
@@ -56,8 +65,9 @@ from repro_torch.models.layers.embedding import (MAX_POSITIONS, embed_tokens,
                                                  logits as embed_logits,
                                                  positional)
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
-from repro_torch.models.layers.moe import (MoEHyper, apply_moe, init_moe,
-                                           load_balance_aux)
+from repro_torch.models.layers.moe import (MoEHyper, apply_moe_sharded,
+                                           init_moe, load_balance_aux,
+                                           routing_stats)
 from repro_torch.models.layers.norm import apply_norm, init_norm
 from repro_torch.models.layers.rope import rope_table
 from repro_torch.models.module import stacked_init
@@ -65,17 +75,24 @@ from repro_torch.models.module import stacked_init
 
 @dataclasses.dataclass(frozen=True)
 class LMHyper:
+    """``model_axis``: the width of the mesh's model axis the parameters
+    are laid out for (query heads padded to a multiple of it,
+    ``distributed.sharding.pad_heads``)."""
+
     cfg: ArchConfig
     dtype: torch.dtype = torch.float32
     max_positions: int = MAX_POSITIONS   # learned-position stacks only
+    model_axis: int = 1
 
     @functools.cached_property
     def attn(self) -> AttnHyper:
         c = self.cfg
+        padded, _ = pad_heads(c.n_heads, c.n_kv_heads, self.model_axis)
         return AttnHyper(
             n_heads=c.n_heads, n_kv_heads=c.n_kv_heads, head_dim=c.head_dim_,
             qkv_bias=c.qkv_bias, use_rope=c.use_rope,
-            rope_theta=c.rope_theta, attn_softcap=c.attn_softcap)
+            rope_theta=c.rope_theta, attn_softcap=c.attn_softcap,
+            padded_heads=padded if padded != c.n_heads else 0)
 
     @functools.cached_property
     def moe(self) -> Optional[MoEHyper]:
@@ -190,27 +207,44 @@ def _attn_qkv(blocks, li, x, h: LMHyper, cos, sin):
     return q, k.reshape(kv_shape), v.reshape(kv_shape)
 
 
-def _ffn(p: dict, x, h: LMHyper):
-    """The block's FFN: (out, the MoE router's softmax (B,S,E), or None
-    for a dense FFN)."""
-    if h.moe is None:
-        return apply_mlp(p["mlp"], x, h.cfg.ffn_activation), None
-    return apply_moe(p["moe"], x, h.moe)
+def _ffn(ps: List[dict], xs, h: LMHyper):
+    """The block's FFN over M model shards, ``ps`` each shard's layer
+    parameters and ``xs`` its (replicated) input (one shard: the whole
+    layer): ``d_ff`` column- then row-parallel, summed over the shards.
+    Returns (outs, each shard's router softmax (B,S,E), or None for a
+    dense FFN)."""
+    if h.moe is not None:
+        return apply_moe_sharded([p["moe"] for p in ps], xs, h.moe)
+    parts = [apply_mlp(p["mlp"], x, h.cfg.ffn_activation)
+             for p, x in zip(ps, copy_to_shards(xs))]
+    return reduce_from_shards(parts), None
+
+
+def _residual_ffn(ps: List[dict], xs, attn, h: LMHyper):
+    """What follows a block's output projection, over M model shards
+    (``attn`` its result per shard): post-attention norm, residual, FFN,
+    post-FFN norm, residual. Returns (outs, the router softmaxes or
+    None)."""
+    c = h.cfg
+    if c.post_attn_norm:
+        attn = [apply_norm(p["post_ln1"], a, c.norm, c.norm_eps)
+                for p, a in zip(ps, attn)]
+    xs = [x + a for x, a in zip(xs, attn)]
+    normed = [apply_norm(p["ln2"], x, c.norm, c.norm_eps)
+              for p, x in zip(ps, xs)]
+    ff, probs = _ffn(ps, normed, h)
+    if c.post_attn_norm:
+        ff = [apply_norm(p["post_ln2"], f, c.norm, c.norm_eps)
+              for p, f in zip(ps, ff)]
+    return [x + f for x, f in zip(xs, ff)], probs
 
 
 def _block_tail(p: dict, x, attn_out, h: LMHyper):
     """Output projection, residual and FFN of a block: (x_out, the FFN's
     router softmax or None)."""
-    c = h.cfg
-    attn_out = attn_lib.attn_output(p["attn"], attn_out)
-    if c.post_attn_norm:
-        attn_out = apply_norm(p["post_ln1"], attn_out, c.norm, c.norm_eps)
-    x = x + attn_out
-    normed2 = apply_norm(p["ln2"], x, c.norm, c.norm_eps)
-    ff, probs = _ffn(p, normed2, h)
-    if c.post_attn_norm:
-        ff = apply_norm(p["post_ln2"], ff, c.norm, c.norm_eps)
-    return x + ff, probs
+    outs, probs = _residual_ffn(
+        [p], [x], [attn_lib.attn_output(p["attn"], attn_out)], h)
+    return outs[0], None if probs is None else probs[0]
 
 
 # ---------------------------------------------------------------- blocks
@@ -309,8 +343,9 @@ def sharded_decode_attention(q, k, v, k_pool: Sharded, v_pool: Sharded,
     outputs are gathered over heads onto the first shard's device: the
     one gather of the step, before ``wo``."""
     tp = len(k_pool.parts)
-    kvs, qs = h.attn.n_kv_heads // tp, h.attn.n_heads // tp
-    attn = dataclasses.replace(h.attn, n_heads=qs, n_kv_heads=kvs)
+    kvs, qs = h.attn.n_kv_heads // tp, h.attn.q_heads // tp
+    attn = dataclasses.replace(h.attn, n_heads=qs, n_kv_heads=kvs,
+                               padded_heads=0)
     kv_len = lengths + 1
     outs = []
     for s, (kp, vp, table, write) in enumerate(zip(
@@ -326,21 +361,98 @@ def sharded_decode_attention(q, k, v, k_pool: Sharded, v_pool: Sharded,
     return Sharded(outs, 2).gather(q.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """The query heads of each of M model shards and the K/V heads they
+    read (GQA groups are contiguous: query head j reads K/V head
+    j // group)."""
+
+    q_heads: int
+    kv_heads: int
+    M: int
+
+    @property
+    def per_shard(self) -> int:
+        return self.q_heads // self.M
+
+    @property
+    def aligned(self) -> bool:
+        """Each shard's own K/V columns hold exactly the K/V heads its
+        query heads read: no gather."""
+        return self.kv_heads % self.M == 0
+
+    def select(self, m: int, k, v):
+        """Of the gathered k/v (B,S,Kv,hd), the heads shard m's queries
+        read, one per query head's group."""
+        g, hs = self.q_heads // self.kv_heads, self.per_shard
+        lo, hi = m * hs // g, ((m + 1) * hs - 1) // g + 1
+        if hi - lo == 1 or (hs % g == 0 and m * hs % g == 0):
+            return k[:, :, lo:hi], v[:, :, lo:hi]
+        idx = torch.arange(m * hs, (m + 1) * hs, device=k.device) // g
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _train_attention(ps: List[dict], normed, h: LMHyper, cos, sin,
+                     window: Optional[int], causal: bool):
+    """A block's attention over M model shards, Megatron style by the
+    rules (one shard: the whole layer): ``normed`` the replicated input
+    (B,S,D) and cos/sin (B,S,hd/2) (None without RoPE) per shard. Shard m
+    projects its query heads (``qkv_out``) and its slice of the K/V
+    columns (``kv_out``); where a slice cuts the K/V heads its queries
+    read (Kv not a multiple of M), the slices are gathered first, since
+    RoPE pairs columns within a head. Attention runs through kernel #5
+    under autograd on the shard's heads, under its device; the output
+    projection is row-parallel (``o_in``), summed over the shards."""
+    a_h = h.attn
+    heads = _Heads(a_h.q_heads, a_h.n_kv_heads, len(ps))
+    # the shard's query heads (``project_q`` reads q_heads alone)
+    local = dataclasses.replace(a_h, n_heads=heads.per_shard,
+                                padded_heads=0)
+    xin = copy_to_shards(normed)
+    kvs = [attn_lib.project_kv(p["attn"], x, a_h) for p, x in zip(ps, xin)]
+    ks, vs = [k for k, _ in kvs], [v for _, v in kvs]
+    if not heads.aligned:
+        ks, vs = gather_from_shards(ks, 2), gather_from_shards(vs, 2)
+    outs = []
+    for m, (p, x, k, v) in enumerate(zip(ps, xin, ks, vs)):
+        q = attn_lib.project_q(p["attn"], x, local, cos[m], sin[m])
+        k, v = attn_lib.kv_heads(k, v, a_h, cos[m], sin[m])
+        if not heads.aligned:
+            k, v = heads.select(m, k, v)
+        with on_device(q.device):
+            o = attn_lib.flash_attention(q, k, v, a_h, q_offset=0,
+                                         causal=causal, window=window)
+        outs.append(attn_lib.attn_output(p["attn"], o))
+    return reduce_from_shards(outs)
+
+
+def block_train_shards(ps: List[dict], xs, h: LMHyper, *, cos, sin,
+                       window: Optional[int], causal: bool = True):
+    """Full-sequence block for training over M model shards: ``ps`` one
+    layer's parameters per shard (one shard: the whole layer), ``xs`` its
+    replicated input (B,S,D) at positions [0, S) and cos/sin (B,S,hd/2)
+    (Nones without RoPE) per shard. Q, K and V come from plain products
+    and attention from kernel #5 under autograd (``_train_attention``),
+    causal unless ``causal`` is False (an encoder). Returns (outs, each
+    shard's ``routing_stats`` for a MoE block, else None)."""
+    c = h.cfg
+    normed = [apply_norm(p["ln1"], x, c.norm, c.norm_eps)
+              for p, x in zip(ps, xs)]
+    attn = _train_attention(ps, normed, h, cos, sin, window, causal)
+    outs, probs = _residual_ffn(ps, xs, attn, h)
+    return outs, None if probs is None else [routing_stats(pr)
+                                             for pr in probs]
+
+
 def block_train(p: dict, x, h: LMHyper, *, cos, sin,
                 window: Optional[int], causal: bool = True):
-    """Full-sequence block for training: ``p`` one layer's parameters, x
-    (B,S,D) at positions [0, S), cos/sin (B,S,hd/2) (None without RoPE).
-    Q, K and V come from plain products (``layers.attention.project_qkv``)
-    and attention from kernel #5 under autograd, causal unless ``causal``
-    is False (an encoder). Returns (x_out, the FFN's load-balance aux:
-    a tensor for a MoE block, else 0.0)."""
-    c = h.cfg
-    normed = apply_norm(p["ln1"], x, c.norm, c.norm_eps)
-    q, k, v = attn_lib.project_qkv(p["attn"], normed, h.attn, cos, sin)
-    attn_out = attn_lib.flash_attention(q, k, v, h.attn, q_offset=0,
-                                        causal=causal, window=window)
-    x, probs = _block_tail(p, x, attn_out, h)
-    return x, (0.0 if probs is None else load_balance_aux(probs))
+    """``block_train_shards`` on one shard, x (B,S,D): (x_out, the FFN's
+    load-balance aux: a tensor for a MoE block, else 0.0)."""
+    outs, stats = block_train_shards([p], [x], h, cos=[cos], sin=[sin],
+                                     window=window, causal=causal)
+    if stats is None:
+        return outs[0], 0.0
+    return outs[0], load_balance_aux([stats], x.shape[0] * x.shape[1])
 
 
 def unstack_layers(blocks: dict) -> List[dict]:
@@ -366,29 +478,55 @@ def remat(fn, *args):
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def lm_train_forward_shards(ps: List[dict], tokens, h: LMHyper, *,
+                            patches=None):
+    """Training forward of an ``lm`` stack over M model shards (the JAX
+    package's ``lm_forward`` with ``skip_logits``; one shard: the whole
+    model): ``ps`` each shard's parameters (the table a slice of the
+    vocabulary where M > 1), ``tokens`` (B,S) at positions [0, S) and
+    ``patches`` (B, n_vis, D) or None per shard, on its device. Returns
+    (final_x (B,S,D) after the final norm on every shard, per layer each
+    shard's ``routing_stats`` for a MoE stack, else Nones). Each block
+    runs under ``remat``."""
+    M = len(ps)
+    c = h.cfg
+    B, S = tokens[0].shape
+    positions = [torch.arange(S, device=t.device)[None, :].expand(B, S)
+                 for t in tokens]
+    tables = [rope_at(h.attn, pos, S) for pos in positions]
+    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    parts = [embed_tokens(p["embed"], t, scale=c.embedding_scale,
+                          d_model=c.d_model,
+                          first_row=(m * p["embed"]["table"].shape[0]
+                                     if M > 1 else None))
+             for m, (p, t) in enumerate(zip(ps, tokens))]
+    xs = [embed_extras(p, h, x, pos, S, pt) for p, x, pos, pt in zip(
+        ps, reduce_from_shards(parts), positions, patches or [None] * M)]
+    windows = layer_windows(h)
+    per_layer = [unstack_layers(p["blocks"]) for p in ps]
+    stats = []
+    for li in range(c.n_layers):
+        run = functools.partial(
+            block_train_shards, [layers[li] for layers in per_layer], h=h,
+            cos=cos, sin=sin, window=windows[li])
+        xs, st = remat(lambda *a, run=run: run(list(a)), *xs)
+        stats.append(st)
+    return [apply_norm(p["final_norm"], x, c.norm, c.norm_eps)
+            for p, x in zip(ps, xs)], stats
+
+
 def lm_train_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
                      patch_embeds=None) -> dict:
-    """Training forward of an ``lm`` stack (the JAX package's
-    ``lm_forward`` with ``skip_logits``): tokens (B,S) at positions [0, S),
-    optional patch embeddings (B, n_vis, D) in place of the first n_vis
-    tokens' (a VLM) -> dict(final_x (B,S,D) after the final norm, aux: the
-    MoE layers' load-balance aux summed over layers, as the reference's
-    scan carry sums it; 0.0 for a dense stack). Each block runs under
-    ``remat``."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    cos, sin = rope_at(h.attn, positions, S)
-    x = _embed_input(params, h, tokens, positions, S, patch_embeds)
-    windows = layer_windows(h)
-    aux = 0.0
-    for li, p in enumerate(unstack_layers(params["blocks"])):
-        x, a = remat(functools.partial(block_train, p, h=h, cos=cos, sin=sin,
-                                       window=windows[li]), x)
-        aux = aux + a
-    c = h.cfg
-    return {"final_x": apply_norm(params["final_norm"], x, c.norm,
-                                  c.norm_eps),
-            "aux": aux}
+    """``lm_train_forward_shards`` on one shard: tokens (B,S), optional
+    patch embeddings (B, n_vis, D) in place of the first n_vis tokens' (a
+    VLM) -> dict(final_x (B,S,D) after the final norm, aux: the MoE
+    layers' load-balance aux summed over layers, as the reference's scan
+    carry sums it; 0.0 for a dense stack)."""
+    xs, stats = lm_train_forward_shards([params], [tokens], h,
+                                        patches=[patch_embeds])
+    aux = (0.0 if h.moe is None else load_balance_aux(
+        [[st[0]] for st in stats], tokens.shape[0] * tokens.shape[1]))
+    return {"final_x": xs[0], "aux": aux}
 
 
 # ------------------------------------------------------------ full forward
@@ -401,6 +539,14 @@ def _embed_input(params: dict, h: LMHyper, tokens, positions, end: int,
     c = h.cfg
     x = embed_tokens(params["embed"], tokens, scale=c.embedding_scale,
                      d_model=c.d_model)
+    return embed_extras(params, h, x, positions, end, patch_embeds)
+
+
+def embed_extras(params: dict, h: LMHyper, x, positions, end: int,
+                 patch_embeds=None):
+    """What ``_embed_input`` adds to the token embeddings x (B, S, D):
+    the learned positions, the patches, the cast to the model dtype."""
+    c = h.cfg
     if not c.use_rope and "positions" in params["embed"]:
         x = x + positional(params["embed"], positions, end).to(x.dtype)
     if patch_embeds is not None:

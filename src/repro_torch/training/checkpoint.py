@@ -14,6 +14,12 @@ that must finish before training moves on, and writes the files on a
 background thread; ``wait`` joins it, and every ``save`` waits for the
 one before (one checkpoint in flight). ``restore(like)`` loads onto the
 devices and dtypes of ``like``'s leaves.
+
+A sharded state (``Placed`` leaves, ``training/sharded.py``) is saved
+whole, each leaf gathered from its parts, so the files do not depend on
+the mesh; a ``Placed`` leaf of ``like`` gets the whole leaf placed by its
+own spec over its own mesh, so a checkpoint restores onto any mesh (the
+JAX package's elastic reshard).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Placed, place
 from repro_torch.training.tree import tree_paths, tree_unflatten
 
 # dtypes numpy cannot hold, stored as integers of the same width
@@ -34,6 +41,8 @@ _BITS = {torch.bfloat16: torch.int16}
 
 
 def _to_host(t) -> Tuple[np.ndarray, str]:
+    if isinstance(t, Placed):
+        t = t.gather(torch.device("cpu"))
     t = torch.as_tensor(t).detach()
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype in _BITS:
@@ -129,6 +138,10 @@ class CheckpointManager:
                                                  manifest["dtypes"])):
             t = _from_host(np.load(os.path.join(d, f"leaf_{i:05d}.npy")),
                            name)
+            if isinstance(ref, Placed):
+                leaves.append(place(t.to(ref.parts[0].dtype), ref.spec,
+                                    ref.mesh, manifest["keys"][i]))
+                continue
             ref = torch.as_tensor(ref)
             leaves.append(t.to(device=ref.device, dtype=ref.dtype))
         return step, tree_unflatten(like, leaves)

@@ -7,9 +7,12 @@ bf16, folded into the next step), as the JAX package's
 The update is functional: it returns new parameter and moment trees and
 leaves its inputs as they were.
 
-``opt_axes``/``opt_axes_tree`` are the JAX package's metadata functions
-(the largest unsharded, divisible dimension of each optimizer leaf maps
-to "opt_fsdp"); the port does not shard yet, so nothing consumes them.
+``opt_axes``/``opt_axes_tree`` are the JAX package's ZeRO-1 axes (the
+largest unnamed, divisible dimension of each optimizer leaf maps to
+"opt_fsdp", which the rules put on the data axis): ``Trainer.
+state_axes`` lays the master and moments out by them, and the sharded
+step (``training/sharded.py``) runs ``adamw_apply`` on each device's
+part with the clip scale of the whole gradient's norm.
 """
 from __future__ import annotations
 
@@ -50,15 +53,19 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig
-                 ) -> Tuple[Any, dict, dict]:
-    """fp32 params/grads trees -> (new_params, new_state, metrics)."""
+def clip_scale(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    """The factor that clips a gradient of global norm ``gnorm`` to
+    ``cfg.grad_clip`` (1 below it)."""
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+
+
+def adamw_apply(params, grads, state, cfg: AdamWConfig,
+                scale: torch.Tensor) -> Tuple[Any, dict]:
+    """One AdamW step over trees whose gradients already hold the error
+    feedback, scaled by ``scale`` (``clip_scale``): (new_params,
+    new_state). Elementwise, so it runs on any part of the trees."""
     step = state["step"] + 1
-    if cfg.error_feedback:
-        grads = tree_map(lambda g, e: g.float() + e, grads, state["ef"])
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
     grads = tree_map(lambda g: g * scale, grads)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
@@ -83,6 +90,17 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
         # the error of the bf16-quantised gradient actually applied
         new_state["ef"] = tree_map(
             lambda g: g - g.to(torch.bfloat16).float(), grads)
+    return new_params, new_state
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig
+                 ) -> Tuple[Any, dict, dict]:
+    """fp32 params/grads trees -> (new_params, new_state, metrics)."""
+    if cfg.error_feedback:
+        grads = tree_map(lambda g, e: g.float() + e, grads, state["ef"])
+    gnorm = global_norm(grads)
+    new_params, new_state = adamw_apply(params, grads, state, cfg,
+                                        clip_scale(gnorm, cfg))
     return new_params, new_state, {"grad_norm": gnorm}
 
 

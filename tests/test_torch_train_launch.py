@@ -241,10 +241,18 @@ def test_train_cli_refuses_the_cpu_without_a_device(tmp_path, monkeypatch):
     assert not list(tmp_path.iterdir())
 
 
-def test_train_cli_refuses_unported_parts(tmp_path):
-    base = ["--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(SystemExit):
+def test_train_cli_refuses_unported_parts(tmp_path, monkeypatch):
+    """A model axis over an ssm block is refused, and so is a mesh with
+    more shards than visible cards (never a smaller mesh)."""
+    base = ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 1"):
+        train_cli.main(base + ["--device", "cpu", "--arch",
+                               "falcon-mamba-7b", "--mesh", "1x2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(ValueError, match="needs 4 cards, but 3"):
         train_cli.main(base + ["--mesh", "2x2"])
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b",
