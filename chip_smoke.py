@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME[,NAME]]
 
 Needs one CUDA GPU and the repository checkout around this file. It
 
@@ -225,10 +225,35 @@ Needs one CUDA GPU and the repository checkout around this file. It
      its forward against the plain version within TOL and P's rounding
      bound and its backward (plain PyTorch) against fp32 autograd
      through a dense attention, both timed beside SDPA's;
- 12. checks that each path launched its kernels (counts reset before and
+ 12. the reference's mesh serving programs (``distributed/
+     mesh_serving.py``; after llama2-7b's front door and after
+     falcon-mamba-7b's engine), every shard on the card, each against its
+     1x1 twin, which is bitwise the plain ``Model`` (prefill's logits,
+     K/V and hidden; the restore; a decode step): llama2-7b at full size
+     over 2x2 under the default rules (2 sessions x MESH_SEQ tokens,
+     prefill with ``capture_hidden``, every layer restored from the
+     twin's hidden into the context-split cache, bitwise the twin's
+     restore, and from the mesh's own hidden, bitwise its prefill's K/V;
+     MESH_STEPS decode steps fed the twin's tokens) and under
+     long_context (one session of MESH_LONG_SEQ over 4 context shards);
+     falcon-mamba-7b (SSM_LAYERS) over 1x2 (``ssm_inner`` over model;
+     2 x MESH_SSM_SEQ, MESH_STEPS steps): logits within MESH_REL relative
+     L2 of the twin's, #1/#3/#5/#6 launched exactly once per layer and
+     shard; the same programs in fp32 at MESH_FP32_LAYERS layers, off the
+     bf16 floor, within MESH_FP32_REL; then kernel #3 on a context slice
+     (``kv_start``, the lse)
+     against its plain version at every slice shape the phase gave it,
+     with rows ending before their slice and a window across its start;
+ 13. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
      the card, the kernels' JSON line and the device line last.
+
+``--phases NAME[,NAME]`` runs only the named phases (of ``PHASES``:
+kernels, smoke, llama2-7b, mesh, qwen2-7b, gemma2-9b, moe-vlm, ssm,
+hybrid, encdec, train; default all), building only the models they use;
+the kernels' JSON line is printed only when the kernel checks ran. It is
+for iterating on one phase: a run that checks the port runs them all.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -4849,6 +4874,519 @@ def run_sharded_phase(card):
                               FAMILY_LR)]
 
 
+# ------------------------------------------------------ mesh serving
+# The reference's mesh serving programs (``launch/dryrun.py``'s
+# serve_prefill, restore_op, serve_decode) over a (data x model) mesh
+# with every shard on the one card, each against its 1x1 twin, which is
+# held bitwise to the plain ``Model`` calls.
+MESH_SHAPE = (2, 2)
+MESH_SEQ = 4096             # tokens per session, 2 sessions (default rules)
+MESH_LONG_SEQ = 8192        # one session under long_context
+MESH_SSM_SHAPE = (1, 2)
+MESH_SSM_SEQ = 512          # falcon-mamba-7b, 2 sessions
+MESH_STEPS = 16
+MESH_PAD = 128              # cache capacity past the prompt
+# The mesh's logits against its 1x1 twin's: the two round in bf16 over
+# products of other shapes (half-width query, FFN and vocabulary
+# products, the row-parallel sums over model, the merged context
+# slices), so they agree to bf16 noise, which 32 layers of random
+# weights carry to ~0.02 relative L2, as they carry the engine's
+# against the plain forward (PLAIN_REL's comment; PERF.md); the twin's
+# last prefill position against the plain model's decode step of that
+# token over a prefill of the others, another bf16 evaluation of the
+# same function, is printed beside it. A wrong slice, position or merge
+# moves the logits by the order of their own spread.
+MESH_REL = PLAIN_REL
+# The same programs in fp32 at full width and MESH_FP32_LAYERS layers,
+# off the bf16 floor: the mesh and its twin differ only in the order of
+# fp32 sums (row-parallel products over model, the merged context
+# slices), a few 1e-6 relative, so a wrong slice, position or merge,
+# which moves the logits by far more, shows against MESH_FP32_REL.
+MESH_FP32_LAYERS = 2
+MESH_FP32_SEQ = 1024        # 2 sessions (default rules)
+MESH_FP32_LONG_SEQ = 2048   # one session under long_context
+MESH_FP32_SSM_SEQ = 256     # falcon-mamba-7b, 2 sessions
+MESH_FP32_STEPS = 8
+MESH_FP32_REL = 1e-4
+MESH_PHASE_BUDGET_S = 90.0
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def whole(placed):
+    """A ``Placed`` result whole: its one part on a 1x1 mesh (no copy)."""
+    return placed.parts[0] if len(placed.parts) == 1 else placed.gather()
+
+
+def mesh_server(model, shape, long_context=False):
+    from repro_torch.distributed.mesh_serving import MeshServer
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"),
+                     ["cuda:0"] * (shape[0] * shape[1]))
+    return MeshServer(model, mesh, default_rules(mesh,
+                                                 long_context=long_context))
+
+
+def mesh_launches():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.kernels import ssm_update as ssu
+    return {"#1": rkv.launches, "#3": dec.launches, "#5": fa.launches,
+            "#6": ssu.launches}
+
+
+def uncounted(fn):
+    """``fn()`` with the kernels' launch counters left as they were: a
+    launch made only to time a kernel is not one of the path's."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.kernels import ssm_update as ssu
+    mods = (rkv, dec, fa, ssu)
+    saved = [m.launches for m in mods]
+    try:
+        return fn()
+    finally:
+        for m, n in zip(mods, saved):
+            m.launches = n
+
+
+def launches_since(before, want: dict, what: str) -> dict:
+    """The launches of each kernel since ``before``, which must equal
+    ``want``'s (kernels not named there must not have launched)."""
+    now = mesh_launches()
+    got = {k: now[k] - before[k] for k in now}
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def recorded_slices(fn, shapes: dict):
+    """``fn()`` with every launch of kernel #3 on a context slice
+    (``kv_start`` given) recorded by shape into ``shapes``."""
+    from repro_torch.kernels import decode_attention as dec
+    launch = dec.decode_attention_cuda
+
+    def wrapped(q, k, v, kv_len, **kw):
+        if kw.get("kv_start") is not None:
+            key = (*q.shape, k.shape[1], k.shape[2], str(q.dtype),
+                   kw.get("window"))
+            if key not in shapes:
+                shapes[key] = {"launches": 0, "kv_len": kv_len.tolist(),
+                               "kv_start": kw["kv_start"].tolist()}
+            shapes[key]["launches"] += 1
+        return launch(q, k, v, kv_len, **kw)
+
+    dec.decode_attention_cuda = wrapped
+    try:
+        return fn()
+    finally:
+        dec.decode_attention_cuda = launch
+
+
+def run_mesh_lm(card, model, params, shape, long_context, B, S,
+                limit=MESH_REL, steps=MESH_STEPS):
+    """llama2-7b's prefill (``capture_hidden``), restore of every layer
+    and MESH_STEPS decode steps over ``shape`` under the default or the
+    long_context rules, against the 1x1 twin: the twin bitwise the plain
+    ``Model`` (prefill's logits, K/V and hidden; the restore; a decode
+    step's logits, hidden and written K/V), the twin's restore bitwise its
+    prefill's K/V, the mesh's restore of the twin's hidden bitwise the
+    twin's restore, the mesh's restore of its own hidden bitwise its
+    prefill's K/V, prefill and every decode step's logits (both runs fed
+    the twin's greedy tokens) within ``limit`` relative L2 of the twin's,
+    and each kernel's launches exactly its per-shard count times the
+    shards (a long_context decode step runs its model shards once, on
+    data shard 0, over all context shards)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    twin = mesh_server(model, (1, 1))
+    srv = mesh_server(model, shape, long_context)
+    D, M, C = srv.D, srv.M, srv.C
+    shards = D * M
+    stepping = M if long_context else shards     # model shards per step
+    L = model.cfg.n_layers
+    cap = S + MESH_PAD
+    name = (f"{model.cfg.name} {shape[0]}x{shape[1]}"
+            + (" long_context" if long_context else "")
+            + (" fp32" if model.dtype == torch.float32 else ""))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    row = {"mesh": name, "B": B, "S": S, "context_shards": C}
+    with torch.no_grad():
+        tp = twin.place_params(params)
+        tout = twin.prefill(tp, {"tokens": toks}, capture_hidden=True)
+        plain = model.prefill(params, {"tokens": toks}, capture_hidden=True)
+        for what, got, want in (
+                ("logits", tout["logits"], plain["logits"]),
+                ("k", tout["kv"][0], plain["kv"][0]),
+                ("v", tout["kv"][1], plain["kv"][1]),
+                ("hidden", tout["hidden"], plain["hidden"])):
+            if not torch.equal(whole(got), want):
+                raise AssertionError(f"{name}: the 1x1 prefill's {what} "
+                                     "differs from Model.prefill")
+        del plain
+        first = model.prefill(params, {"tokens": toks[:, :S - 1]})
+        pc = model.init_cache(B, S)
+        pc["k"][:, :, :S - 1], pc["v"][:, :, :S - 1] = first["kv"]
+        pc["lengths"][:] = S - 1
+        del first
+        row["floor_rel"] = rel_l2(model.decode_step(
+            params, pc, toks[:, S - 1:])[0], whole(tout["logits"]))
+        del pc
+        hidden = whole(tout["hidden"])
+        tk, tv = twin.restore_kv_from_hidden(
+            tp, twin.place_hidden(hidden, cap))
+        if not (torch.equal(whole(tk)[:, :, :S], whole(tout["kv"][0]))
+                and torch.equal(whole(tv)[:, :, :S],
+                                whole(tout["kv"][1]))):
+            raise AssertionError(f"{name}: the 1x1 restore differs from "
+                                 "its prefill's K/V")
+        pos = torch.arange(S, device="cuda")[None].expand(B, S)
+        pk, pv = model.restore_kv_from_hidden(params, hidden, positions=pos)
+        if not (torch.equal(pk, whole(tk)[:, :, :S])
+                and torch.equal(pv, whole(tv)[:, :, :S])):
+            raise AssertionError(f"{name}: the 1x1 restore differs from "
+                                 "Model.restore_kv_from_hidden")
+        del pk, pv
+        mp = srv.place_params(params)
+        torch.cuda.synchronize()
+        before, t0 = mesh_launches(), time.perf_counter()
+        mout = srv.prefill(mp, {"tokens": toks}, capture_hidden=True)
+        row["prefill_ms"] = _sync_s(t0) * 1e3
+        row["prefill_launches"] = launches_since(
+            before, {"#1": L * shards, "#5": L * shards}, f"{name} prefill")
+        row["prefill_rel"] = rel_l2(mout["logits"].gather(),
+                                    whole(tout["logits"]))
+        # the mesh's own hidden restores its prefill's K/V
+        mk, mv = srv.restore_kv_from_hidden(mp, mout["hidden"])
+        for got, want in ((mk, mout["kv"][0]), (mv, mout["kv"][1])):
+            if not all(torch.equal(a, b) for a, b in zip(got.parts,
+                                                         want.parts)):
+                raise AssertionError(f"{name}: the mesh's restore differs "
+                                     "from its prefill's K/V")
+        del mk, mv, mout
+        # the twin's hidden at the cache's capacity: the decode cache
+        mh = srv.place_hidden(hidden, cap)
+        torch.cuda.synchronize()
+        before, t0 = mesh_launches(), time.perf_counter()
+        rk, rv = srv.restore_kv_from_hidden(mp, mh)
+        row["restore_ms"] = _sync_s(t0) * 1e3
+        row["restore_launches"] = launches_since(
+            before, {"#1": shards}, f"{name} restore")
+        for got, want in ((rk, whole(tk)), (rv, whole(tv))):
+            for r, part in enumerate(got.parts):
+                if not torch.equal(part, want[got.block(srv.coords[r])]):
+                    raise AssertionError(f"{name}: shard {srv.coords[r]}'s "
+                                         "restored K/V differs from the "
+                                         "1x1 restore")
+        sl = mh.block(srv.coords[0])
+        b, s = sl[1].stop - sl[1].start, sl[2].stop - sl[2].start
+        spos = torch.arange(sl[2].start, sl[2].stop,
+                            device="cuda")[None].expand(b, s)
+        row["projection_ms_per_shard"] = uncounted(lambda: time_ms(
+            lambda: tfm.lm_restore_kv(mp.local[0], mh.parts[0], model.h,
+                                      positions=spos), 3, warmup=1))
+        row["shard_block"] = f"(L={L}, B={b}, S={s})"
+        del mh
+        lengths = [S] * B
+        tcache = twin.place_cache({"k": tk, "v": tv, "lengths": lengths},
+                                  cap)
+        mcache = srv.place_cache({"k": rk, "v": rv, "lengths": lengths},
+                                 cap)
+        if mcache["k"] is not rk:
+            raise AssertionError(f"{name}: the restored K/V was copied into "
+                                 "the cache's layout")
+        # one step of the plain Model on a copy of the twin's cache
+        tok = greedy(whole(tout["logits"]))
+        pc = {"k": whole(tk).clone(), "v": whole(tv).clone(),
+              "lengths": torch.full((B,), S, dtype=torch.int32,
+                                    device="cuda")}
+        plg, pc, phid = model.decode_step_full(params, pc, tok)
+        tlg, tcache, thid = twin.decode_step(tp, tcache, tok)
+        if not (torch.equal(whole(tlg), plg) and torch.equal(whole(thid), phid)
+                and torch.equal(whole(tcache["k"])[:, :, S], pc["k"][:, :, S])
+                and torch.equal(whole(tcache["v"])[:, :, S],
+                                pc["v"][:, :, S])):
+            raise AssertionError(f"{name}: the 1x1 decode step differs from "
+                                 "Model.decode_step_full")
+        del pc, plg, phid
+        rels, mesh_ms, twin_ms = [], [], []
+        step_tok = tok
+        for i in range(steps):
+            if i:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tlg, tcache, _ = twin.decode_step(tp, tcache, step_tok)
+                twin_ms.append(_sync_s(t0) * 1e3)
+            before, t0 = mesh_launches(), time.perf_counter()
+            mlg, mcache, _ = srv.decode_step(mp, mcache, step_tok)
+            mesh_ms.append(_sync_s(t0) * 1e3)
+            if i == 0:
+                row["decode_launches"] = launches_since(
+                    before, {"#1": L * stepping, "#3": L * shards},
+                    f"{name} decode")
+            rels.append(rel_l2(mlg.gather(), whole(tlg)))
+            step_tok = greedy(whole(tlg))
+        row["decode_rel_max"] = max(rels)
+        row["decode_ms"] = statistics.median(mesh_ms)
+        row["decode_ms_1x1"] = statistics.median(twin_ms)
+    bad = [g for g in rels + [row["prefill_rel"]] if not g <= limit]
+    if bad:
+        raise AssertionError(f"{name}: logits {bad} relative L2 from the "
+                             f"1x1 twin's (limit {limit})")
+    row["limit"] = limit
+    print(f"mesh serving {name} ({card}): B={B} x S={S}, {C} context "
+          f"shards; prefill {row['prefill_ms']:.1f} ms (logits rel "
+          f"{row['prefill_rel']:.3g}; the twin against a decode step of "
+          f"its last token {row['floor_rel']:.3g}), restore "
+          f"{row['restore_ms']:.1f} ms of which one shard's {row['shard_block']} projection "
+          f"{row['projection_ms_per_shard']:.3f} ms (CUDA events), decode "
+          f"{row['decode_ms']:.1f} ms/step against {row['decode_ms_1x1']:.1f}"
+          f" at 1x1 (max logits rel {row['decode_rel_max']:.3g}, limit "
+          f"{limit}); launches per shard: prefill #1 "
+          f"{row['prefill_launches']['#1'] // shards} #5 "
+          f"{row['prefill_launches']['#5'] // shards}, restore #1 "
+          f"{row['restore_launches']['#1'] // shards}, decode "
+          f"step #1 {row['decode_launches']['#1'] // stepping} (on "
+          f"{stepping} model shards) #3 "
+          f"{row['decode_launches']['#3'] // shards}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; restored K/V "
+          "bitwise the 1x1 restore's, the 1x1 prefill, restore and decode "
+          "bitwise the plain Model's")
+    return row
+
+
+def run_mesh_ssm(card, model, params, shape, B, S, limit=MESH_REL,
+                 steps=MESH_STEPS):
+    """falcon-mamba-7b's prefill and MESH_STEPS decode steps over
+    ``shape`` (``ssm_inner`` over model) against its 1x1 twin, which is
+    bitwise the plain ``Model`` (prefill's logits, states and hidden, a
+    decode step's logits, hidden and states); every step's logits within
+    ``limit`` relative L2 of the twin's; kernel #6 once per layer and
+    shard in each program."""
+    import torch
+    twin = mesh_server(model, (1, 1))
+    srv = mesh_server(model, shape)
+    shards = srv.D * srv.M
+    L = model.cfg.n_layers
+    name = (f"{model.cfg.name} {shape[0]}x{shape[1]}"
+            + (" fp32" if model.dtype == torch.float32 else ""))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    row = {"mesh": name, "B": B, "S": S}
+    with torch.no_grad():
+        tp = twin.place_params(params)
+        tout = twin.prefill(tp, {"tokens": toks}, capture_hidden=True)
+        plain = model.prefill(params, {"tokens": toks}, capture_hidden=True)
+        for what, got, want in (
+                ("logits", tout["logits"], plain["logits"]),
+                ("conv", tout["states"][0], plain["states"][0]),
+                ("ssm", tout["states"][1], plain["states"][1]),
+                ("hidden", tout["hidden"], plain["hidden"])):
+            if not torch.equal(whole(got), want):
+                raise AssertionError(f"{name}: the 1x1 prefill's {what} "
+                                     "differs from Model.prefill")
+        del plain
+        mp = srv.place_params(params)
+        torch.cuda.synchronize()
+        before, t0 = mesh_launches(), time.perf_counter()
+        mout = srv.prefill(mp, {"tokens": toks})
+        row["prefill_ms"] = _sync_s(t0) * 1e3
+        row["prefill_launches"] = launches_since(
+            before, {"#6": L * shards}, f"{name} prefill")
+        row["prefill_rel"] = rel_l2(mout["logits"].gather(),
+                                    whole(tout["logits"]))
+        row["state_rel"] = rel_l2(mout["states"][1].gather(),
+                                  whole(tout["states"][1]))
+        lengths = [S] * B
+        tcache = twin.place_cache({"conv": tout["states"][0],
+                                   "ssm": tout["states"][1],
+                                   "lengths": lengths})
+        mcache = srv.place_cache({"conv": mout["states"][0],
+                                  "ssm": mout["states"][1],
+                                  "lengths": lengths})
+        tok = greedy(whole(tout["logits"]))
+        pc = {"conv": whole(tcache["conv"]).clone(),
+              "ssm": whole(tcache["ssm"]).clone(),
+              "lengths": torch.full((B,), S, dtype=torch.int32,
+                                    device="cuda")}
+        plg, pc, phid = model.decode_step_full(params, pc, tok)
+        tlg, tcache, thid = twin.decode_step(tp, tcache, tok)
+        if not (torch.equal(whole(tlg), plg) and torch.equal(whole(thid), phid)
+                and torch.equal(whole(tcache["ssm"]), pc["ssm"])
+                and torch.equal(whole(tcache["conv"]), pc["conv"])):
+            raise AssertionError(f"{name}: the 1x1 decode step differs from "
+                                 "Model.decode_step_full")
+        del pc
+        rels, mesh_ms, twin_ms = [], [], []
+        step_tok = tok
+        for i in range(steps):
+            if i:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tlg, tcache, _ = twin.decode_step(tp, tcache, step_tok)
+                twin_ms.append(_sync_s(t0) * 1e3)
+            before, t0 = mesh_launches(), time.perf_counter()
+            mlg, mcache, _ = srv.decode_step(mp, mcache, step_tok)
+            mesh_ms.append(_sync_s(t0) * 1e3)
+            if i == 0:
+                row["decode_launches"] = launches_since(
+                    before, {"#6": L * shards}, f"{name} decode")
+            rels.append(rel_l2(mlg.gather(), whole(tlg)))
+            step_tok = greedy(whole(tlg))
+        row["decode_rel_max"] = max(rels)
+        row["decode_ms"] = statistics.median(mesh_ms)
+        row["decode_ms_1x1"] = statistics.median(twin_ms)
+    bad = [g for g in rels + [row["prefill_rel"]] if not g <= limit]
+    if bad:
+        raise AssertionError(f"{name}: logits {bad} relative L2 from the "
+                             f"1x1 twin's (limit {limit})")
+    row["limit"] = limit
+    print(f"mesh serving {name} ({card}): B={B} x S={S}; prefill "
+          f"{row['prefill_ms']:.1f} ms (logits rel {row['prefill_rel']:.3g}"
+          f", ssm state rel {row['state_rel']:.3g}), decode "
+          f"{row['decode_ms']:.1f} ms/step against {row['decode_ms_1x1']:.1f}"
+          f" at 1x1 (max logits rel {row['decode_rel_max']:.3g}, limit "
+          f"{limit}); launches per shard: prefill #6 "
+          f"{row['prefill_launches']['#6'] // shards}, decode step #6 "
+          f"{row['decode_launches']['#6'] // shards}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; the 1x1 "
+          "prefill and decode bitwise the plain Model's")
+    return row
+
+
+def check_mesh_decode(card, shapes: dict):
+    """Kernel #3 on a context slice (``kv_start``, ``return_lse``) against
+    its plain version at every slice shape the mesh phase gave it: the
+    phase's own lengths and slice starts; every row ending before its
+    slice (no live key: zeros, lse -inf); and a window that crosses the
+    slice's first position. Output within TOL (the inputs' dtype's), lse
+    within fp32's;
+    the kernel timed by CUDA graph beside the plain version and the bound
+    (the slice's live K and V read once)."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    rows = []
+    for key, rec in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        BKv, G, hd, Sc, Kv, dtype_name, window = key
+        dtype = getattr(torch, dtype_name.split(".")[-1])
+        tol = "fp32" if dtype == torch.float32 else "bf16"
+        B = BKv // Kv
+        q = torch.randn(BKv, G, hd, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, Sc, Kv, hd, generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn(B, Sc, Kv, hd, generator=gen,
+                        device="cuda").to(dtype)
+        start = torch.tensor(rec["kv_start"], dtype=torch.int32,
+                             device="cuda")
+        lens = torch.tensor(rec["kv_len"], dtype=torch.int32, device="cuda")
+        cases = (("phase", lens, window),
+                 ("empty", start.clone(), window),
+                 ("window across the slice start", start + 64, 200))
+        errs, lse_errs = [], []
+        for what, n, w in cases:
+            kw = dict(window=w, kv_start=start, return_lse=True)
+            out, lse = dec.decode_attention_cuda(q, k, v, n, **kw)
+            pout, plse = dec.decode_attention_plain(q, k, v, n, **kw)
+            label = (f"decode_attention on a slice {what} (BKv={BKv}, G={G},"
+                     f" hd={hd}, slice {Sc}, starts {rec['kv_start'][:1]})")
+            errs.append(check_close(label, out, pout, tol))
+            fin = torch.isfinite(plse)
+            if not torch.equal(torch.isfinite(lse), fin) or not bool(
+                    (lse[~fin] == plse[~fin]).all()):
+                raise AssertionError(f"{label}: lse -inf where the plain "
+                                     "version's is not, or the reverse")
+            lse_errs.append(check_close(label + " lse", lse[fin], plse[fin],
+                                        "fp32") if bool(fin.any()) else 0.0)
+            if what == "empty" and not (bool((out == 0).all())
+                                        and not bool(fin.any())):
+                raise AssertionError(f"{label}: not zeros with lse -inf")
+        kw = dict(window=window, kv_start=start, return_lse=True)
+        ms = graph_ms(lambda: dec.decode_attention_cuda(q, k, v, lens, **kw))
+        plain_ms = time_ms(lambda: dec.decode_attention_plain(q, k, v, lens,
+                                                              **kw), 3)
+        live = [max(min(int(n) - int(s), Sc), 0)
+                for n, s in zip(rec["kv_len"], rec["kv_start"])]
+        nbytes = 2 * (2 * BKv * G * hd + 2 * sum(live) * hd) + 4 * BKv * \
+            (2 + G)
+        bound_ms, bound_by = bound(4 * G * hd * sum(live), nbytes, card)
+        rows.append({"BKv": BKv, "G": G, "hd": hd, "slice": Sc,
+                     "window": window, "launches": rec["launches"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": max(errs),
+                     "lse_max_abs_err": max(lse_errs)})
+    print("decode_attention on context slices (kv_start, lse) against its "
+          f"plain version ({card}): " + "; ".join(
+              f"BKv={r['BKv']} G={r['G']} hd={r['hd']} slice {r['slice']}: "
+              f"{r['launches']} launches, {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.2f}), max abs err "
+              f"{r['max_abs_err']:.4f}, lse {r['lse_max_abs_err']:.2e}"
+              for r in rows))
+    return rows
+
+
+def run_mesh_phase(card, model, params):
+    """llama2-7b over MESH_SHAPE under the default rules (2 sessions of
+    MESH_SEQ) and under long_context (one of MESH_LONG_SEQ), then the fp32
+    runs (``run_mesh_fp32``): (their rows, the slice shapes they gave
+    kernel #3, for ``check_mesh_decode``)."""
+    import gc
+
+    import torch
+    shapes = {}
+    rows = []
+    for long_context, B, S in ((False, 2, MESH_SEQ),
+                               (True, 1, MESH_LONG_SEQ)):
+        rows.append(recorded_slices(
+            lambda: run_mesh_lm(card, model, params, MESH_SHAPE,
+                                long_context, B, S), shapes))
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows += recorded_slices(lambda: run_mesh_fp32(card), shapes)
+    return rows, shapes
+
+
+def run_mesh_fp32(card):
+    """The mesh programs in fp32 at full width and MESH_FP32_LAYERS
+    layers, under every gate of the bf16 runs and MESH_FP32_REL:
+    llama2-7b over MESH_SHAPE under the default rules and long_context,
+    falcon-mamba-7b over MESH_SSM_SHAPE."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    rows = []
+    for arch in ("llama2-7b", SSM_ARCH):
+        model = Model(get_arch(arch).scaled(n_layers=MESH_FP32_LAYERS),
+                      dtype=torch.float32)
+        params = model.init(SEED)
+        if model.kind == "lm":
+            for long_context, B, S in ((False, 2, MESH_FP32_SEQ),
+                                       (True, 1, MESH_FP32_LONG_SEQ)):
+                rows.append(run_mesh_lm(card, model, params, MESH_SHAPE,
+                                        long_context, B, S,
+                                        limit=MESH_FP32_REL,
+                                        steps=MESH_FP32_STEPS))
+        else:
+            rows.append(run_mesh_ssm(card, model, params, MESH_SSM_SHAPE, 2,
+                                     MESH_FP32_SSM_SEQ, limit=MESH_FP32_REL,
+                                     steps=MESH_FP32_STEPS))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def flash_shape_classes(counter):
     """Launches by (new tokens, self-prefill or over history)."""
     out = {}
@@ -4858,99 +5396,15 @@ def flash_shape_classes(counter):
     return out
 
 
-def main() -> None:
-    import collections
+def run_llama_phases(drive, phase_s, model, params):
+    """llama2-7b at full size: the lifecycle, the restore plans, the engine
+    on both backends (phased, unphased, calibrated), the budget, prefix
+    sharing, tensor-parallel serving and the front door, each held against
+    its gates."""
     import gc
 
     import torch
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        raise SystemExit(f"chip_smoke: {SRC}/repro_torch not found; run "
-                         "from a checkout of the repository")
-    sys.path.insert(0, SRC)
     from repro_torch.core.profiler import MeasuredProfile
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import restore_kv as rkv
-    from repro_torch.kernels import ssm_update as ssu
-
-    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, "
-          f"{sh(['nvcc', '--version']).splitlines()[-1]}")
-    print(f"card: {card}")
-    _build.library()
-    print(f"kernels built in {_build.build_seconds:.1f} s")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    restore = check_restore(card, gen)
-    decode, decode_shapes = check_decode(card, gen)
-    kernels = [restore, decode, check_paged_decode(card, gen, decode_shapes),
-               check_flash(card, gen), check_ssm_update(card, gen)]
-    for k, rows in time_model_shapes(card).items():
-        next(x for x in kernels if x["name"] == k)["model_shapes"] = rows
-    phase_s = {"kernel checks": time.perf_counter() - t_start}
-
-    def reset():
-        rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
-        ssu.launches = 0
-        rkv.shapes.clear()
-        fa.shapes.clear()
-        torch.cuda.reset_peak_memory_stats()
-
-    def read():
-        return {"restore_kv_grouped": rkv.launches,
-                "decode_attention": dec.launches,
-                "decode_attention_paged": dec.paged_launches,
-                "flash_attention": fa.launches,
-                "ssm_update": ssu.launches}
-
-    counts, regimes = {}, {}
-    flash_shapes = collections.Counter()
-
-    def drive(name, fn, needs):
-        reset()
-        t0 = time.perf_counter()
-        out = fn()
-        got = read()
-        phase_s[name] = time.perf_counter() - t0
-        print(f"{name} done in {phase_s[name]:.1f} s, peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; kernel "
-              f"launches {got}")
-        for k in needs:
-            if got[k] <= 0:
-                raise AssertionError(f"{k} never ran on the {name} path")
-        for k, n in got.items():
-            counts[k] = counts.get(k, 0) + n
-        for (G, S), n in rkv.shapes.items():
-            r = restore_regime(G, S)
-            regimes[r] = regimes.get(r, 0) + n
-        flash_shapes.update(fa.shapes)
-        return out
-
-    from repro_torch.launch import serve
-    served = {}
-    for name, argv, needs in SMOKE_SERVES:
-        served[name] = drive(name, lambda a=argv: recorded_serve(serve, a),
-                             needs)
-        if SERVE_PRINTS.get(name, "") not in served[name]["out"]:
-            raise AssertionError(f"{name}: no line with "
-                                 f"{SERVE_PRINTS[name]!r}")
-    one_host, two_hosts, extra = HOSTS_SERVE
-    argv, needs = next((a, n) for name, a, n in SMOKE_SERVES
-                       if name == one_host)
-    check_hosts_serve(served[one_host], drive(
-        two_hosts, lambda: recorded_serve(serve, argv + extra), needs))
-    drive("serve llama2-7b smoke --serve-http", lambda: serve_http_cli(serve),
-          ("restore_kv_grouped", "decode_attention", "flash_attention"))
-    gc.collect()
-    torch.cuda.empty_cache()
-    model, params = build_model()
     drive("lifecycle", lambda: run_main_path(model, params),
           ("restore_kv_grouped", "decode_attention", "flash_attention"))
     profile = drive("restore plans", lambda: run_restore_plans(model, params),
@@ -5044,90 +5498,16 @@ def main() -> None:
         check_front_door(backend, door, direct)
         against_plain(f"front door {backend}", door, {})
         del door, direct
-    del model, params, runs, plain, twin, calibrated   # free llama2-7b
-    gc.collect()
-    torch.cuda.empty_cache()
-    # qwen2-7b at full width and QWEN_LAYERS layers: the lifecycle, then
-    # the engine on both backends (phased), under every gate of llama2-7b's
-    # runs
-    model, params = build_model("qwen2-7b", layers=QWEN_LAYERS)
-    drive("qwen2-7b lifecycle", lambda: run_main_path(model, params),
-          lm_needs)
-    runs, plain = {}, {}
-    for backend, decode_kernel in (("contiguous", "decode_attention"),
-                                   ("paged", "decode_attention_paged")):
-        runs[backend] = drive(
-            f"qwen2-7b engine {backend}",
-            lambda b=backend: run_engine(model, params, b),
-            ("restore_kv_grouped", decode_kernel, "flash_attention"))
-        against_plain(f"qwen2-7b engine {backend}", runs[backend], plain)
-    check_engine(runs["contiguous"], runs["paged"], "qwen2-7b ")
-    del model, params, runs, plain                     # free qwen2-7b
-    gc.collect()
-    torch.cuda.empty_cache()
-    # gemma2-9b at full width and GEMMA_LAYERS layers through the
-    # lifecycle: a session whose prompt outruns the 4096-token window of
-    # the local layers in prefill, restore, the recompute replay and
-    # decode, and a short one
-    model, params = build_model("gemma2-9b", layers=GEMMA_LAYERS)
-    drive("gemma2-9b lifecycle",
-          lambda: run_main_path(model, params, GEMMA_PROMPTS), lm_needs)
-    del model, params                                  # free gemma2-9b
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve_moe_vlm(drive)
-    model, params = build_ssm_model()
-    drive("ssm lifecycle", lambda: run_ssm_lifecycle(model, params),
-          ("ssm_update",))
-    requests = drive("ssm engine contiguous",
-                     lambda: run_ssm_engine(model, params), ("ssm_update",))
-    t1 = time.perf_counter()
-    worst = check_against_plain(model, params, requests, {})
-    print(f"{SSM_ARCH} engine against the plain forward (6 requests, "
-          f"{time.perf_counter() - t1:.1f} s): logits relative error max "
-          f"{worst['cold']:.5f} at first tokens, {worst['decode']:.5f} at "
-          f"decoded tokens (limit {PLAIN_REL}); generated tokens at most "
-          f"{worst['gap']:.4f} std below the plain best (limit {PLAIN_GAP})")
-    del model, params                                  # free falcon-mamba
-    gc.collect()
-    torch.cuda.empty_cache()
-    model, params = build_hybrid_model()
-    hybrid_needs = ("restore_kv_grouped", "decode_attention",
-                    "flash_attention")
-    drive("hybrid lifecycle", lambda: run_hybrid_lifecycle(model, params),
-          hybrid_needs)
-    requests = drive("hybrid engine contiguous",
-                     lambda: run_hybrid_engine(model, params), hybrid_needs)
-    t1 = time.perf_counter()
-    n = check_hybrid_engine(model, params, requests)
-    print(f"{HYBRID_ARCH} engine against a B=1 pass over each request "
-          f"({len(requests)} requests, {time.perf_counter() - t1:.1f} s): "
-          f"the logits of all {n} tokens bitwise equal, every token the "
-          "pass's greedy choice")
-    del model, params, requests                        # free zamba2-2.7b
-    gc.collect()
-    torch.cuda.empty_cache()
-    # whisper-medium at full size: the lifecycle, then the engine on both
-    # backends (phased), every request against the plain forward
-    model, params = build_encdec_model()
-    encdec_needs = ("restore_kv_grouped", "decode_attention",
-                    "flash_attention")
-    drive(f"{ENCDEC_ARCH} lifecycle",
-          lambda: run_encdec_lifecycle(model, params), encdec_needs)
-    runs, plain = {}, {}
-    for backend in ("contiguous", "paged"):
-        runs[backend] = drive(
-            f"{ENCDEC_ARCH} engine {backend}",
-            lambda b=backend: run_encdec_engine(model, params, b),
-            encdec_needs + (("decode_attention_paged",)
-                            if backend == "paged" else ()))
-        hold_against_plain(f"{ENCDEC_ARCH} engine {backend}", model, params,
-                           runs[backend], plain)
-    check_engine(runs["contiguous"], runs["paged"], f"{ENCDEC_ARCH} ",
-                 methods=("hidden",))
-    del model, params, runs, plain                     # free whisper-medium
-    gc.collect()
-    torch.cuda.empty_cache()
+
+
+def run_training_phases(card, drive, phase_s, counts, kernels):
+    """Training on the card: llama2-7b at full width, a supervised restart
+    through launch/train.py, kernel #6 under autograd, the other families,
+    sharded training, then kernel #5 under autograd at every shape these
+    phases gave it (into ``kernels`` when the kernel checks ran)."""
+    import gc
+
+    import torch
     # training: llama2-7b at full width, a supervised restart through
     # launch/train.py, kernel #6 under autograd, then the other families;
     # kernel #5 under autograd at every shape these phases gave it
@@ -5167,23 +5547,27 @@ def main() -> None:
               f"budget of {SHARDED_PHASE_BUDGET_S:.0f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    flash_launches = counts["flash_attention"] - before["flash_attention"]
+    flash_launches = (counts.get("flash_attention", 0)
+                      - before.get("flash_attention", 0))
     recorded = sum(e["launches"] for e in train_flash.values())
     if recorded != flash_launches:
         raise AssertionError(f"training: {flash_launches} flash_attention "
                              f"launches, {recorded} through FlashAttentionFn")
     t0 = time.perf_counter()
-    kernels[3]["train_shapes"] = check_flash_train_shapes(card, train_flash)
+    train_shapes = check_flash_train_shapes(card, train_flash)
     phase_s["train flash kernel checks"] = time.perf_counter() - t0
-    ssm_train["launches"] = counts["ssm_update"] - before["ssm_update"]
-    kernels[4]["train_shape"] = ssm_train
+    ssm_train["launches"] = (counts.get("ssm_update", 0)
+                             - before.get("ssm_update", 0))
+    if kernels:
+        kernels[3]["train_shapes"] = train_shapes
+        kernels[4]["train_shape"] = ssm_train
     print(f"flash_attention launches added by training: {flash_launches}, "
           "by shape and phase: " + "; ".join(
               f"B={r['B']} Sq={r['Sq']} Skv={r['Skv']} H={r['H']} "
               f"Kv={r['Kv']} hd={r['hd']} "
               f"{'causal' if r['causal'] else 'non-causal'}: "
               f"{r['launches']} ({', '.join(r['phases'])})"
-              for r in kernels[3]["train_shapes"])
+              for r in train_shapes)
           + f"; ssm_update launches added by training: "
           f"{ssm_train['launches']} ({SSM_ARCH}); train {TRAIN_ARCH} step "
           f"{train['step_ms']:.1f} ms, {train['tokens_per_s']:.0f} "
@@ -5191,27 +5575,287 @@ def main() -> None:
               f"{a} {r['step_ms']:.1f} ms, {r['tokens_per_s']:.0f} "
               f"tokens/s, peak {r['peak_gb']:.1f} GB"
               for a, r in families.items()))
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-    kernels[0]["launches_by_regime"] = regimes
-    print(f"restore_kv_grouped launches by regime over the paths: {regimes}")
-    for s in kernels[3]["shapes"]:
-        s["launches"] = flash_shapes[1, s["Sq"], s["Skv"]]
-    kernels[3]["launches_by_class"] = flash_shape_classes(flash_shapes)
-    print("flash_attention launches at the timed shapes: " + ", ".join(
-        f"{s['Sq']} over {s['hist']}: {s['launches']}"
-        for s in kernels[3]["shapes"]))
-    print("flash_attention launches by shape class over the paths: "
-          f"{kernels[3]['launches_by_class']}")
+
+
+PHASES = ("kernels", "smoke", "llama2-7b", "mesh", "qwen2-7b", "gemma2-9b",
+          "moe-vlm", "ssm", "hybrid", "encdec", "train")
+
+
+def parse_phases(argv) -> set:
+    """``--phases NAME[,NAME]`` (default: every phase of PHASES)."""
+    import argparse
+    p = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    p.add_argument("--phases", default="all",
+                   help="comma-separated phases to run, of: "
+                   + ", ".join(PHASES) + " (default all)")
+    args = p.parse_args(argv)
+    if args.phases == "all":
+        return set(PHASES)
+    names = [n.strip() for n in args.phases.split(",") if n.strip()]
+    unknown = [n for n in names if n not in PHASES]
+    if unknown or not names:
+        p.error(f"unknown phase(s) {unknown or args.phases!r}; choose from "
+                + ", ".join(PHASES))
+    return set(names)
+
+
+def main(argv=None) -> None:
+    import collections
+    import gc
+
+    import torch
+    phases = parse_phases(argv)
+
+    def want(*names):
+        return any(n in phases for n in names)
+
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        raise SystemExit(f"chip_smoke: {SRC}/repro_torch not found; run "
+                         "from a checkout of the repository")
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.kernels import ssm_update as ssu
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, "
+          f"{sh(['nvcc', '--version']).splitlines()[-1]}")
+    print(f"card: {card}")
+    _build.library()
+    print(f"kernels built in {_build.build_seconds:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = []
+    if want("kernels"):
+        restore = check_restore(card, gen)
+        decode, decode_shapes = check_decode(card, gen)
+        kernels = [restore, decode,
+                   check_paged_decode(card, gen, decode_shapes),
+                   check_flash(card, gen), check_ssm_update(card, gen)]
+        for k, rows in time_model_shapes(card).items():
+            next(x for x in kernels if x["name"] == k)["model_shapes"] = rows
+    phase_s = {"kernel checks": time.perf_counter() - t_start}
+
+    def reset():
+        rkv.launches = dec.launches = dec.paged_launches = fa.launches = 0
+        ssu.launches = 0
+        rkv.shapes.clear()
+        fa.shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+
+    def read():
+        return {"restore_kv_grouped": rkv.launches,
+                "decode_attention": dec.launches,
+                "decode_attention_paged": dec.paged_launches,
+                "flash_attention": fa.launches,
+                "ssm_update": ssu.launches}
+
+    counts, regimes = {}, {}
+    flash_shapes = collections.Counter()
+
+    def drive(name, fn, needs):
+        reset()
+        t0 = time.perf_counter()
+        out = fn()
+        got = read()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"{name} done in {phase_s[name]:.1f} s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; kernel "
+              f"launches {got}")
+        for k in needs:
+            if got[k] <= 0:
+                raise AssertionError(f"{k} never ran on the {name} path")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        for (G, S), n in rkv.shapes.items():
+            r = restore_regime(G, S)
+            regimes[r] = regimes.get(r, 0) + n
+        flash_shapes.update(fa.shapes)
+        return out
+
+    from repro_torch.launch import serve
+    served = {}
+    for name, args, needs in SMOKE_SERVES if want("smoke") else ():
+        served[name] = drive(name, lambda a=args: recorded_serve(serve, a),
+                             needs)
+        if SERVE_PRINTS.get(name, "") not in served[name]["out"]:
+            raise AssertionError(f"{name}: no line with "
+                                 f"{SERVE_PRINTS[name]!r}")
+    if want("smoke"):
+        one_host, two_hosts, extra = HOSTS_SERVE
+        args, needs = next((a, n) for name, a, n in SMOKE_SERVES
+                           if name == one_host)
+        check_hosts_serve(served[one_host], drive(
+            two_hosts, lambda: recorded_serve(serve, args + extra), needs))
+        drive("serve llama2-7b smoke --serve-http",
+              lambda: serve_http_cli(serve),
+              ("restore_kv_grouped", "decode_attention", "flash_attention"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_rows = []
+    if want("llama2-7b", "mesh"):
+        model, params = build_model()
+    if want("llama2-7b"):
+        run_llama_phases(drive, phase_s, model, params)
+    if want("mesh"):
+        # the reference's mesh serving programs, every shard on the card
+        mesh_rows, slice_shapes = drive(
+            "mesh serving", lambda: run_mesh_phase(card, model, params),
+            ("restore_kv_grouped", "decode_attention", "flash_attention"))
+        t0 = time.perf_counter()
+        mesh_slices = check_mesh_decode(card, slice_shapes)
+        phase_s["mesh serving kernel checks"] = time.perf_counter() - t0
+    if want("llama2-7b", "mesh"):
+        del model, params                              # free llama2-7b
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm_needs = ("restore_kv_grouped", "decode_attention", "flash_attention")
+    if want("qwen2-7b"):
+        # qwen2-7b at full width and QWEN_LAYERS layers: the lifecycle,
+        # then the engine on both backends (phased), under every gate of
+        # llama2-7b's runs
+        model, params = build_model("qwen2-7b", layers=QWEN_LAYERS)
+        drive("qwen2-7b lifecycle", lambda: run_main_path(model, params),
+              lm_needs)
+        runs, plain = {}, {}
+        for backend, decode_kernel in (("contiguous", "decode_attention"),
+                                       ("paged", "decode_attention_paged")):
+            runs[backend] = drive(
+                f"qwen2-7b engine {backend}",
+                lambda b=backend: run_engine(model, params, b),
+                ("restore_kv_grouped", decode_kernel, "flash_attention"))
+            hold_against_plain(f"qwen2-7b engine {backend}", model, params,
+                               runs[backend], plain)
+        check_engine(runs["contiguous"], runs["paged"], "qwen2-7b ")
+        del model, params, runs, plain                 # free qwen2-7b
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("gemma2-9b"):
+        # gemma2-9b at full width and GEMMA_LAYERS layers through the
+        # lifecycle: a session whose prompt outruns the 4096-token window
+        # of the local layers in prefill, restore, the recompute replay
+        # and decode, and a short one
+        model, params = build_model("gemma2-9b", layers=GEMMA_LAYERS)
+        drive("gemma2-9b lifecycle",
+              lambda: run_main_path(model, params, GEMMA_PROMPTS), lm_needs)
+        del model, params                              # free gemma2-9b
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("moe-vlm"):
+        serve_moe_vlm(drive)
+    if want("ssm", "mesh"):
+        model, params = build_ssm_model()
+    if want("ssm"):
+        drive("ssm lifecycle", lambda: run_ssm_lifecycle(model, params),
+              ("ssm_update",))
+        requests = drive("ssm engine contiguous",
+                         lambda: run_ssm_engine(model, params),
+                         ("ssm_update",))
+        t1 = time.perf_counter()
+        worst = check_against_plain(model, params, requests, {})
+        print(f"{SSM_ARCH} engine against the plain forward (6 requests, "
+              f"{time.perf_counter() - t1:.1f} s): logits relative error "
+              f"max {worst['cold']:.5f} at first tokens, "
+              f"{worst['decode']:.5f} at decoded tokens (limit {PLAIN_REL}"
+              f"); generated tokens at most {worst['gap']:.4f} std below "
+              f"the plain best (limit {PLAIN_GAP})")
+        del requests
+    if want("mesh"):
+        # the mesh programs of the ssm family: ssm_inner over model
+        mesh_rows.append(drive(
+            "mesh serving falcon-mamba-7b",
+            lambda: run_mesh_ssm(card, model, params, MESH_SSM_SHAPE, 2,
+                                 MESH_SSM_SEQ), ("ssm_update",)))
+        mesh_s = sum(v for k, v in phase_s.items()
+                     if k.startswith("mesh serving"))
+        print(f"mesh serving: {mesh_s:.1f} s in all ({card})"
+              + (f", over its budget of {MESH_PHASE_BUDGET_S:.0f} s"
+                 if mesh_s > MESH_PHASE_BUDGET_S else
+                 f", inside its budget of {MESH_PHASE_BUDGET_S:.0f} s"))
+    if want("ssm", "mesh"):
+        del model, params                              # free falcon-mamba
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("hybrid"):
+        model, params = build_hybrid_model()
+        hybrid_needs = ("restore_kv_grouped", "decode_attention",
+                        "flash_attention")
+        drive("hybrid lifecycle", lambda: run_hybrid_lifecycle(model, params),
+              hybrid_needs)
+        requests = drive("hybrid engine contiguous",
+                         lambda: run_hybrid_engine(model, params),
+                         hybrid_needs)
+        t1 = time.perf_counter()
+        n = check_hybrid_engine(model, params, requests)
+        print(f"{HYBRID_ARCH} engine against a B=1 pass over each request "
+              f"({len(requests)} requests, {time.perf_counter() - t1:.1f} "
+              f"s): the logits of all {n} tokens bitwise equal, every token "
+              "the pass's greedy choice")
+        del model, params, requests                    # free zamba2-2.7b
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("encdec"):
+        # whisper-medium at full size: the lifecycle, then the engine on
+        # both backends (phased), every request against the plain forward
+        model, params = build_encdec_model()
+        encdec_needs = ("restore_kv_grouped", "decode_attention",
+                        "flash_attention")
+        drive(f"{ENCDEC_ARCH} lifecycle",
+              lambda: run_encdec_lifecycle(model, params), encdec_needs)
+        runs, plain = {}, {}
+        for backend in ("contiguous", "paged"):
+            runs[backend] = drive(
+                f"{ENCDEC_ARCH} engine {backend}",
+                lambda b=backend: run_encdec_engine(model, params, b),
+                encdec_needs + (("decode_attention_paged",)
+                                if backend == "paged" else ()))
+            hold_against_plain(f"{ENCDEC_ARCH} engine {backend}", model,
+                               params, runs[backend], plain)
+        check_engine(runs["contiguous"], runs["paged"], f"{ENCDEC_ARCH} ",
+                     methods=("hidden",))
+        del model, params, runs, plain                 # free whisper-medium
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("train"):
+        run_training_phases(card, drive, phase_s, counts, kernels)
+    if kernels:
+        for k in kernels:
+            k["launches"] = counts.get(k["name"], 0)
+        kernels[0]["launches_by_regime"] = regimes
+        print("restore_kv_grouped launches by regime over the paths: "
+              f"{regimes}")
+        for s in kernels[3]["shapes"]:
+            s["launches"] = flash_shapes[1, s["Sq"], s["Skv"]]
+        kernels[3]["launches_by_class"] = flash_shape_classes(flash_shapes)
+        print("flash_attention launches at the timed shapes: " + ", ".join(
+            f"{s['Sq']} over {s['hist']}: {s['launches']}"
+            for s in kernels[3]["shapes"]))
+        print("flash_attention launches by shape class over the paths: "
+              f"{kernels[3]['launches_by_class']}")
+        if want("mesh"):
+            kernels[1]["mesh_slices"] = mesh_slices
+            kernels[1]["mesh_runs"] = mesh_rows
+    elif want("mesh"):
+        print(json.dumps({"mesh_runs": mesh_rows,
+                          "mesh_slices": mesh_slices}))
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; {time.perf_counter() - t_start:.1f} s in all")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

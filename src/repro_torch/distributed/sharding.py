@@ -215,24 +215,40 @@ class Placed:
 
 
 def place(x: torch.Tensor, spec: Spec, mesh: Mesh,
-          name: str = "tensor") -> Placed:
+          name: str = "tensor", share: bool = False) -> Placed:
     """``x`` split by ``spec``: each device of ``mesh`` gets a contiguous
     copy of its block (a replicated block is copied to every device that
-    holds it)."""
-    parts = []
+    holds it). With ``share`` (read-only weights) a device that several
+    shards of the mesh name holds each distinct block once, and a block
+    that is the whole of a contiguous ``x`` already on its device is
+    ``x`` itself."""
+    from repro_torch.distributed.tp import _device
+    parts, held = [], {}
     for coord, dev in zip(mesh_coords(mesh), mesh.device_list()):
-        block = x[block_slices(x.shape, spec, mesh, coord, name)]
-        parts.append(block.to(dev, copy=True).contiguous())
+        dev = _device(dev) if share else dev
+        sl = block_slices(x.shape, spec, mesh, coord, name)
+        key = (str(dev), tuple((s.start, s.stop) for s in sl))
+        if share and key in held:
+            parts.append(held[key])
+            continue
+        whole = all(s.stop - s.start == n for s, n in zip(sl, x.shape))
+        if share and whole and x.device == dev and x.is_contiguous():
+            part = x
+        else:
+            part = x[sl].to(dev, copy=True).contiguous()
+        held[key] = part
+        parts.append(part)
     return Placed(parts, tuple(spec), tuple(x.shape), mesh)
 
 
-def place_tree(tree, specs, mesh: Mesh, prefix: str = ""):
+def place_tree(tree, specs, mesh: Mesh, prefix: str = "",
+               share: bool = False):
     """``place`` over a tree and its tree of specs; each leaf's path names
     it in a refusal."""
     if isinstance(tree, dict):
-        return {k: place_tree(v, specs[k], mesh, f"{prefix}/{k}")
+        return {k: place_tree(v, specs[k], mesh, f"{prefix}/{k}", share)
                 for k, v in tree.items()}
-    return place(tree, specs, mesh, prefix.lstrip("/") or "tensor")
+    return place(tree, specs, mesh, prefix.lstrip("/") or "tensor", share)
 
 
 def gather_tree(tree, device=None):

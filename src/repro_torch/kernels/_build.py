@@ -36,7 +36,7 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     "hc_restore_kv_grouped": [_VP] * 10 + [_I] * 12 + [_VP],
-    "hc_decode_attention": [_VP] * 8 + [_I] * 5 + [_LL] * 6
+    "hc_decode_attention": [_VP] * 10 + [_I] * 5 + [_LL] * 6
     + [_F, _F] + [_I] * 4 + [_VP],
     "hc_decode_attention_paged": [_VP] * 9 + [_I] * 7 + [_LL] * 6
     + [_F, _F] + [_I] * 4 + [_VP],

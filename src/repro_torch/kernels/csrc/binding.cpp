@@ -14,11 +14,11 @@ extern "C" int hc_restore_kv_grouped(
 
 extern "C" int hc_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, void* ws_acc, void* ws_ml, void* tickets, int BKv, int G,
-    int hd, int n_kv_heads, int smax, long long sb, long long ss,
-    long long sh, long long vsb, long long vss, long long vsh, float scale,
-    float softcap, int window, int dtype, int splits, int split_keys,
-    void* stream);
+    const void* kv_start, void* out, void* lse, void* ws_acc, void* ws_ml,
+    void* tickets, int BKv, int G, int hd, int n_kv_heads, int smax,
+    long long sb, long long ss, long long sh, long long vsb, long long vss,
+    long long vsh, float scale, float softcap, int window, int dtype,
+    int splits, int split_keys, void* stream);
 
 extern "C" int hc_decode_attention_paged(
     const void* q, const void* k_pool, const void* v_pool,
@@ -72,15 +72,17 @@ void restore_kv_grouped(int64_t hidden, int64_t wk, int64_t wv, int64_t bk,
 }
 
 void decode_attention(int64_t q, int64_t k, int64_t v, int64_t kv_len,
-                      int64_t out, int64_t ws_acc, int64_t ws_ml,
+                      int64_t kv_start, int64_t out, int64_t lse,
+                      int64_t ws_acc, int64_t ws_ml,
                       int64_t tickets, int BKv, int G, int hd,
                       int n_kv_heads, int smax, int64_t sb, int64_t ss,
                       int64_t sh, int64_t vsb, int64_t vss, int64_t vsh,
                       double scale, double softcap, int window, int dtype,
                       int splits, int split_keys, int64_t stream) {
-  check(hc_decode_attention(ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out),
-                            ptr(ws_acc), ptr(ws_ml), ptr(tickets), BKv, G,
-                            hd, n_kv_heads, smax, sb, ss, sh, vsb, vss, vsh,
+  check(hc_decode_attention(ptr(q), ptr(k), ptr(v), ptr(kv_len),
+                            ptr(kv_start), ptr(out), ptr(lse), ptr(ws_acc),
+                            ptr(ws_ml), ptr(tickets), BKv, G, hd, n_kv_heads,
+                            smax, sb, ss, sh, vsb, vss, vsh,
                             static_cast<float>(scale),
                             static_cast<float>(softcap), window, dtype,
                             splits, split_keys, ptr(stream)),

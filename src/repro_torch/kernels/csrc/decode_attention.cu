@@ -54,6 +54,19 @@
 // the next launch. A row with no live key (kv_len <= 0) gets zeros, as
 // the Pallas kernels give.
 //
+// A slice of a context-split cache (the contiguous entry only). With a
+// per-row kv_start, the cache holds absolute positions [kv_start,
+// kv_start + smax) of the row, and kv_len and the window stay absolute:
+// the row's live keys are the absolute range [max(kv_len - window, 0),
+// kv_len) cut to the slice, in the slice's own coordinates (the split
+// rule applies to those). With an lse buffer the kernel also writes each
+// query row's log-sum-exp of its (scaled, softcapped) logits over those
+// keys, in fp32, -inf where the slice holds none; the partials of the
+// slices of one row then merge as out = sum_c exp(lse_c - lse) out_c with
+// lse = logsumexp_c lse_c. With the lse the output is written in fp32
+// (the partial is rounded once, after the merge). Without them the
+// kernel is what it was, bit for bit.
+//
 // Head sizes: any multiple of 8 up to 256; G 1-16 (the body is a template
 // over G rounded up to a power of two); bf16 and fp32.
 #include <cuda_runtime.h>
@@ -191,6 +204,9 @@ struct Params {
   const void* q;                  // (BKv, G, hd)
   void* out;                      // (BKv, G, hd)
   const int32_t* kv_len;          // (BKv,)
+  const int32_t* kv_start;        // (BKv,) or null: the slice's first key
+  float* lse;                     // (BKv, G) fp32 or null; if set, out
+                                  // is fp32 too
   float* ws_acc;                  // (BKv, splits, G, hd) when splits > 1
   float* ws_ml;                   // (BKv, splits, G, 2): max, sum
   int* tickets;                   // (BKv,), zero between launches
@@ -201,6 +217,15 @@ struct Params {
   int stride;                     // bytes per staged row
   int ring;                       // bytes of the ring (and the warps' sums)
 };
+
+// one output element: T, or fp32 beside an lse
+template <typename T>
+__device__ __forceinline__ void store(const Params& p, int64_t i, float x) {
+  if (p.lse)
+    static_cast<float*>(p.out)[i] = x;
+  else
+    static_cast<T*>(p.out)[i] = from_f<T>(x);
+}
 
 template <typename T, typename Addr, int GB>
 __global__ void __launch_bounds__(THREADS)
@@ -214,14 +239,22 @@ decode_split_kernel(const Params p, const Addr addr) {
   const int G = p.G, hd = p.hd;
   const int S = p.split_keys;
 
-  // the row's live keys [lo, hi), and its live splits [first, last]
-  const int len = min(p.kv_len[row], p.smax);
-  const int lo = p.window > 0 ? max(len - p.window, 0) : 0;
-  const int hi = len;
-  T* out = static_cast<T*>(p.out) + (int64_t)row * G * hd;
+  // the row's live keys [lo, hi), and its live splits [first, last];
+  // on a slice, the absolute live range shifted by its first key and cut
+  // to it
+  const int start = p.kv_start ? p.kv_start[row] : 0;
+  const int len = p.kv_start ? p.kv_len[row] : min(p.kv_len[row], p.smax);
+  const int lo = max((p.window > 0 ? max(len - p.window, 0) : 0) - start,
+                     0);
+  const int hi = min(len - start, p.smax);
+  const int64_t obase = (int64_t)row * G * hd;
   if (hi <= lo) {                 // no live key: zeros, from split 0
-    if (split == 0)
-      for (int e = tid; e < G * hd; e += THREADS) out[e] = from_f<T>(0.f);
+    if (split == 0) {
+      for (int e = tid; e < G * hd; e += THREADS)
+        store<T>(p, obase + e, 0.f);
+      if (p.lse && tid < G)   // -inf
+        p.lse[(int64_t)row * G + tid] = __int_as_float(0xff800000);
+    }
     return;
   }
   const int first = lo / S;
@@ -434,8 +467,10 @@ decode_split_kernel(const Params p, const Addr addr) {
     for (int e = tid; e < G * hd; e += THREADS) {
       float a = wp[e];
       for (int w = 1; w < WARPS; ++w) a += wp[w * G * hd + e];
-      out[e] = from_f<T>(a / fmaxf(ml[MAX_G + e / hd], 1e-30f));
+      store<T>(p, obase + e, a / fmaxf(ml[MAX_G + e / hd], 1e-30f));
     }
+    if (p.lse && tid < G)
+      p.lse[(int64_t)row * G + tid] = ml[tid] + logf(ml[MAX_G + tid]);
     return;
   }
   const int64_t part = (int64_t)row * p.splits + split;
@@ -470,7 +505,8 @@ decode_split_kernel(const Params p, const Addr addr) {
       l += __ldcg(m_l + 1) * w;
       a += __ldcg(p.ws_acc + (first_part + sp) * G * hd + e) * w;
     }
-    out[e] = from_f<T>(a / fmaxf(l, 1e-30f));
+    store<T>(p, obase + e, a / fmaxf(l, 1e-30f));
+    if (p.lse && e % hd == 0) p.lse[(int64_t)row * G + g] = mg + logf(l);
   }
   if (tid == 0) p.tickets[row] = 0;
 }
@@ -515,13 +551,16 @@ bool bad_plan(int BKv, int G, int hd, int smax, int splits,
 }
 
 Params make_params(const void* q, void* out, const void* kv_len,
-                   void* ws_acc, void* ws_ml, void* tickets, int G, int hd,
+                   const void* kv_start, void* lse, void* ws_acc,
+                   void* ws_ml, void* tickets, int G, int hd,
                    int n_kv_heads, int smax, int splits, int split_keys,
                    float scale, float softcap, int window) {
   Params p{};
   p.q = q;
   p.out = out;
   p.kv_len = static_cast<const int32_t*>(kv_len);
+  p.kv_start = static_cast<const int32_t*>(kv_start);
+  p.lse = static_cast<float*>(lse);
   p.ws_acc = static_cast<float*>(ws_acc);
   p.ws_ml = static_cast<float*>(ws_ml);
   p.tickets = static_cast<int*>(tickets);
@@ -546,20 +585,23 @@ Params make_params(const void* q, void* out, const void* kv_len,
 // 1 = bfloat16. The plan (decode_plan): splits per row in the grid and
 // split_keys, a multiple of the 32-key tile. When splits > 1, ws_acc
 // (BKv, splits, G, hd) and ws_ml (BKv, splits, G, 2) are fp32 scratch and
-// tickets (BKv,) int32 holds zeros, which the kernel leaves as zeros. Returns -1 for
-// unsupported sizes or plans, else the launch's CUDA error (0 on success).
+// tickets (BKv,) int32 holds zeros, which the kernel leaves as zeros.
+// kv_start (BKv,) int32 and lse (BKv, G) fp32 may each be null (above);
+// with lse, out is (BKv, G, hd) fp32.
+// Returns -1 for unsupported sizes or plans, else the launch's CUDA error
+// (0 on success).
 extern "C" int hc_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, void* ws_acc, void* ws_ml, void* tickets, int BKv, int G,
-    int hd, int n_kv_heads, int smax, long long sb, long long ss,
-    long long sh, long long vsb, long long vss, long long vsh, float scale,
-    float softcap, int window, int dtype, int splits, int split_keys,
-    void* stream) {
+    const void* kv_start, void* out, void* lse, void* ws_acc, void* ws_ml,
+    void* tickets, int BKv, int G, int hd, int n_kv_heads, int smax,
+    long long sb, long long ss, long long sh, long long vsb, long long vss,
+    long long vsh, float scale, float softcap, int window, int dtype,
+    int splits, int split_keys, void* stream) {
   if (bad_plan(BKv, G, hd, smax, splits, split_keys)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(q, out, kv_len, ws_acc, ws_ml, tickets, G,
-                               hd, n_kv_heads, smax, splits, split_keys,
-                               scale, softcap, window);
+  const Params p = make_params(q, out, kv_len, kv_start, lse, ws_acc,
+                               ws_ml, tickets, G, hd, n_kv_heads, smax,
+                               splits, split_keys, scale, softcap, window);
   if (dtype == 0) {
     const ContiguousAddr<float> a{static_cast<const float*>(k),
                                   static_cast<const float*>(v), sb, ss, sh,
@@ -592,9 +634,9 @@ extern "C" int hc_decode_attention_paged(
       bad_plan(BKv, G, hd, mb * bs, splits, split_keys))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p = make_params(q, out, kv_len, ws_acc, ws_ml, tickets, G,
-                               hd, n_kv_heads, mb * bs, splits, split_keys,
-                               scale, softcap, window);
+  const Params p = make_params(q, out, kv_len, nullptr, nullptr, ws_acc,
+                               ws_ml, tickets, G, hd, n_kv_heads, mb * bs,
+                               splits, split_keys, scale, softcap, window);
   const int32_t* tbl = static_cast<const int32_t*>(table);
   if (dtype == 0) {
     const PagedAddr<float> a{static_cast<const float*>(k_pool),

@@ -19,6 +19,18 @@ only alias positions at or past ``kv_len``.
 A row with no live position (``kv_len <= 0``) gives zeros, as the Pallas
 kernels give (their zero accumulator divided by ``max(l, 1e-30)``).
 
+A slice of a cache split along the context (``distributed/
+mesh_serving.py``; the contiguous entry only): with ``kv_start (BKv,)``
+int32 the cache holds the row's absolute positions ``[kv_start,
+kv_start + Smax)``, while ``kv_len`` and ``window`` stay absolute, so a
+row's live keys are its absolute live range cut to the slice. With
+``return_lse`` the call returns the output in fp32 and each query row's
+log-sum-exp ``(BKv, G)`` fp32 of its scaled, softcapped logits over
+those keys (``-inf`` where the slice holds none): the partials of a
+row's slices merge into the unsplit result, rounded once
+(``models/layers/attention.py::merge_partials``). Without these
+arguments the call is what it was, bit for bit.
+
 ``decode_attention_cuda`` and ``decode_attention_paged_cuda`` launch the
 hand-written split-K kernel (``csrc/decode_attention.cu``; one kernel
 body, two address policies, so paged and contiguous give the same bits),
@@ -119,36 +131,58 @@ def _as_rows(cache: torch.Tensor) -> torch.Tensor:
     return cache.permute(0, 2, 1, 3).reshape(B * Kv, S, hd)
 
 
+def slice_range(kv_len: int, smax: int, window: Optional[int] = None,
+                kv_start: Optional[int] = None) -> Tuple[int, int]:
+    """A row's live keys [lo, hi) in the coordinates of its cache of
+    ``smax`` slots, as the kernel cuts them: without ``kv_start`` the
+    cache starts at position 0 and ``kv_len`` is clamped to it first;
+    with it the absolute live range is shifted by it and cut to the
+    slice. Empty when hi <= lo."""
+    start = 0 if kv_start is None else int(kv_start)
+    n = int(kv_len) if kv_start is not None else min(int(kv_len), smax)
+    wlo = max(n - window, 0) if window and window > 0 else 0
+    return max(wlo - start, 0), min(n - start, smax)
+
+
 def decode_attention_plain(q, k, v, kv_len, *,
                            softcap: Optional[float] = None,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None, kv_start=None,
+                           return_lse: bool = False):
     """Plain PyTorch version (fp32 scores and softmax), one row at a time.
     Like the kernel, a row reads only its own live positions, so its result
     depends neither on the cache's spare capacity nor on the other rows'
     lengths: a session decoded beside others gives the bits it gives
-    alone. A row with ``kv_len <= 0`` gives zeros."""
+    alone. A row with no live position gives zeros (and an lse of
+    -inf); with ``return_lse`` the output is fp32."""
     k, v = _as_rows(k), _as_rows(v)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse
+                          else q.dtype)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     scale = q.shape[-1] ** -0.5
+    starts = (None if kv_start is None else kv_start.tolist())
     for r, n in enumerate(kv_len.tolist()):
-        n = min(int(n), k.shape[1])
-        if n <= 0:                   # no live position: zeros
+        lo, hi = slice_range(n, k.shape[1], window,
+                             None if starts is None else starts[r])
+        if hi <= lo:                 # no live position: zeros
             out[r] = 0
+            lse[r] = float("-inf")
             continue
-        s = (q[r].float() @ k[r, :n].float().T) * scale        # (G, n)
+        s = (q[r].float() @ k[r, :hi].float().T) * scale       # (G, hi)
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
         if window is not None:
-            kpos = torch.arange(n, device=q.device)
-            s = torch.where(kpos > n - 1 - window, s,
-                            torch.full_like(s, NEG_INF))
-        out[r] = (torch.softmax(s, dim=-1) @ v[r, :n].float()).to(q.dtype)
-    return out
+            kpos = torch.arange(hi, device=q.device)
+            s = torch.where(kpos >= lo, s, torch.full_like(s, NEG_INF))
+        out[r] = (torch.softmax(s, dim=-1) @ v[r, :hi].float()).to(
+            out.dtype)
+        lse[r] = torch.logsumexp(s, dim=-1)
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_cuda(q, k, v, kv_len, *,
                           softcap: Optional[float] = None,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None, kv_start=None,
+                          return_lse: bool = False):
     """Launch the CUDA kernel; same contract as the plain version."""
     global launches
     dtype, dev = q.dtype, q.device
@@ -189,22 +223,32 @@ def decode_attention_cuda(q, k, v, kv_len, *,
             or tuple(kv_len.shape) != (BKv,) or not kv_len.is_contiguous():
         raise ValueError("kv_len must be a contiguous (BKv,) int32 tensor "
                          "on q's device")
-    out = torch.empty_like(q)
+    if kv_start is not None and (
+            kv_start.device != dev or kv_start.dtype != torch.int32
+            or tuple(kv_start.shape) != (BKv,)
+            or not kv_start.is_contiguous()):
+        raise ValueError("kv_start must be a contiguous (BKv,) int32 tensor "
+                         "on q's device")
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse
+                          else dtype)
+    lse = (torch.empty((BKv, G), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if BKv == 0:
-        return out
+        return (out, lse) if return_lse else out
     plan = decode_plan(smax)
     ws_acc, ws_ml, tickets = _scratch(plan, BKv, G, hd, dev)
     lib = _build.library()
     lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), _ptr(ws_acc), _ptr(ws_ml), _ptr(tickets), BKv, G,
-        hd, n_kv, smax, sb, ss, sh, vsb, vss, vsh, hd ** -0.5,
+        _ptr(kv_start), out.data_ptr(), _ptr(lse), _ptr(ws_acc),
+        _ptr(ws_ml), _ptr(tickets), BKv, G, hd, n_kv, smax, sb, ss, sh,
+        vsb, vss, vsh, hd ** -0.5,
         float(softcap) if softcap is not None else 0.0,
         int(window) if window is not None else 0, _DTYPE_CODE[dtype],
         plan.splits, plan.split_keys,
         torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _gather_pages(pool: torch.Tensor, table: torch.Tensor, n_pages: int):

@@ -18,11 +18,13 @@ def restore_kv_grouped(hidden, wk, wv, bk, bv, rows, cos, sin, *,
               use_rope=use_rope)
 
 
-def decode_attention(q, k, v, kv_len, *, softcap=None, window=None):
+def decode_attention(q, k, v, kv_len, *, softcap=None, window=None,
+                     kv_start=None, return_lse=False):
     """See ``kernels/decode_attention.py``."""
     fn = (_dec.decode_attention_cuda if q.device.type == "cuda"
           else _dec.decode_attention_plain)
-    return fn(q, k, v, kv_len, softcap=softcap, window=window)
+    return fn(q, k, v, kv_len, softcap=softcap, window=window,
+              kv_start=kv_start, return_lse=return_lse)
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_table, kv_len, *,

@@ -1,11 +1,13 @@
 """Device meshes: named axes over an explicit list of devices.
 
 One process drives every device of a mesh (tensor-parallel serving,
-``distributed/tp.py``), so a mesh here is only a grid of torch devices
-with axis names; no process group stands behind it. A device may appear
-several times (shards that share one card). The JAX package's pod
-meshes (``make_production_mesh``) belong to its TPU cost tooling and are
-not ported.
+``distributed/tp.py``; sharded training, ``training/sharded.py``; the
+mesh serving programs, ``distributed/mesh_serving.py``), so a mesh here
+is only a grid of torch devices with axis names; no process group
+stands behind it. A device may appear several times (shards that share
+one card). The JAX package's production pod meshes
+(``make_production_mesh``) wait for the port's cost tooling (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 

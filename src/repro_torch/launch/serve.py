@@ -210,10 +210,13 @@ def _refuse_oversized(p: argparse.ArgumentParser, cfg, device) -> None:
         p.error(f"--full {cfg.name}: its {cfg.n_layers} layers hold "
                 f"{cfg.param_count() / 1e9:.1f} B parameters, "
                 f"{need / 1e9:.1f} GB in bf16, more than the "
-                f"{have / 1e9:.1f} GB of one card's memory; --tp does "
-                "not shard the weights (it splits the KV pool and the "
-                "restoration pack), and sharding them over cards comes "
-                "with sharded training, which is not ported yet")
+                f"{have / 1e9:.1f} GB of one card's memory; the engine's "
+                "--tp does not shard the weights (it splits the KV pool and "
+                "the restoration pack; the reference's engine does not "
+                "shard them either), and the mesh serving programs that do "
+                "(distributed/mesh_serving.py) are no engine: they refuse "
+                "fsdp_rules, which grok-1-314b's weights need (ROADMAP.md, "
+                "queue 1)")
 
 
 def main(argv=None) -> None:

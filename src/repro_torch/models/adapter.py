@@ -14,6 +14,8 @@ Capability flags (as the JAX package's ``FamilyAdapter`` has them):
 ``chunkable`` (the prompt may be split into SplitFuse chunks),
 ``supports_resume`` (a paused session resumes by prefilling over its
 restored history), ``supports_paged`` (the block-table backend applies),
+``supports_mesh`` (``distributed/mesh_serving.py`` runs the family's
+prefill and decode over a (data x model) mesh),
 ``supports_recompute``, ``kv_names`` (cache keys of the stacked K/V),
 ``kv_row`` (a layer's row in that stack), ``decode_layers`` (the global
 layer of each row of a decode step's hidden stack), ``n_state_blobs``
@@ -32,6 +34,7 @@ class FamilyAdapter:
     chunkable = False
     supports_resume = False
     supports_paged = False
+    supports_mesh = False
     supports_recompute = False
     kv_names = None
     n_state_blobs = 0
@@ -94,6 +97,7 @@ class LMAdapter(FamilyAdapter):
     chunkable = True
     supports_resume = True
     supports_paged = True
+    supports_mesh = True
     supports_recompute = True
     kv_names = ("k", "v")
 
@@ -167,6 +171,7 @@ class SSMAdapter(FamilyAdapter):
 
     kind = "ssm"
     n_state_blobs = 1
+    supports_mesh = True
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         from repro_torch.models import ssm

@@ -150,16 +150,54 @@ def flash_attention(q, k, v, h: AttnHyper, *, q_offset: int, causal: bool,
 
 
 def decode_attention(q, k_cache, v_cache, h: AttnHyper, *, kv_len,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, kv_start=None,
+                     return_lse: bool = False):
     """One decode token per sequence. q (B,1,H,hd); caches (B,Smax,Kv,hd),
-    read in place; kv_len (B,) int live lengths including the new token."""
+    read in place; kv_len (B,) int live lengths including the new token.
+    ``kv_start`` (B,) int: the caches are a context slice holding
+    absolute positions [kv_start, kv_start + Smax) (``kv_len`` and
+    ``window`` stay absolute); ``return_lse`` returns the slice's partial
+    in fp32 and its log-sum-exp per head (B, H) fp32, for
+    ``merge_partials``."""
     B, _, H, hd = q.shape
     Kv = h.n_kv_heads
     qg = q.reshape(B * Kv, H // Kv, hd)
     lens = kv_len.to(torch.int32).repeat_interleave(Kv).contiguous()
+    starts = (None if kv_start is None else
+              kv_start.to(torch.int32).repeat_interleave(Kv).contiguous())
     out = ops.decode_attention(qg, k_cache, v_cache, lens,
-                               softcap=h.attn_softcap, window=window)
-    return out.reshape(B, 1, H, hd)
+                               softcap=h.attn_softcap, window=window,
+                               kv_start=starts, return_lse=return_lse)
+    if not return_lse:
+        return out.reshape(B, 1, H, hd)
+    out, lse = out
+    return out.reshape(B, 1, H, hd), lse.reshape(B, H)
+
+
+def merge_partials(outs, lses, dtype=None):
+    """The decode attention of a row over its context slices, from each
+    slice's fp32 partial (B,1,H,hd) and log-sum-exp (B,H) in slice order
+    (``decode_attention(..., kv_start, return_lse=True)``), merged in
+    fp32 in that order: lse = logsumexp_c lse_c and out = sum_c
+    exp(lse_c - lse) out_c, rounded once to ``dtype`` (default the
+    partials'). A row no slice holds a key of gives zeros. One slice
+    without an lse: its partial as it is."""
+    if len(outs) == 1 and lses[0] is None:
+        return outs[0]
+    top = lses[0]
+    for x in lses[1:]:
+        top = torch.maximum(top, x)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    ws = [torch.exp(x - top) for x in lses]
+    total = ws[0]
+    for w in ws[1:]:
+        total = total + w
+    inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+    acc = None
+    for o, w in zip(outs, ws):
+        term = o.float() * (w * inv)[:, None, :, None]
+        acc = term if acc is None else acc + term
+    return acc.to(dtype or outs[0].dtype)
 
 
 def attn_output(p: dict, attn: torch.Tensor):

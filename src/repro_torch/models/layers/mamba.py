@@ -36,6 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import reduce_from_shards
+from repro_torch.distributed.tp import on_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers.norm import row_mean, row_sum
 from repro_torch.models.module import bias_param, dense_param, normal_init
@@ -101,32 +103,16 @@ def apply_mamba1(p: dict, x, h: Mamba1Hyper, *,
                  init_state: Optional[torch.Tensor] = None,
                  conv_state: Optional[torch.Tensor] = None):
     """x (B,S,D) -> (out (B,S,D), (conv_state (B,W-1,I), ssm_state
-    (B,I,N) fp32)). ``init_state``, when given, must be a contiguous fp32
-    (B,I,N) tensor: the recurrence updates it in place and returns it as
-    the new ssm state (the JAX package returns a new array). Under
-    autograd (grad enabled and a scan input that requires grad) the scan
-    goes through ``ops.ssm_scan_autograd`` instead, which leaves
-    ``init_state`` as it is and returns a new state."""
-    I, N, R = h.d_inner, h.d_state, h.dt_rank
-    xz = torch.matmul(x, p["in_proj"])
-    xi, z = xz[..., :I], xz[..., I:]
-    xc, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"], conv_state)
-    xc = F.silu(xc)
-    proj = torch.matmul(xc, p["x_proj"])
-    dt_low, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
-    dt = F.softplus(torch.matmul(dt_low, p["dt_proj"])
-                    + p["dt_bias"]).float()                  # (B,S,I)
-    A = -torch.exp(p["a_log"].float())                        # (I,N)
-    if init_state is None:
-        init_state = torch.zeros((x.shape[0], I, N), dtype=torch.float32,
-                                 device=x.device)
-    scan_in = (dt, xc, A, Bm, Cm, p["d_skip"])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in scan_in):
-        y, state = ops.ssm_scan_autograd(init_state, *scan_in)
-    else:
-        y, state = ops.ssm_scan(init_state, *scan_in), init_state
-    y = (y.float() * F.silu(z.float())).to(x.dtype)
-    return torch.matmul(y, p["out_proj"]), (new_conv, state)
+    (B,I,N) fp32)): ``apply_mamba1_shards`` on one shard. ``init_state``,
+    when given, must be a contiguous fp32 (B,I,N) tensor: the recurrence
+    updates it in place and returns it as the new ssm state (the JAX
+    package returns a new array). Under autograd (grad enabled and a scan
+    input that requires grad) the scan goes through
+    ``ops.ssm_scan_autograd`` instead, which leaves ``init_state`` as it
+    is and returns a new state."""
+    outs, states = apply_mamba1_shards([p], [x], h, init_states=[init_state],
+                                       conv_states=[conv_state])
+    return outs[0], states[0]
 
 
 def decode_mamba1_step(p: dict, x, h: Mamba1Hyper, *, conv_state,
@@ -134,6 +120,71 @@ def decode_mamba1_step(p: dict, x, h: Mamba1Hyper, *, conv_state,
     """Single-token decode. x (B,1,D); states as ``apply_mamba1`` returns
     them (``ssm_state`` is updated in place)."""
     return apply_mamba1(p, x, h, init_state=ssm_state, conv_state=conv_state)
+
+
+def mamba1_channel_order(in_proj: torch.Tensor, M: int) -> torch.Tensor:
+    """in_proj (..., D, 2I) with its columns reordered so that a
+    contiguous split into M parts gives model shard m its channels' x
+    columns and then their gate columns, [x_m | z_m] (the whole is
+    [x | z], so a plain split would give shard 0 only x columns)."""
+    if M == 1:
+        return in_proj
+    lead, I = in_proj.shape[:-1], in_proj.shape[-1] // 2
+    return (in_proj.reshape(*lead, 2, M, I // M).transpose(-3, -2)
+            .reshape(*lead, 2 * I))
+
+
+def apply_mamba1_shards(ps: list, xs: list, h: Mamba1Hyper, *,
+                        init_states=None, conv_states=None):
+    """The Mamba1 layer over M model shards, ``ssm_inner`` split (the JAX
+    package's ``constrain(..., "ssm_inner")``; one shard: the whole
+    layer): ``ps[m]`` shard m's parameters (its I/M channels: in_proj in
+    ``mamba1_channel_order``, conv, dt_proj columns, a_log, d_skip,
+    x_proj and out_proj rows), ``xs[m]`` the replicated input (B,S,D) on
+    its device; states per shard or None, (B,W-1,I/M) and (B,I/M,N) fp32
+    (as ``apply_mamba1`` takes them). Each shard scans its channels
+    through kernel #6; the two products that sum over I, x_proj's and
+    out_proj's, are summed over the shards in shard order. Returns (the
+    output (B,S,D) on every shard, each shard's (conv_state,
+    ssm_state))."""
+    M = len(ps)
+    init_states = init_states or [None] * M
+    conv_states = conv_states or [None] * M
+    N, R = h.d_state, h.dt_rank
+    xcs, zs, convs, parts = [], [], [], []
+    for p, x, cs in zip(ps, xs, conv_states):
+        I = p["in_proj"].shape[-1] // 2
+        with on_device(x.device):
+            xz = torch.matmul(x, p["in_proj"])
+            xc, new_conv = causal_conv1d(xz[..., :I], p["conv_w"],
+                                         p["conv_b"], cs)
+            xc = F.silu(xc)
+            parts.append(torch.matmul(xc, p["x_proj"]))
+        xcs.append(xc)
+        zs.append(xz[..., I:])
+        convs.append(new_conv)
+    outs, states = [], []
+    for p, x, xc, z, proj, h0, conv in zip(ps, xs, xcs, zs,
+                                           reduce_from_shards(parts),
+                                           init_states, convs):
+        dt_low, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+        with on_device(x.device):
+            dt = F.softplus(torch.matmul(dt_low, p["dt_proj"])
+                            + p["dt_bias"]).float()          # (B,S,I)
+            A = -torch.exp(p["a_log"].float())                # (I,N)
+            if h0 is None:
+                h0 = torch.zeros((x.shape[0], xc.shape[-1], N),
+                                 dtype=torch.float32, device=x.device)
+            scan_in = (dt, xc, A, Bm, Cm, p["d_skip"])
+            if (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in scan_in)):
+                y, state = ops.ssm_scan_autograd(h0, *scan_in)
+            else:
+                y, state = ops.ssm_scan(h0, *scan_in), h0
+            y = (y.float() * F.silu(z.float())).to(x.dtype)
+            outs.append(torch.matmul(y, p["out_proj"]))
+        states.append((conv, state))
+    return reduce_from_shards(outs), states
 
 
 # ==================================================================== Mamba 2

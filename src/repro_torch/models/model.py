@@ -27,6 +27,11 @@ to its family adapter (models/adapter.py):
     init_cache / init_paged_cache       -> zeroed serving caches
     init_cross(batch, enc_seq)          -> zeroed per-slot cross state
                                            (encdec)
+    *_spec / *_sharding                 -> the mesh programs' inputs as
+                                           meta tensors and their logical
+                                           layouts under ``ShardingRules``
+                                           (``launch/dryrun.py``,
+                                           ``distributed/mesh_serving.py``)
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; with no
 device given and no CUDA device present it raises instead of running on
@@ -37,6 +42,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.config.shapes import InputShape
 
 from repro_torch.config.arch import ArchConfig
 from repro_torch.distributed.sharding import pad_heads
@@ -50,6 +57,14 @@ from repro_torch.models.module import param_axes
 from repro_torch.models.ssm import SSMHyper
 
 LM_FAMILIES = ("dense", "moe", "vlm")
+DEC_TRAIN = 448       # whisper decoder target length in train cells
+N_VIS = 256           # internvl2 patch positions
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` that holds no data (the JAX
+    package's ``ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -246,3 +261,84 @@ class Model:
                     dtype=torch.int32, device=self.device),
                 "lengths": torch.zeros((batch,), dtype=torch.int32,
                                        device=self.device)}
+
+    # ================================== the mesh programs' input specs
+    def _tok(self, b: int, s: int) -> torch.Tensor:
+        return _meta((b, s), torch.int32)
+
+    def _mesh_family(self) -> None:
+        if self.kind not in ("lm", "ssm"):
+            raise ValueError(f"{self.cfg.name}: the mesh programs' layouts "
+                             f"of the {self.kind} family are not ported "
+                             "(ROADMAP.md, queue 1)")
+
+    def train_batch_spec(self, shape: InputShape) -> dict:
+        c = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if self.kind == "encdec":
+            return {"frames": _meta((B, S, c.d_model), self.dtype),
+                    "tokens": self._tok(B, DEC_TRAIN),
+                    "targets": self._tok(B, DEC_TRAIN)}
+        batch = {"tokens": self._tok(B, S), "targets": self._tok(B, S)}
+        if c.family == "vlm":
+            batch["patches"] = _meta((B, N_VIS, c.d_model), self.dtype)
+        return batch
+
+    def train_batch_sharding(self, rules) -> dict:
+        """The specs of ``train_batch_spec``'s leaves under ``rules``
+        (``distributed.sharding.ShardingRules``); ``training/sharded.py``
+        splits its batch by them."""
+        r = rules
+        out = {"tokens": r.spec(("batch", "seq")),
+               "targets": r.spec(("batch", "seq"))}
+        if self.kind == "encdec":
+            out["frames"] = r.spec(("batch", "seq", "d_model"))
+            out["targets"] = r.spec(("batch", None))
+            out["tokens"] = r.spec(("batch", None))
+        if self.cfg.family == "vlm":
+            out["patches"] = r.spec(("batch", None, "d_model"))
+        return out
+
+    def prefill_batch_spec(self, shape: InputShape) -> dict:
+        self._mesh_family()
+        batch = self.train_batch_spec(shape)
+        batch.pop("targets")
+        return batch
+
+    def prefill_batch_sharding(self, rules) -> dict:
+        """``distributed/mesh_serving.py`` places its batch by these."""
+        self._mesh_family()
+        out = self.train_batch_sharding(rules)
+        out.pop("targets")
+        return out
+
+    def cache_spec(self, batch: int, ctx_len: int) -> dict:
+        """A decode cell's cache (a fully populated context) as meta
+        tensors, in the JAX package's layout."""
+        self._mesh_family()
+        c = self.cfg
+        lengths = _meta((batch,), torch.int32)
+        if self.kind == "lm":
+            kv = _meta((c.n_layers, batch, ctx_len, c.n_kv_heads,
+                        c.head_dim_), self.dtype)
+            return {"k": kv, "v": kv, "lengths": lengths}
+        m = self.h.mamba
+        return {"conv": _meta((c.n_layers, batch, m.d_conv - 1, m.d_inner),
+                              self.dtype),
+                "ssm": _meta((c.n_layers, batch, m.d_inner, m.d_state),
+                             torch.float32),
+                "lengths": lengths}
+
+    def cache_sharding(self, rules) -> dict:
+        """The specs of ``cache_spec``'s leaves under ``rules``: the K/V
+        split along the context (``kv_seq``), the recurrent states along
+        ``ssm_inner``."""
+        self._mesh_family()
+        r = rules
+        if self.kind == "lm":
+            kv = r.spec(("layers", "batch", "kv_seq", "kv_heads",
+                         "head_dim"))
+            return {"k": kv, "v": kv, "lengths": r.spec(("batch",))}
+        return {"conv": r.spec(("layers", "batch", "conv_w", "ssm_inner")),
+                "ssm": r.spec(("layers", "batch", "ssm_inner", "ssm_state")),
+                "lengths": r.spec(("batch",))}

@@ -6,9 +6,13 @@ Entry points (functions over the parameter dict):
   init_lm         -> parameters, stacked along a leading layer axis
   lm_forward      -> full-sequence forward (prefill), optionally capturing
                      per-layer hidden states (the HCache save path) and
-                     emitting stacked K/V
+                     emitting stacked K/V; it is ``lm_forward_shards`` on
+                     one shard, which runs the same blocks over the model
+                     shards of a mesh (``distributed/mesh_serving.py``)
   lm_decode_step  -> one decode token per sequence; also returns the
-                     per-layer hidden states
+                     per-layer hidden states; it is
+                     ``lm_decode_step_shards`` on one shard, which runs
+                     over model shards and a cache split along the context
   lm_decode_step_paged -> the same over a paged KV pool (block tables)
   lm_restore_kv   -> the paper's op: stacked K/V from stacked saved
                      hidden states (norm + projection + RoPE only)
@@ -193,16 +197,19 @@ def _row(li: int, device: torch.device) -> torch.Tensor:
     return torch.tensor([li], dtype=torch.int32, device=device)
 
 
-def _attn_qkv(blocks, li, x, h: LMHyper, cos, sin):
-    """normed input, q (B,S,H,hd), k/v (B,S,Kv,hd) of layer ``li``."""
+def _attn_qkv(blocks, li, x, h: LMHyper, cos, sin,
+              q_attn: Optional[AttnHyper] = None):
+    """q (B,S,H,hd), k/v (B,S,Kv,hd) of layer ``li``; ``q_attn`` (a model
+    shard's query heads, ``blocks``' wq its columns) in place of
+    ``h.attn`` for q."""
     B, S, D = x.shape
     rows = _row(li, x.device)
     normed = norm_rows(blocks, rows, x.reshape(1, B * S, D), h.cfg)
     k, v = project_kv_rows(blocks, rows, normed, cos.reshape(B * S, -1),
                            sin.reshape(B * S, -1), h.attn)
     normed = normed.reshape(B, S, D)
-    q = attn_lib.project_q(layer_params(blocks["attn"], li), normed, h.attn,
-                           cos, sin)
+    q = attn_lib.project_q(layer_params(blocks["attn"], li), normed,
+                           q_attn or h.attn, cos, sin)
     kv_shape = (B, S, h.attn.n_kv_heads, h.attn.head_dim)
     return q, k.reshape(kv_shape), v.reshape(kv_shape)
 
@@ -248,36 +255,72 @@ def _block_tail(p: dict, x, attn_out, h: LMHyper):
 
 
 # ---------------------------------------------------------------- blocks
+def block_forward_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
+                         cos, sin, window: Optional[int], hist_kv=None,
+                         hist_len: Optional[int] = None):
+    """Full-sequence block ``li`` over M model shards (one shard: the
+    whole layer): ``blocks`` each shard's stacked block parameters (its
+    query heads ``qkv_out``, ``o_in`` and ``d_ff`` where M > 1, the whole
+    K/V projection), ``xs`` its replicated input (B,S,D) at positions
+    hist_len + [0, S) and cos/sin (B,S,hd/2) per shard; optional restored
+    history K/V per shard, a (B,Sh,Kv,hd) pair prepended to the attention
+    context. Each shard projects K/V of every head through kernel #1 and
+    attends its query heads through kernel #5; ``wo`` is row-parallel and
+    the FFN column- then row-parallel, summed over the shards in shard
+    order. Returns (outs, each shard's (k, v) of the new tokens, all
+    heads)."""
+    a = h.attn
+    M = len(blocks)
+    heads = _Heads(a.q_heads, a.n_kv_heads, M)
+    local = (None if M == 1 else dataclasses.replace(
+        a, n_heads=heads.per_shard, padded_heads=0))
+    kv_len = (None if hist_kv is None or hist_len is None
+              else hist_len + xs[0].shape[1])
+    outs, new = [], []
+    for m, (b, x) in enumerate(zip(blocks, xs)):
+        with on_device(x.device):
+            q, k, v = _attn_qkv(b, li, x, h, cos[m], sin[m], q_attn=local)
+            new.append((k, v))
+            k_all, v_all = k, v
+            if hist_kv is not None:
+                hk, hv = hist_kv[m]
+                k_all = torch.cat([hk.to(k.dtype), k], dim=1)
+                v_all = torch.cat([hv.to(v.dtype), v], dim=1)
+            if M > 1:
+                k_all, v_all = heads.select(m, k_all, v_all)
+            o = attn_lib.flash_attention(
+                q, k_all, v_all, a, q_offset=hist_len or 0, causal=True,
+                window=window, kv_len=kv_len)
+            outs.append(attn_lib.attn_output(layer_params(b["attn"], li), o))
+    xs, _ = _residual_ffn([layer_params(b, li) for b in blocks], xs,
+                          reduce_from_shards(outs), h)
+    return xs, new
+
+
 def block_forward(blocks: dict, li: int, x, h: LMHyper, *, cos, sin,
                   window: Optional[int], hist_kv=None,
                   hist_len: Optional[int] = None):
-    """Full-sequence block ``li``. x (B,S,D) at positions hist_len + [0, S);
-    cos/sin (B,S,hd/2); optional restored history K/V (B,Sh,Kv,hd) pair
-    prepended to the attention context. Returns (x_out, (k, v) of the new
-    tokens)."""
-    q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
-    if hist_kv is not None:
-        hk, hv = hist_kv
-        k_all = torch.cat([hk.to(k.dtype), k], dim=1)
-        v_all = torch.cat([hv.to(v.dtype), v], dim=1)
-        kv_len = None if hist_len is None else hist_len + x.shape[1]
-    else:
-        k_all, v_all, kv_len = k, v, None
-    attn_out = attn_lib.flash_attention(
-        q, k_all, v_all, h.attn, q_offset=hist_len or 0, causal=True,
-        window=window, kv_len=kv_len)
-    return _block_tail(layer_params(blocks, li), x, attn_out, h)[0], (k, v)
+    """``block_forward_shards`` on one shard: x (B,S,D), cos/sin
+    (B,S,hd/2), hist_kv a (B,Sh,Kv,hd) pair or None. Returns (x_out, (k,
+    v) of the new tokens)."""
+    xs, new = block_forward_shards(
+        [blocks], li, [x], h, cos=[cos], sin=[sin], window=window,
+        hist_kv=None if hist_kv is None else [hist_kv], hist_len=hist_len)
+    return xs[0], new[0]
 
 
-def write_step_kv(k_cache, v_cache, k, v, lengths) -> None:
+def write_step_kv(k_cache, v_cache, k, v, lengths, start=None) -> None:
     """A decode step's new K/V (B,1,Kv,hd) into caches (B,Smax,Kv,hd) at
     ``lengths``, IN PLACE (the JAX package's ``.at[].set`` returns a new
     array); a slot that is already full drops the write, as
-    ``mode="drop"`` does."""
+    ``mode="drop"`` does. ``start`` (B,): the caches are a context slice
+    holding positions [start, start + Smax), and a row whose position
+    lies outside it drops the write."""
     B, smax = k.shape[0], k_cache.shape[1]
     bidx = torch.arange(B, device=k.device)
-    slot = lengths.long().clamp(max=smax - 1)
-    fits = (lengths.long() < smax)[:, None, None]
+    local = lengths.long() if start is None else lengths.long() - start
+    slot = local.clamp(min=0, max=smax - 1)
+    fits = ((local < smax) & (local >= 0))[:, None, None]
     k_cache[bidx, slot] = torch.where(fits, k[:, 0], k_cache[bidx, slot])
     v_cache[bidx, slot] = torch.where(fits, v[:, 0], v_cache[bidx, slot])
 
@@ -292,16 +335,82 @@ def write_pool_kv(k_pool, v_pool, k, v, write) -> None:
     v_pool.view(NB * bs, *v_pool.shape[2:])[slots] = v[rows, 0]
 
 
+def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
+                        k_caches, v_caches, lengths, starts=None, cos, sin,
+                        window: Optional[int]):
+    """Single-token block ``li`` over M model shards (``blocks``, ``xs``
+    (B,1,D) and cos/sin per shard, as ``block_forward_shards``) and C
+    context shards of the layer's cache: ``k_caches``/``v_caches``
+    (B,Sc,Kv,hd), ``lengths`` (B,) tokens ALREADY cached and ``starts``
+    (B,) int32 the absolute position of the slice's first key (None: one
+    shard, the whole cache), each on its cache's device. Model shard m
+    projects its query heads; the query of every head, gathered over the
+    model shards, goes to each context shard c (from model shard c % M),
+    which writes the new token's K/V where it holds position ``lengths``
+    (``write_step_kv``) and attends its slice through kernel #3 with its
+    ``kv_start`` and log-sum-exp. The partials merge in shard order in
+    fp32 on model shard 0's device (``attention.merge_partials``), the
+    step's one cross-shard reduction of attention, before the
+    row-parallel ``wo``."""
+    a = h.attn
+    M, C = len(blocks), len(k_caches)
+    heads = _Heads(a.q_heads, a.n_kv_heads, M)
+    local = (None if M == 1 else dataclasses.replace(
+        a, n_heads=heads.per_shard, padded_heads=0))
+    qs, new = [], []
+    for m, (b, x) in enumerate(zip(blocks, xs)):
+        with on_device(x.device):
+            q, k, v = _attn_qkv(b, li, x, h, cos[m], sin[m], q_attn=local)
+        qs.append(q)
+        new.append((k, v))
+    qs = gather_from_shards(qs, 2)
+    capacity = sum(kc.shape[1] for kc in k_caches)
+    outs, lses = [], []
+    for c, (kc, vc, n) in enumerate(zip(k_caches, v_caches, lengths)):
+        dev = kc.device
+        q = qs[c % M].to(dev)
+        k, v = (t.to(dev) for t in new[c % M])
+        with on_device(dev):
+            if C == 1:
+                write_step_kv(kc, vc, k, v, n)
+                outs.append(attn_lib.decode_attention(
+                    q, kc, vc, a, kv_len=n + 1, window=window))
+                lses.append(None)
+                continue
+            write_step_kv(kc, vc, k, v, n, starts[c])
+            # the length clamped to the whole cache's capacity, as the
+            # unsplit kernel clamps it
+            o, lse = attn_lib.decode_attention(
+                q, kc, vc, a, kv_len=(n + 1).clamp(max=capacity),
+                window=window, kv_start=starts[c], return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    dev = xs[0].device
+    whole = attn_lib.merge_partials(
+        [o.to(dev) for o in outs],
+        [None if x is None else x.to(dev) for x in lses], xs[0].dtype)
+    hs = heads.per_shard
+    parts = []
+    for m, (b, x) in enumerate(zip(blocks, xs)):
+        o = whole.to(x.device)
+        if M > 1:
+            o = o[:, :, m * hs:(m + 1) * hs]
+        with on_device(x.device):
+            parts.append(attn_lib.attn_output(layer_params(b["attn"], li),
+                                              o))
+    return _residual_ffn([layer_params(b, li) for b in blocks], xs,
+                         reduce_from_shards(parts), h)[0]
+
+
 def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
                  lengths, cos, sin, window: Optional[int]):
-    """Single-token block ``li``. x (B,1,D); caches (B,Smax,Kv,hd) of this
-    layer; lengths (B,) tokens ALREADY cached (the new token lands at
-    ``lengths``, ``write_step_kv``)."""
-    q, k, v = _attn_qkv(blocks, li, x, h, cos, sin)
-    write_step_kv(k_cache, v_cache, k, v, lengths)
-    attn_out = attn_lib.decode_attention(q, k_cache, v_cache, h.attn,
-                                         kv_len=lengths + 1, window=window)
-    return _block_tail(layer_params(blocks, li), x, attn_out, h)[0]
+    """``block_decode_shards`` on one shard and one context shard: x
+    (B,1,D); caches (B,Smax,Kv,hd) of this layer; lengths (B,) tokens
+    ALREADY cached (the new token lands at ``lengths``,
+    ``write_step_kv``)."""
+    return block_decode_shards([blocks], li, [x], h, k_caches=[k_cache],
+                               v_caches=[v_cache], lengths=[lengths],
+                               cos=[cos], sin=[sin], window=window)[0]
 
 
 def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
@@ -488,20 +597,14 @@ def lm_train_forward_shards(ps: List[dict], tokens, h: LMHyper, *,
     (final_x (B,S,D) after the final norm on every shard, per layer each
     shard's ``routing_stats`` for a MoE stack, else Nones). Each block
     runs under ``remat``."""
-    M = len(ps)
     c = h.cfg
     B, S = tokens[0].shape
     positions = [torch.arange(S, device=t.device)[None, :].expand(B, S)
                  for t in tokens]
     tables = [rope_at(h.attn, pos, S) for pos in positions]
     cos, sin = [t[0] for t in tables], [t[1] for t in tables]
-    parts = [embed_tokens(p["embed"], t, scale=c.embedding_scale,
-                          d_model=c.d_model,
-                          first_row=(m * p["embed"]["table"].shape[0]
-                                     if M > 1 else None))
-             for m, (p, t) in enumerate(zip(ps, tokens))]
-    xs = [embed_extras(p, h, x, pos, S, pt) for p, x, pos, pt in zip(
-        ps, reduce_from_shards(parts), positions, patches or [None] * M)]
+    xs = embed_shards(ps, tokens, h, positions=positions, end=S,
+                      patches=patches)
     windows = layer_windows(h)
     per_layer = [unstack_layers(p["blocks"]) for p in ps]
     stats = []
@@ -530,21 +633,37 @@ def lm_train_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
 
 
 # ------------------------------------------------------------ full forward
+def embed_shards(ps: List[dict], tokens, h, *, positions=None, end=None,
+                 patches=None, scale: Optional[bool] = None):
+    """Token embeddings (B, S, D) on each of M model shards (one shard:
+    the whole table; M > 1: each table a slice of the vocabulary, the
+    lookups summed over the shards in shard order), plus the learned
+    positions at ``positions`` (B, S) per shard when the stack has them
+    (``end`` = ``positions.max() + 1``) and the patch embeddings
+    (B, n_vis, D) per shard or None in place of those of the first n_vis
+    positions. ``scale`` defaults to the config's ``embedding_scale``."""
+    c = h.cfg
+    M = len(ps)
+    scale = c.embedding_scale if scale is None else scale
+    parts = [embed_tokens(p["embed"], t, scale=scale, d_model=c.d_model,
+                          first_row=(m * p["embed"]["table"].shape[0]
+                                     if M > 1 else None))
+             for m, (p, t) in enumerate(zip(ps, tokens))]
+    return [embed_extras(p, h, x, pos, end, pt) for p, x, pos, pt in zip(
+        ps, reduce_from_shards(parts), positions or [None] * M,
+        patches or [None] * M)]
+
+
 def _embed_input(params: dict, h: LMHyper, tokens, positions, end: int,
                  patch_embeds=None):
-    """Token embeddings (B, S, D), plus the learned positions at
-    ``positions`` (B, S) when the stack has them (``end`` =
-    ``positions.max() + 1``); ``patch_embeds`` (B, n_vis, D) replace
-    those of the first n_vis positions."""
-    c = h.cfg
-    x = embed_tokens(params["embed"], tokens, scale=c.embedding_scale,
-                     d_model=c.d_model)
-    return embed_extras(params, h, x, positions, end, patch_embeds)
+    """``embed_shards`` on one shard."""
+    return embed_shards([params], [tokens], h, positions=[positions],
+                        end=end, patches=[patch_embeds])[0]
 
 
 def embed_extras(params: dict, h: LMHyper, x, positions, end: int,
                  patch_embeds=None):
-    """What ``_embed_input`` adds to the token embeddings x (B, S, D):
+    """What ``embed_shards`` adds to the token embeddings x (B, S, D):
     the learned positions, the patches, the cast to the model dtype."""
     c = h.cfg
     if not c.use_rope and "positions" in params["embed"]:
@@ -558,11 +677,83 @@ def embed_extras(params: dict, h: LMHyper, x, positions, end: int,
     return x.to(h.dtype)
 
 
+def final_logits_shards(ps: List[dict], xs, cfg: ArchConfig,
+                        softcap: Optional[float] = None):
+    """The final norm and each model shard's slice of the vocabulary's
+    logits (one shard: all of them), under its device."""
+    outs = []
+    for m, (p, x) in enumerate(zip(ps, xs)):
+        with on_device(x.device):
+            xn = apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+            n = (p["embed"]["unembed"].shape[1] if "unembed" in p["embed"]
+                 else p["embed"]["table"].shape[0])
+            outs.append(embed_logits(p["embed"], xn, softcap=softcap,
+                                     true_vocab=cfg.vocab_size,
+                                     first_col=m * n))
+    return outs
+
+
 def _final_logits(params: dict, x, h: LMHyper):
     c = h.cfg
-    x = apply_norm(params["final_norm"], x, c.norm, c.norm_eps)
-    return embed_logits(params["embed"], x, softcap=c.logit_softcap,
-                        true_vocab=c.vocab_size)
+    return final_logits_shards([params], [x], c, c.logit_softcap)[0]
+
+
+def _kept(x, sl: slice):
+    """Positions ``sl`` of x (B, S, ...): x itself when that is all of
+    it, else a copy, so that x can be freed."""
+    return x if sl == slice(None) else x[:, sl].clone()
+
+
+def lm_forward_shards(ps: List[dict], tokens, h: LMHyper, *, patches=None,
+                      hist_kv=None, hist_len: Optional[int] = None,
+                      capture_hidden: bool = False, emit_kv: bool = False,
+                      final_logits_only: bool = False,
+                      keep: Optional[List[slice]] = None) -> dict:
+    """Prefill forward over M model shards (one shard: ``lm_forward``):
+    ``ps`` each shard's parameters (the table a slice of the vocabulary
+    where M > 1), ``tokens`` (B,S) and ``patches`` (B,n_vis,D) or None per
+    shard on its device, ``hist_kv`` per shard a stacked (L,B,Sh,Kv,hd)
+    pair with ``hist_len`` live positions; the blocks are
+    ``block_forward_shards``. ``keep``: the positions whose K/V and
+    hidden states are emitted, one slice per context shard, slice c taken
+    on model shard c % M (default: all of them, once per model shard).
+    Returns dict(logits: per model shard; kv: per slice a (k, v) pair of
+    (L,B,s,Kv,hd) when ``emit_kv``; hidden: per slice (L,B,s,D) when
+    ``capture_hidden``; else None)."""
+    M = len(ps)
+    keep = keep or [slice(None)] * M
+    B, S = tokens[0].shape
+    base = 0 if hist_len is None else int(hist_len)
+    positions = [(base + torch.arange(S, device=t.device)[None, :])
+                 .expand(B, S) for t in tokens]
+    tables = [rope_at(h.attn, pos, base + S) for pos in positions]
+    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    xs = embed_shards(ps, tokens, h, positions=positions, end=base + S,
+                      patches=patches)
+    windows = layer_windows(h)
+    ks, vs, hidden = ([[] for _ in keep] for _ in range(3))
+    for li in range(h.cfg.n_layers):
+        if capture_hidden:
+            for c, sl in enumerate(keep):
+                hidden[c].append(_kept(xs[c % M], sl))
+        hkv = (None if hist_kv is None else
+               [(hk[li], hv[li]) for hk, hv in hist_kv])
+        xs, new = block_forward_shards(
+            [p["blocks"] for p in ps], li, xs, h, cos=cos, sin=sin,
+            window=windows[li], hist_kv=hkv, hist_len=hist_len)
+        if emit_kv:
+            for c, sl in enumerate(keep):
+                k, v = new[c % M]
+                ks[c].append(_kept(k, sl))
+                vs[c].append(_kept(v, sl))
+    if final_logits_only:
+        xs = [x[:, -1:] for x in xs]
+    return {"logits": final_logits_shards(ps, xs, h.cfg,
+                                          h.cfg.logit_softcap),
+            "kv": ([(torch.stack(k), torch.stack(v)) for k, v in zip(ks, vs)]
+                   if emit_kv else None),
+            "hidden": ([torch.stack(x) for x in hidden] if capture_hidden
+                       else None)}
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
@@ -570,59 +761,64 @@ def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
                hist_len: Optional[int] = None, capture_hidden: bool = False,
                emit_kv: bool = False,
                final_logits_only: bool = False) -> dict:
-    """Prefill forward. tokens (B,S) int; patch_embeds optional (B,n_vis,D)
-    in place of the first n_vis tokens' embeddings; hist_kv optional
-    restored history, a stacked (L,B,Sh,Kv,hd) pair, with ``hist_len``
-    live positions. Returns dict(logits, kv, hidden): kv a (k, v) pair of
-    (L,B,S,Kv,hd) when ``emit_kv``, hidden (L,B,S,D) when
-    ``capture_hidden``, else None. The training forward is
-    ``lm_train_forward``."""
-    B, S = tokens.shape
-    base = 0 if hist_len is None else int(hist_len)
-    positions = base + torch.arange(S, device=tokens.device)[None, :]
-    positions = positions.expand(B, S)
-    cos, sin = rope_at(h.attn, positions, base + S)
-    x = _embed_input(params, h, tokens, positions, base + S, patch_embeds)
+    """Prefill forward, ``lm_forward_shards`` on one shard. tokens (B,S)
+    int; patch_embeds optional (B,n_vis,D) in place of the first n_vis
+    tokens' embeddings; hist_kv optional restored history, a stacked
+    (L,B,Sh,Kv,hd) pair, with ``hist_len`` live positions. Returns
+    dict(logits, kv, hidden): kv a (k, v) pair of (L,B,S,Kv,hd) when
+    ``emit_kv``, hidden (L,B,S,D) when ``capture_hidden``, else None. The
+    training forward is ``lm_train_forward``."""
+    out = lm_forward_shards(
+        [params], [tokens], h, patches=[patch_embeds],
+        hist_kv=None if hist_kv is None else [hist_kv], hist_len=hist_len,
+        capture_hidden=capture_hidden, emit_kv=emit_kv,
+        final_logits_only=final_logits_only)
+    return {"logits": out["logits"][0],
+            "kv": out["kv"][0] if emit_kv else None,
+            "hidden": out["hidden"][0] if capture_hidden else None}
+
+
+def lm_decode_step_shards(ps: List[dict], tokens, h: LMHyper, *, k, v,
+                          lengths, starts=None):
+    """One decode step over M model shards (one shard: ``lm_decode_step``):
+    ``ps`` and ``tokens`` (B,1) per model shard, as
+    ``lm_forward_shards``; the cache over C context shards, ``k``/``v``
+    (L,B,Sc,Kv,hd) written in place, ``lengths`` (B,) and ``starts`` (B,)
+    per context shard on its cache's device (``block_decode_shards``).
+    Returns (logits (B,1,V/M) per model shard, hidden (L,B,1,D) per model
+    shard)."""
+    lens = [lengths[m].to(t.device) for m, t in enumerate(tokens)]
+    end = int(lens[0].max()) + 1
+    tables = [rope_at(h.attn, n[:, None], end) for n in lens]
+    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    xs = embed_shards(ps, tokens, h, positions=[n[:, None] for n in lens],
+                      end=end)
     windows = layer_windows(h)
-    blocks = params["blocks"]
-    ks, vs, hidden = [], [], []
+    hidden = [[] for _ in ps]
     for li in range(h.cfg.n_layers):
-        if capture_hidden:
-            hidden.append(x)
-        hkv = (None if hist_kv is None
-               else (hist_kv[0][li], hist_kv[1][li]))
-        x, (k, v) = block_forward(blocks, li, x, h, cos=cos, sin=sin,
-                                  window=windows[li], hist_kv=hkv,
-                                  hist_len=hist_len)
-        if emit_kv:
-            ks.append(k)
-            vs.append(v)
-    if final_logits_only:
-        x = x[:, -1:]
-    return {"logits": _final_logits(params, x, h),
-            "kv": (torch.stack(ks), torch.stack(vs)) if emit_kv else None,
-            "hidden": torch.stack(hidden) if capture_hidden else None}
+        for hs, x in zip(hidden, xs):
+            hs.append(x)
+        xs = block_decode_shards(
+            [p["blocks"] for p in ps], li, xs, h,
+            k_caches=[x[li] for x in k], v_caches=[x[li] for x in v],
+            lengths=lengths, starts=starts, cos=cos, sin=sin,
+            window=windows[li])
+    return (final_logits_shards(ps, xs, h.cfg, h.cfg.logit_softcap),
+            [torch.stack(x) for x in hidden])
 
 
 def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                    h: LMHyper):
-    """One decode step. cache: dict(k, v (L,B,Smax,Kv,hd), lengths (B,)).
-    tokens (B,1). Returns (logits (B,1,V), new cache, hidden (L,B,1,D)).
-    The new cache shares ``k``/``v`` with the old one, which this step
-    wrote into in place."""
+    """One decode step, ``lm_decode_step_shards`` on one shard. cache:
+    dict(k, v (L,B,Smax,Kv,hd), lengths (B,)). tokens (B,1). Returns
+    (logits (B,1,V), new cache, hidden (L,B,1,D)). The new cache shares
+    ``k``/``v`` with the old one, which this step wrote into in place."""
     lengths = cache["lengths"]
-    end = int(lengths.max()) + 1
-    cos, sin = rope_at(h.attn, lengths[:, None], end)
-    x = _embed_input(params, h, tokens, lengths[:, None], end)
-    windows = layer_windows(h)
-    hidden = []
-    for li in range(h.cfg.n_layers):
-        hidden.append(x)
-        x = block_decode(params["blocks"], li, x, h, k_cache=cache["k"][li],
-                         v_cache=cache["v"][li], lengths=lengths, cos=cos,
-                         sin=sin, window=windows[li])
+    logits, hidden = lm_decode_step_shards(
+        [params], [tokens], h, k=[cache["k"]], v=[cache["v"]],
+        lengths=[lengths])
     new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
-    return _final_logits(params, x, h), new_cache, torch.stack(hidden)
+    return logits[0], new_cache, hidden[0]
 
 
 def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,

@@ -44,9 +44,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.distributed.sharding import (Placed, ShardingRules,
-                                              default_rules, entry_axes,
-                                              gather_tree, mesh_coords,
-                                              place_tree, replica_of)
+                                              block_slices, default_rules,
+                                              entry_axes, gather_tree,
+                                              mesh_coords, place_tree,
+                                              replica_of)
 from repro_torch.distributed.tp import on_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tfm
@@ -169,8 +170,10 @@ class ShardedTrainer:
         if B % self.D:
             raise ValueError(f"a batch of {B} rows does not split over "
                              f"data={self.D}")
-        b = B // self.D
-        return {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
+        specs = self.model.train_batch_sharding(self.rules)
+        coord = self.coords[d * self.M]
+        return {k: v[block_slices(v.shape, specs[k], self.mesh, coord)]
+                for k, v in batch.items()}
 
     def _forward(self, trees, batch):
         """Per device root losses and the step's (ce, aux) parts."""
