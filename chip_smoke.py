@@ -244,16 +244,27 @@ Needs one CUDA GPU and the repository checkout around this file. It
      (``kv_start``, the lse)
      against its plain version at every slice shape the phase gave it,
      with rows ending before their slice and a window across its start;
- 13. checks that each path launched its kernels (counts reset before and
+ 13. the dry-run's counts (``launch/dryrun.py``, ``launch/
+     exec_cost.py``; last): llama2-7b cells in bf16 (DRYRUN_CELLS: a
+     prefill of 1 x 2048 and a restore of 2 x 2048 at full depth, one
+     decode step of 8 rows at 2048, a train step of 1 x 1024 at 2 layers
+     on 1x1; the same at 2 layers on 2x2, every shard on the card), each
+     run twice uncounted, then counted on the card and on meta devices:
+     per shard the same flops, bytes, collectives and kernel launches,
+     the counted launches the kernels' own, the counted peak within
+     DRYRUN_PEAK_REL of the allocator's; each cell's ms beside the
+     roofline's terms under ``H100_SXM``, in DRYRUN_BUDGET_S;
+ 14. checks that each path launched its kernels (counts reset before and
      read after each path; the restoration kernel's also by regime, the
      prefill kernel's by shape), then prints the seconds of each phase,
      the card, the kernels' JSON line and the device line last.
 
 ``--phases NAME[,NAME]`` runs only the named phases (of ``PHASES``:
 kernels, smoke, llama2-7b, mesh, qwen2-7b, gemma2-9b, moe-vlm, ssm,
-hybrid, encdec, train; default all), building only the models they use;
-the kernels' JSON line is printed only when the kernel checks ran. It is
-for iterating on one phase: a run that checks the port runs them all.
+hybrid, encdec, train, dryrun; default all), building only the models
+they use; the kernels' JSON line is printed only when the kernel checks
+ran. It is for iterating on one phase: a run that checks the port runs
+them all.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -515,9 +526,7 @@ def check_restore(card: str, gen):
         timer = (lambda f: time_ms(f, 20)) if large else graph_ms
         ms, lib_ms = timer(kern), timer(lib)
         del w_cat
-        flops = 2 * G * S * D * 2 * KV
-        nbytes = 2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV) \
-            + 2 * 4 * S * 64
+        flops, nbytes = rkv.restore_cost(G, S, D, KV, 128)
         bound_ms, bound_by = bound(flops, nbytes, card)
         plan = rkv.tile_plan(G, S, KV, 128)
         print(f"restore_kv_grouped G={G} S={S} D={D} KV={KV} hd=128 bf16 "
@@ -640,15 +649,15 @@ def paged_case(lens, Kv, G, hd, bs, MB, dtype, gen):
 
 
 def decode_cost(card, B, Kv, G, hd, lens, paged=False):
-    """(bound ms, bound_by, bytes) of one bf16 decode launch: q read and
-    the output written once, each row's live K and V read once, kv_len,
-    and for the pool one table entry per live 16-token page; 4 hd
-    operations per (query row, live key)."""
-    live = sum(lens) * Kv
-    nbytes = 2 * (2 * B * Kv * G * hd + 2 * live * hd) + 4 * B * Kv
-    if paged:
-        nbytes += 4 * sum(-(-n // 16) for n in lens)
-    return (*bound(4 * G * hd * live, nbytes, card), nbytes)
+    """(bound ms, bound_by, bytes) of one bf16 decode launch over B rows
+    of ``lens`` live keys, from the kernel's own formula
+    (``kernels/decode_attention.py::decode_cost``); for the pool one table
+    entry per live 16-token page."""
+    from repro_torch.kernels import decode_attention as dec
+    flops, nbytes = dec.decode_cost(
+        G, hd, [n for n in lens for _ in range(Kv)],
+        table_entries=sum(-(-n // 16) for n in lens) if paged else 0)
+    return (*bound(flops, nbytes, card), nbytes)
 
 
 # (hd, G) of the split checks: every G bucket of the kernel (1, 2, 4, 8,
@@ -967,15 +976,10 @@ def check_paged_decode(card: str, gen, shapes):
 
 def flash_band(offsets, kv_lens, Sq, window=None):
     """(query, key) pairs a causal prefill must visit: per query at
-    position p, keys below min(p + 1, kv_len), from p - window + 1."""
-    pairs = 0
-    for off, kl in zip(offsets, kv_lens):
-        for i in range(Sq):
-            p = off + i
-            hi = min(p + 1, kl)
-            lo = max(0, p - window + 1) if window else 0
-            pairs += max(hi - lo, 0)
-    return pairs
+    position p, keys below min(p + 1, kv_len), from p - window + 1
+    (``kernels/flash_attention.py::flash_pairs``)."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_pairs(offsets, kv_lens, Sq, window=window)
 
 
 def flash_case(B, Sq, Skv, H, Kv, hd, dtype, gen):
@@ -1014,10 +1018,11 @@ def sdpa_ms(F, q, k, v, hist):
 
 def flash_cost(card, B, Sq, Skv, H, Kv, hd, hist):
     """(bound ms, bound_by, flops, bytes) of a causal prefill of Sq new
-    tokens over hist of history: q read and out written once, K and V of
-    the Skv keys read once, 4 hd operations per visible (query, key)."""
-    flops = 4 * hd * H * B * flash_band([hist], [Skv], Sq)
-    nbytes = 2 * B * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8 * B
+    tokens over hist of history, from the kernel's own formula
+    (``kernels/flash_attention.py::flash_cost``)."""
+    from repro_torch.kernels import flash_attention as fa
+    flops, nbytes = fa.flash_cost(B, Sq, Skv, H, Kv, hd, offsets=[hist] * B,
+                                  kv_lens=[Skv] * B)
     return (*bound(flops, nbytes, card), flops, nbytes)
 
 
@@ -1211,10 +1216,8 @@ def time_model_shapes(card):
         w_cat = torch.cat([args[1], args[2]], -1)
         ms = time_ms(lambda: rkv.restore_kv_grouped_cuda(*args, **kw), 20)
         lib_ms = time_ms(lambda: torch.matmul(args[0], w_cat), 20)
-        bound_ms, bound_by = bound(
-            2 * G * S * D * 2 * KV,
-            2 * (G * S * D + 2 * G * D * KV + 2 * G * S * KV
-                 + (2 * G * KV if bias else 0)) + 2 * 4 * S * hd // 2, card)
+        bound_ms, bound_by = bound(*rkv.restore_cost(
+            G, S, D, KV, hd, bias=bias, rope=kw["use_rope"]), card)
         print(f"{name} G={G} S={S} D={D} KV={KV} hd={hd} bias={bias} "
               f"rope={kw['use_rope']} bf16: "
               f"max_abs_err {err:.3g}, rows alone bitwise equal; kernel "
@@ -1299,8 +1302,8 @@ def time_model_shapes(card):
         mask = (kj <= qi) & ((kj > qi - window) if window else True)
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask), n=10)
-        flops = 4 * hd * H * flash_band([hist], [Skv], Sq, window)
-        nbytes = 2 * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8
+        flops, nbytes = fa.flash_cost(1, Sq, Skv, H, Kv, hd, offsets=[hist],
+                                      kv_lens=[Skv], window=window)
         bound_ms, bound_by = bound(flops, nbytes, card)
         print(f"flash {name} H={H} Kv={Kv} hd={hd} window={window} "
               f"softcap={cap} bf16: max_abs_err {err:.3g}, deterministic; "
@@ -4186,7 +4189,7 @@ def recorded_flash_shapes(fn, shapes: dict, phase: str):
     autograd = ops.flash_attention_autograd
 
     def spy(q, k, v, q_offset, kv_len, *, causal=True, softcap=None,
-            window=None):
+            window=None, host_lens=None):
         key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
                causal, softcap, window)
         e = shapes.setdefault(key, {"launches": 0, "phases": [],
@@ -4198,7 +4201,7 @@ def recorded_flash_shapes(fn, shapes: dict, phase: str):
             e["phases"].append(phase)
         e["other_lens"] |= (q_offset != 0).any() | (kv_len != k.shape[1]).any()
         return autograd(q, k, v, q_offset, kv_len, causal=causal,
-                        softcap=softcap, window=window)
+                        softcap=softcap, window=window, host_lens=host_lens)
 
     ops.flash_attention_autograd = spy
     try:
@@ -5577,8 +5580,143 @@ def run_training_phases(card, drive, phase_s, counts, kernels):
               for a, r in families.items()))
 
 
+# the dry-run phase: llama2-7b cells counted on the card and on meta
+# devices (kind, sequence, batch, layers (None: all 32), mesh); the 2x2
+# prefill and train take 2 rows, so the batch splits over its data axis
+DRYRUN_ARCH = "llama2-7b"
+DRYRUN_CELLS = (("prefill", 2048, 1, None, (1, 1)),
+                ("restore", 2048, 2, None, (1, 1)),
+                ("decode", 2048, 8, None, (1, 1)),
+                ("train", 1024, 1, 2, (1, 1)),
+                ("prefill", 2048, 2, 2, (2, 2)),
+                ("restore", 2048, 2, 2, (2, 2)),
+                ("decode", 2048, 8, 2, (2, 2)),
+                ("train", 1024, 2, 2, (2, 2)))
+DRYRUN_PEAK_REL = 0.20      # counted peak against the allocator's
+DRYRUN_BUDGET_S = 25.0
+# what must be equal between a count on the card and one on meta
+DRYRUN_KEYS = ("flops", "bytes", "bytes_all", "collectives", "launches")
+
+
+def run_dryrun_phase(card):
+    """The dry-run's counts on the card (``launch/dryrun.py``,
+    ``launch/exec_cost.py``): each DRYRUN_CELLS cell of DRYRUN_ARCH in
+    bf16, every shard on cuda:0, run twice uncounted (the second timed),
+    then once counted, then counted on meta devices. Gates: per shard, flops,
+    bytes, bytes_all, collectives and kernel launches equal between the
+    card and meta; the counted launches equal those the kernels made; the
+    counted peak (arguments and live storages) within DRYRUN_PEAK_REL of
+    ``torch.cuda.max_memory_allocated`` over the same run. Prints each
+    cell's ms beside the roofline's compute and memory terms under
+    ``H100_SXM`` and the ms as a multiple of the larger."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.config.hardware import H100_SXM
+    from repro_torch.config.shapes import SHAPES_BY_NAME
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_mesh
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import restore_kv as rkv
+    from repro_torch.kernels import ssm_update as ssu
+
+    def read():
+        return {"restore_kv_grouped": rkv.launches,
+                "decode_attention": dec.launches,
+                "decode_attention_paged": dec.paged_launches,
+                "flash_attention": fa.launches, "ssm_update": ssu.launches}
+
+    base_shapes = {"prefill": "prefill_32k", "restore": "restore_32k",
+                   "decode": "decode_32k", "train": "train_4k"}
+    rows = []
+    for kind, seq, batch, layers, ms in DRYRUN_CELLS:
+        cfg = get_arch(DRYRUN_ARCH)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shape = dataclasses.replace(SHAPES_BY_NAME[base_shapes[kind]],
+                                    seq_len=seq, global_batch=batch)
+        n = ms[0] * ms[1]
+        name = (f"{DRYRUN_ARCH} {kind} {batch}x{seq} "
+                f"{cfg.n_layers}L {ms[0]}x{ms[1]}")
+        counts = {}
+        with torch.set_grad_enabled(kind == "train"):
+            base = torch.cuda.memory_allocated()
+            mesh = make_mesh(ms, ("data", "model"), ["cuda:0"] * n)
+            fn, args = dryrun.build_cell(mesh, cfg, shape, device="cuda")
+            # a warm-up run, then a timed one (a decode step rewrites the
+            # same slot, a train step leaves its input state as it was)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            before = read()
+            counts["cuda"] = dryrun.count_program(fn, args, n)
+            torch.cuda.synchronize()
+            made = {k: v - before[k] for k, v in read().items()
+                    if v - before[k]}
+            peak = torch.cuda.max_memory_allocated() - base
+            del fn, args
+            counts["cuda"].pop("outputs")
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts["meta"] = dryrun.count_cell(
+                make_mesh(ms, ("data", "model"), ["meta"] * n), cfg, shape,
+                device="meta")
+            counts["meta"].pop("outputs")
+        c, m = counts["cuda"], counts["meta"]
+        for key in DRYRUN_KEYS:
+            if c[key] != m[key] or c["per_shard"][key] != m["per_shard"][key]:
+                raise AssertionError(f"dryrun {name}: {key} counted on the "
+                                     f"card {c['per_shard'][key]} and on "
+                                     f"meta {m['per_shard'][key]}")
+        if c["total"]["launches"] != made:
+            raise AssertionError(f"dryrun {name}: counted launches "
+                                 f"{c['total']['launches']}, the kernels "
+                                 f"made {made}")
+        counted_peak = c["total"]["peak_memory"]
+        if abs(counted_peak - peak) > DRYRUN_PEAK_REL * peak:
+            raise AssertionError(f"dryrun {name}: counted peak "
+                                 f"{counted_peak / 1e9:.3f} GB against "
+                                 f"{peak / 1e9:.3f} GB allocated")
+        rep = roofline.analyze(cfg, shape, mesh_name=f"{ms[0]}x{ms[1]}",
+                               chips=n, flops_per_device=c["flops"],
+                               bytes_per_device=c["bytes"],
+                               coll_breakdown=c["collectives"], hw=H100_SXM)
+        floor_ms = max(rep.compute_s, rep.memory_s) * 1e3
+        print(f"dryrun {name}: {wall_ms:.1f} ms measured (a warm run, "
+              f"uncounted); counted per device {c['flops'] / 1e12:.3f} "
+              f"TFLOP, {c['bytes'] / 1e9:.3f} GB, collectives "
+              f"{c['collectives']}, launches {c['total']['launches']} "
+              f"(equal to the kernels' and to meta's, per shard); roofline "
+              f"under H100_SXM compute {rep.compute_s * 1e3:.3f} ms, memory "
+              f"{rep.memory_s * 1e3:.3f} ms: measured {wall_ms / floor_ms:.1f}"
+              f"x the larger; peak counted {counted_peak / 1e9:.3f} GB, "
+              f"allocated {peak / 1e9:.3f} GB; counted in "
+              f"{c['count_s']:.2f} s on the card, {m['count_s']:.2f} s on "
+              f"meta ({card})")
+        rows.append({"cell": name, "ms": wall_ms, "flops": c["flops"],
+                     "bytes": c["bytes"], "collectives": c["collectives"],
+                     "launches": c["total"]["launches"],
+                     "compute_ms": rep.compute_s * 1e3,
+                     "memory_ms": rep.memory_s * 1e3,
+                     "multiple": wall_ms / floor_ms,
+                     "peak_counted": counted_peak, "peak_allocated": peak})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 PHASES = ("kernels", "smoke", "llama2-7b", "mesh", "qwen2-7b", "gemma2-9b",
-          "moe-vlm", "ssm", "hybrid", "encdec", "train")
+          "moe-vlm", "ssm", "hybrid", "encdec", "train",
+          "dryrun")
 
 
 def parse_phases(argv) -> set:
@@ -5826,6 +5964,15 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
     if want("train"):
         run_training_phases(card, drive, phase_s, counts, kernels)
+    dryrun_rows = []
+    if want("dryrun"):
+        dryrun_rows = drive("dryrun", lambda: run_dryrun_phase(card),
+                            ("restore_kv_grouped", "decode_attention",
+                             "flash_attention"))
+        print(f"dryrun: {phase_s['dryrun']:.1f} s ({card})"
+              + (f", over its budget of {DRYRUN_BUDGET_S:.0f} s"
+                 if phase_s["dryrun"] > DRYRUN_BUDGET_S else
+                 f", inside its budget of {DRYRUN_BUDGET_S:.0f} s"))
     if kernels:
         for k in kernels:
             k["launches"] = counts.get(k["name"], 0)
@@ -5846,6 +5993,8 @@ def main(argv=None) -> None:
     elif want("mesh"):
         print(json.dumps({"mesh_runs": mesh_rows,
                           "mesh_slices": mesh_slices}))
+    if dryrun_rows:
+        print(json.dumps({"dryrun": dryrun_rows}))
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; {time.perf_counter() - t_start:.1f} s in all")

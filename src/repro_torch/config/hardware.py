@@ -1,8 +1,15 @@
 """Hardware profiles.
 
-The HCache cost model / bubble-free scheduler needs (FLOPS, host-link BW,
-storage BW) tuples. The port plans with the paper's own GPU platforms
-(Table 2); ``PAPER_H800`` is the Hopper profile the manager defaults to.
+Two uses:
+  1. The HCache cost model / bubble-free scheduler needs (FLOPS,
+     host-link BW, storage BW) tuples. The port plans with the paper's
+     own GPU platforms (Table 2); ``PAPER_H800`` is the Hopper profile the
+     manager defaults to.
+  2. The roofline of a counted cell (``launch/roofline.py``):
+     ``H100_SXM``, the datasheet peaks of the card the port runs on, is
+     its default; ``TPU_V5E`` is the JAX package's roofline target, kept
+     so the two rooflines can be held against each other. Neither is in
+     ``PROFILES``, the planner's choices.
 """
 from __future__ import annotations
 
@@ -78,6 +85,15 @@ PAPER_L20 = HardwareProfile("l20", 120e12, 864 * GB, 64 * GB, 32 * GB,
                             4 * 6.9 * GB, 48 * GB)
 PAPER_H800 = HardwareProfile("h800", 990e12, 3350 * GB, 400 * GB, 64 * GB,
                              4 * 6.9 * GB, 80 * GB)
+
+# --- roofline targets (not planner profiles) --------------------------------
+# NVIDIA H100 SXM 80GB: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM3, NVLink
+# 450 GB/s per direction, 80 GB
+H100_SXM = HardwareProfile("h100_sxm", 989e12, 3.35e12, 450 * GB,
+                           64 * GB, 4 * 6.9 * GB, 80 * GB)
+# the JAX package's roofline target
+TPU_V5E = HardwareProfile("tpu_v5e", 197e12, 819 * GB, 50 * GB, 32 * GB,
+                          4 * 6.9 * GB, 16 * GB)
 
 PROFILES = {p.name: p for p in
             (PAPER_A100, PAPER_A30, PAPER_4090, PAPER_L20, PAPER_H800)}

@@ -21,6 +21,16 @@ from repro_torch.configs.starcoder2_15b import CONFIG as STARCODER2_15B
 from repro_torch.configs.whisper_medium import CONFIG as WHISPER_MEDIUM
 from repro_torch.configs.zamba2_2p7b import CONFIG as ZAMBA2_2P7B
 
+# the dry-run's assigned grid (``launch/dryrun.py``), in the JAX
+# package's order
+ASSIGNED: Dict[str, ArchConfig] = {
+    c.name: c for c in (
+        WHISPER_MEDIUM, ZAMBA2_2P7B, QWEN2_7B, STARCODER2_15B, GEMMA2_9B,
+        QWEN2P5_14B, GRANITE_MOE_1B, GROK1_314B, INTERNVL2_26B,
+        FALCON_MAMBA_7B,
+    )
+}
+
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (LLAMA2_7B, LLAMA2_13B, OPT_30B, FALCON_MAMBA_7B,
                         QWEN2_7B, QWEN2P5_14B, STARCODER2_15B, GEMMA2_9B,

@@ -8,8 +8,10 @@ functions run over shard lists (``transformer.lm_forward_shards``,
 ``lm_decode_step_shards``, ``ssm.ssm_forward_shards``,
 ``ssm_decode_step_shards``, of which the plain calls are the one-shard
 case), and ``MeshServer`` places their inputs and outputs for an explicit
-``Mesh`` (axes ("data", "model"), ``launch/mesh.py``) under
-``ShardingRules`` (``distributed/sharding.py``), one part per device.
+``Mesh`` (axes ("data", "model"), or ("pod", "data", "model") with the
+batch over ("pod", "data") as one data axis in pod-major order;
+``launch/mesh.py``) under ``ShardingRules`` (``distributed/sharding.py``),
+one part per device.
 
   weights   placed by the rules (``place_params``): query heads
             (``qkv_out``), ``o_in``, ``d_ff`` and ``vocab`` over model;
@@ -18,6 +20,7 @@ case), and ``MeshServer`` places their inputs and outputs for an explicit
             model shard projects K/V of all heads, an M-fold repeat of
             that product (ROADMAP.md)
   batch     by ``Model.prefill_batch_sharding``: rows over ``data``
+            (over ("pod", "data") on a pod mesh)
   prefill   per data shard, ``lm_forward_shards`` over its model shards;
             the emitted K/V and the captured hidden states keep each
             shard's context slice: they come out in the cache's layout
@@ -39,12 +42,16 @@ case), and ``MeshServer`` places their inputs and outputs for an explicit
             apply_mamba1_shards``)
 
 With ``long_context`` (``default_rules(mesh, long_context=True)``) the
-context goes over (data, model), C = D·M shards, and the batch is
+context goes over (pod, data, model), C = D·M shards, and the batch is
 replicated: each data shard prefills the same rows and keeps its slices;
 a decode step runs once, on data shard 0's model shards over all C
 context shards, and the other data shards hold copies of its results.
 
-On a 1x1 mesh each program is the plain ``Model`` call, bit for bit.
+On a 1x1 mesh each program is the plain ``Model`` call, bit for bit. A
+count of a program (``launch/exec_cost.py``) attributes each data
+shard's work to its shards (``exec_cost.shards``), and the callers that
+know the decode lengths on the host (``launch/dryrun.py::build_cell``)
+pass them, so a counted run reads no value back from the device.
 Refused, with a message that names ROADMAP.md: the hybrid and enc-dec
 families, ``fsdp_rules``, ``seq_shard``, and rules that put the other
 axes elsewhere.
@@ -58,11 +65,12 @@ import torch
 
 from repro_torch.distributed.sharding import (Placed, ShardingRules,
                                               _tree_map, block_slices,
-                                              default_rules, entry_axes,
-                                              mesh_coords, place_tree,
-                                              replica_of)
+                                              data_axes_of, default_rules,
+                                              entry_axes, mesh_coords,
+                                              place_tree, replica_of)
 from repro_torch.distributed.tp import on_device
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch import exec_cost
+from repro_torch.launch.mesh import Mesh, check_axes
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers.embedding import padded_vocab
@@ -74,9 +82,10 @@ MODEL_AXES = ("qkv_out", "o_in", "d_ff", "vocab", "heads")
 SSM_AXES = ("ssm_inner",)
 
 
-def refuse(model, rules: ShardingRules, M: int) -> None:
+def refuse(model, rules: ShardingRules, M: int,
+           data: tuple = ("data",)) -> None:
     """Raise a ``ValueError`` naming ROADMAP.md for what the mesh
-    programs do not implement."""
+    programs do not implement; ``data`` the mesh's data axes."""
     r = rules.rules
     if not model.adapter.supports_mesh:
         raise ValueError(f"{model.cfg.name}: mesh serving of the "
@@ -88,7 +97,7 @@ def refuse(model, rules: ShardingRules, M: int) -> None:
         raise ValueError(f"weights sharded over fsdp={r['fsdp']!r} "
                          f"(fsdp_rules) {UNPORTED}")
     layout = (entry_axes(r.get("batch")), entry_axes(r.get("kv_seq")))
-    if layout not in ((("data",), ("model",)), ((), ("data", "model"))):
+    if layout not in ((data, ("model",)), ((), (*data, "model"))):
         raise ValueError(f"the batch over {layout[0]} and the context over "
                          f"{layout[1]} {UNPORTED}: the default rules and "
                          "long_context are")
@@ -127,18 +136,18 @@ def _first_copies(placed: Placed):
 class MeshServer:
     """``model``'s serving programs over ``mesh`` under ``rules`` (default
     ``default_rules(mesh)``). An lm model whose heads need padding must be
-    built with ``model_axis`` equal to the mesh's model axis."""
+    built with ``model_axis`` equal to the mesh's model axis. D counts
+    the data shards (pod x data on a pod mesh)."""
 
     def __init__(self, model, mesh: Mesh,
                  rules: Optional[ShardingRules] = None):
-        if tuple(mesh.axis_names) != ("data", "model"):
-            raise ValueError(f"a serving mesh has axes ('data', 'model'), "
-                             f"not {mesh.axis_names}")
+        check_axes(mesh, "a serving mesh")
         self.model = model
         self.mesh = mesh
         self.rules = rules or default_rules(mesh)
-        self.D, self.M = mesh.shape["data"], mesh.shape["model"]
-        refuse(model, self.rules, self.M)
+        self.M = mesh.shape["model"]
+        self.D = mesh.size // self.M
+        refuse(model, self.rules, self.M, data_axes_of(mesh))
         self.long_context = entry_axes(self.rules.rules["batch"]) == ()
         # context shards: M per data shard, or D·M over the whole mesh
         self.C = self.D * self.M if self.long_context else self.M
@@ -294,18 +303,21 @@ class MeshServer:
             keep = (None if self.C == 1 else
                     [self._block(hshape, self.hidden_spec, r)[2]
                      for r in ranks])
-            if lm:
-                pts = ([self._batch_part("patches", batch["patches"], r)
-                        for r in ranks] if "patches" in batch else None)
-                out = tfm.lm_forward_shards(
-                    ps, toks, h, patches=pts, capture_hidden=capture_hidden,
-                    emit_kv=True, final_logits_only=True, keep=keep)
-                pairs = out["kv"]
-            else:
-                out = ssm_lib.ssm_forward_shards(
-                    ps, toks, h, capture_hidden=capture_hidden,
-                    emit_state=True, final_logits_only=True, keep=keep)
-                pairs = out["states"]
+            with exec_cost.shards(ranks[0]):
+                if lm:
+                    pts = ([self._batch_part("patches", batch["patches"],
+                                             r) for r in ranks]
+                           if "patches" in batch else None)
+                    out = tfm.lm_forward_shards(
+                        ps, toks, h, patches=pts,
+                        capture_hidden=capture_hidden, emit_kv=True,
+                        final_logits_only=True, keep=keep)
+                    pairs = out["kv"]
+                else:
+                    out = ssm_lib.ssm_forward_shards(
+                        ps, toks, h, capture_hidden=capture_hidden,
+                        emit_state=True, final_logits_only=True, keep=keep)
+                    pairs = out["states"]
             for i, r in enumerate(ranks):
                 logits[r] = out["logits"][i]
                 first[r], second[r] = pairs[i]
@@ -354,11 +366,11 @@ class MeshServer:
             sl = hidden.block(self.coords[r])
             b, s = sl[1].stop - sl[1].start, sl[2].stop - sl[2].start
             dev = part.device
-            pos = torch.arange(sl[2].start, sl[2].stop,
-                               device=dev)[None, :].expand(b, s)
-            with on_device(dev):
+            with on_device(dev, r):
+                pos = torch.arange(sl[2].start, sl[2].stop,
+                                   device=dev)[None, :].expand(b, s)
                 k, v = tfm.lm_restore_kv(mp.local[r], part, self.model.h,
-                                         positions=pos)
+                                         positions=pos, end=sl[2].stop)
             ks.append(k)
             vs.append(v)
         shape = (L, B, S, c.n_kv_heads, c.head_dim_)
@@ -378,32 +390,45 @@ class MeshServer:
         return [(self._ranks(d), self._ranks(d)) for d in range(self.D)]
 
     def decode_step(self, mp: MeshParams, cache: dict,
-                    tokens: torch.Tensor):
+                    tokens: torch.Tensor, host_lengths=None):
         """The reference's ``serve_decode`` (``decode_step_full``): one
         token per row, ``tokens`` (B, 1) whole on any device, ``cache`` as
         ``place_cache`` gives it (written in place), each data shard's
         step ``transformer.lm_decode_step_shards`` over its model shards
         and its rows' context shards (``ssm.ssm_decode_step_shards`` over
-        its ``ssm_inner`` shards). Returns (logits ``Placed`` (B, 1, V),
-        the new cache, hidden ``Placed`` (L, B, 1, D) as ("layers",
-        "batch", None, "d_model"))."""
+        its ``ssm_inner`` shards). ``host_lengths`` (B,): the cache's
+        lengths on the host, where the caller knows them (then the step
+        reads none back from the device). Returns (logits ``Placed`` (B,
+        1, V), the new cache, hidden ``Placed`` (L, B, 1, D) as
+        ("layers", "batch", None, "d_model"))."""
         logits, hidden = {}, {}
         for ranks, ctx in self._streams():
             ps = [mp.local[r] for r in ranks]
             toks = [self._batch_part("tokens", tokens, r) for r in ranks]
-            if self.model.kind == "lm":
-                kc, vc = cache["k"], cache["v"]
-                lg, hid = tfm.lm_decode_step_shards(
-                    ps, toks, self.model.h, k=[kc.parts[r] for r in ctx],
-                    v=[vc.parts[r] for r in ctx],
-                    lengths=[cache["lengths"].parts[r] for r in ctx],
-                    starts=(None if len(ctx) == 1 else
-                            [self._start(kc, r) for r in ctx]))
-            else:
-                lg, hid = ssm_lib.ssm_decode_step_shards(
-                    ps, toks, self.model.h,
-                    conv=[cache["conv"].parts[r] for r in ranks],
-                    ssm=[cache["ssm"].parts[r] for r in ranks])
+            with exec_cost.shards(ranks[0]):
+                if self.model.kind == "lm":
+                    kc, vc = cache["k"], cache["v"]
+                    host = None
+                    if host_lengths is not None:
+                        rows = self._block((tokens.shape[0],),
+                                           self.cache_specs["lengths"],
+                                           ranks[0])[0]
+                        host = [int(n) for n in list(host_lengths)[rows]]
+                    lg, hid = tfm.lm_decode_step_shards(
+                        ps, toks, self.model.h,
+                        k=[kc.parts[r] for r in ctx],
+                        v=[vc.parts[r] for r in ctx],
+                        lengths=[cache["lengths"].parts[r] for r in ctx],
+                        starts=(None if len(ctx) == 1 else
+                                [self._start(kc, r) for r in ctx]),
+                        host_lengths=host,
+                        host_starts=[self._block(kc.shape, kc.spec, r)[2]
+                                     .start for r in ctx])
+                else:
+                    lg, hid = ssm_lib.ssm_decode_step_shards(
+                        ps, toks, self.model.h,
+                        conv=[cache["conv"].parts[r] for r in ranks],
+                        ssm=[cache["ssm"].parts[r] for r in ranks])
             for r, x, y in zip(ranks, lg, hid):
                 logits[r], hidden[r] = x, y
         c = self.model.cfg
@@ -413,10 +438,17 @@ class MeshServer:
         for r in order:
             if r not in logits:
                 dev = self.devices[r]
-                logits[r] = logits[r % self.M].to(dev)
-                hidden[r] = hidden[r % self.M].to(dev)
-        new_len = self._placed([cache["lengths"].parts[r] + 1 for r in order],
-                               ("batch",), (B,))
+                exec_cost.report_collective(
+                    "collective-permute",
+                    [(logits[r % self.M], hidden[r % self.M])], [r])
+                with exec_cost.at(r):
+                    logits[r] = logits[r % self.M].to(dev)
+                    hidden[r] = hidden[r % self.M].to(dev)
+        new = []
+        for r in order:
+            with exec_cost.at(r):
+                new.append(cache["lengths"].parts[r] + 1)
+        new_len = self._placed(new, ("batch",), (B,))
         return (self._placed([logits[r] for r in order],
                              ("batch", None, "vocab"), (B, 1, self._vocab())),
                 dict(cache, lengths=new_len),

@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
+
+from repro_torch.launch import exec_cost
 
 TP_AXIS = "model"
 
@@ -93,11 +95,23 @@ class Sharded:
         return torch.cat([p.to(dev) for p in self.parts], self.axis)
 
 
-def on_device(device: torch.device):
+def on_device(device: torch.device, shard: Optional[int] = None):
     """Make ``device`` current for a launch on it (a kernel's stream
-    belongs to its device)."""
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
+    belongs to its device); ``shard``: the index of the shard whose work
+    runs inside, counted from the data shard's first
+    (``launch/exec_cost.py::shard``), for a count of a mesh whose shards
+    share a device (outside a count it costs nothing)."""
+    ctx = (torch.cuda.device(device) if device.type == "cuda"
+           else contextlib.nullcontext())
+    if shard is None or exec_cost.active() is None:
+        return ctx
+    return _counted(ctx, shard)
+
+
+@contextlib.contextmanager
+def _counted(ctx, shard: int):
+    with ctx, exec_cost.shard(shard):
+        yield
 
 
 def gathered(x, device=None):

@@ -144,6 +144,40 @@ def slice_range(kv_len: int, smax: int, window: Optional[int] = None,
     return max(wlo - start, 0), min(n - start, smax)
 
 
+def live_keys(kv_len, smax: int, window: Optional[int] = None,
+              kv_start=None) -> List[int]:
+    """Each row's count of live keys in its cache of ``smax`` slots
+    (``slice_range``), from host lengths (and slice starts: one int for
+    every row, or one per row)."""
+    if kv_start is None or isinstance(kv_start, int):
+        starts = [kv_start] * len(kv_len)
+    else:
+        starts = list(kv_start)
+    return [max(hi - lo, 0) for lo, hi in
+            (slice_range(n, smax, window, s) for n, s in zip(kv_len, starts))]
+
+
+def decode_cost(G: int, hd: int, live: List[int], *, elem_bytes: int = 2,
+                table_entries: int = 0, return_lse: bool = False,
+                kv_start: bool = False) -> Tuple[int, int]:
+    """(operations, bytes) of one launch over ``len(live)`` rows with
+    ``live[r]`` live keys each: 4·hd operations per (query row, live key)
+    (two products at 2 per multiply-add); q read and the output written
+    once (fp32 with the lse, which is written too), each row's live K and
+    V read once, kv_len (and kv_start) read once, and for a paged pool
+    ``table_entries`` block-table entries."""
+    rows, n = len(live), sum(live)
+    flops = 4 * G * hd * n
+    out_bytes = 4 if return_lse else elem_bytes
+    nbytes = (elem_bytes * (rows * G * hd + 2 * n * hd)
+              + out_bytes * rows * G * hd + 4 * rows + 4 * table_entries)
+    if return_lse:
+        nbytes += 4 * rows * G
+    if kv_start:
+        nbytes += 4 * rows
+    return flops, nbytes
+
+
 def decode_attention_plain(q, k, v, kv_len, *,
                            softcap: Optional[float] = None,
                            window: Optional[int] = None, kv_start=None,

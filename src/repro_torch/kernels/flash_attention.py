@@ -27,7 +27,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,6 +145,42 @@ def flash_plan(B: int, Sq: int, Skv: int, H: int, Kv: int,
                      head_blocks=head_blocks, splits=splits,
                      split_keys=tps * bn,
                      grid=(B * Kv, q_tiles * head_blocks * splits))
+
+
+@functools.lru_cache(maxsize=4096)
+def _pairs_one(off: int, kv_len: int, Sq: int, causal: bool,
+               window: Optional[int]) -> int:
+    import numpy as np
+    p = off + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(p + 1, kv_len) if causal else np.full(Sq, kv_len)
+    lo = (np.maximum(p - window + 1, 0) if window
+          else np.zeros(Sq, np.int64))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_pairs(offsets, kv_lens, Sq: int, *, causal: bool = True,
+                window: Optional[int] = None) -> int:
+    """(query, key) pairs the kernel must visit over the batch: query i
+    of batch b at position p = offsets[b] + i sees the keys below
+    min(p + 1, kv_lens[b]) (below kv_lens[b] when not ``causal``), from
+    p - window + 1 with a ``window``."""
+    return sum(_pairs_one(int(o), int(k), int(Sq), bool(causal),
+                          None if not window else int(window))
+               for o, k in zip(offsets, kv_lens))
+
+
+def flash_cost(B: int, Sq: int, Skv: int, H: int, Kv: int, hd: int, *,
+               offsets, kv_lens, causal: bool = True,
+               window: Optional[int] = None,
+               elem_bytes: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one launch: 4·hd operations per head and
+    visible (query, key) pair (``flash_pairs``; two products at 2 per
+    multiply-add); q read and the output written once, K and V of the
+    Skv keys read once, q_offset and kv_len read once."""
+    flops = 4 * hd * H * flash_pairs(offsets, kv_lens, Sq, causal=causal,
+                                     window=window)
+    nbytes = elem_bytes * B * (2 * Sq * H * hd + 2 * Skv * Kv * hd) + 8 * B
+    return flops, nbytes
 
 
 def flash_attention_plain(q, k, v, q_offset, kv_len, *, causal: bool = True,
@@ -331,7 +367,8 @@ def _backward_rows(B: int, H: int, Skv: int) -> int:
 def flash_attention_backward_plain(q, k, v, dout, q_offset, kv_len, *,
                                    causal: bool = True,
                                    softcap: Optional[float] = None,
-                                   window: Optional[int] = None):
+                                   window: Optional[int] = None,
+                                   host_lens=None):
     """dq, dk, dv of ``flash_attention`` (the exact softmax attention its
     kernel computes) for the output cotangent ``dout`` (B, Sq, H, hd), in
     plain PyTorch: the softmax probabilities are recomputed from q and k
@@ -339,7 +376,9 @@ def flash_attention_backward_plain(q, k, v, dout, q_offset, kv_len, *,
     all-heads (Sq, Skv) matrix is held at once; each block reads only the
     keys its rows can see. dk/dv sum over the query heads of each kv head
     (GQA); a row that sees no key gets zero gradient, as its output is
-    zero. Returns tensors in q's, k's and v's dtypes."""
+    zero. ``host_lens``: (q_offset, kv_len) on the host, each an int for
+    the batch or one per row (read from the tensors when None). Returns
+    tensors in q's, k's and v's dtypes."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     g = H // Kv
@@ -349,8 +388,13 @@ def flash_attention_backward_plain(q, k, v, dout, q_offset, kv_len, *,
     dog = dout.reshape(B, Sq, Kv, g, hd)
     qo = q_offset.to(dev).long()
     kl = kv_len.to(dev).long()
-    qo_lo, qo_hi = int(qo.min()), int(qo.max())
-    kl_hi = min(int(kl.max()), Skv)
+    if host_lens is None:
+        qo_lo, qo_hi = int(qo.min()), int(qo.max())
+        kl_hi = min(int(kl.max()), Skv)
+    else:
+        hq, hk = ([x] if isinstance(x, int) else list(x) for x in host_lens)
+        qo_lo, qo_hi = min(hq), max(hq)
+        kl_hi = min(max(hk), Skv)
     dq = torch.zeros((B, Sq, Kv, g, hd), dtype=torch.float32, device=dev)
     dk = torch.zeros((B, Skv, Kv, hd), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
@@ -399,19 +443,24 @@ class FlashAttentionFn(torch.autograd.Function):
     and kv_len get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kv_len, causal, softcap, window):
-        fn = (flash_attention_cuda if q.device.type == "cuda"
-              else flash_attention_plain)
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, softcap, window,
+                host_lens=None):
+        from repro_torch.kernels import ops
+        from repro_torch.launch import exec_cost
         ctx.save_for_backward(q, k, v, q_offset, kv_len)
-        ctx.mask = (causal, softcap, window)
-        return fn(q, k, v, q_offset, kv_len, causal=causal, softcap=softcap,
-                  window=window)
+        ctx.mask = (causal, softcap, window, host_lens)
+        ctx.shard = exec_cost.current()
+        return ops.flash_attention(q, k, v, q_offset, kv_len, causal=causal,
+                                   softcap=softcap, window=window,
+                                   host_lens=host_lens)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, q_offset, kv_len = ctx.saved_tensors
-        causal, softcap, window = ctx.mask
-        dq, dk, dv = flash_attention_backward_plain(
-            q, k, v, dout, q_offset, kv_len, causal=causal, softcap=softcap,
-            window=window)
-        return dq, dk, dv, None, None, None, None, None
+        from repro_torch.launch import exec_cost
+        causal, softcap, window, host_lens = ctx.mask
+        with exec_cost.at(ctx.shard):
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, dout, q_offset, kv_len, causal=causal,
+                softcap=softcap, window=window, host_lens=host_lens)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -30,6 +30,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
@@ -148,6 +149,21 @@ def tile_plan(G: int, S: int, KV: int, head_dim: int) -> TilePlan:
     if plan.grid[0] * plan.grid[1] * plan.grid[2] <= N_SM:
         return make_plan(STREAM_DEEP, G, S, KV, head_dim)
     return plan
+
+
+def restore_cost(G: int, S: int, D: int, KV: int, head_dim: int, *,
+                 bias: bool = False, rope: bool = True,
+                 elem_bytes: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one launch: two (G, S, D) x (D, KV)
+    products at 2 operations per multiply-add; hidden read once, the G
+    layers' wk and wv (and biases) read once, K and V written once, and
+    with RoPE the fp32 cos/sin tables (S, hd/2) read once."""
+    flops = 2 * G * S * D * 2 * KV
+    nbytes = elem_bytes * (G * S * D + 2 * G * D * KV + 2 * G * S * KV
+                           + (2 * G * KV if bias else 0))
+    if rope:
+        nbytes += 2 * 4 * S * (head_dim // 2)
+    return flops, nbytes
 
 
 def _rotate_half(k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

@@ -149,9 +149,11 @@ def ssm_update_plain(h, dt, x, A, B, C, d_skip, *,
     return h_new, y.to(x.dtype)
 
 
-def ssm_scan_plain(h, dt, x, A, B, C, d_skip):
-    """The update over S tokens; h is updated in place. Returns y."""
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+def ssm_scan_plain(h, dt, x, A, B, C, d_skip, *, y=None):
+    """The update over S tokens; h is updated in place. Returns y (written
+    into ``y`` when given)."""
+    if y is None:
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     for t in range(x.shape[1]):
         _, y[:, t] = ssm_update_plain(h, dt[:, t], x[:, t], A, B[:, t],
                                       C[:, t], d_skip, h_out=h)
@@ -223,10 +225,11 @@ def ssm_update_cuda(h, dt, x, A, B, C, d_skip, *,
     return h_out, y
 
 
-def ssm_scan_cuda(h, dt, x, A, B, C, d_skip):
+def ssm_scan_cuda(h, dt, x, A, B, C, d_skip, *, y=None):
     """The update over S tokens in one kernel launch, h updated in place.
-    Returns y (Bt, S, I)."""
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    Returns y (Bt, S, I), written into ``y`` when given."""
+    if y is None:
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _run(h, h, dt, x, A, B, C, d_skip, y)
     return y
 
@@ -247,20 +250,25 @@ class SSMScanFn(torch.autograd.Function):
         h = h0.detach().clone()
         starts = h.new_empty((Bt, -(-S // CHUNK)) + tuple(h.shape[1:]))
         y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        from repro_torch.kernels import ops
+        from repro_torch.launch import exec_cost
+        ctx.shard = exec_cost.current()
         for c, s0 in enumerate(range(0, S, CHUNK)):
             starts[:, c] = h
             sl = slice(s0, min(s0 + CHUNK, S))
-            if h.device.type == "cuda":
-                _run(h, h, dt[:, sl], x[:, sl], A, B[:, sl], C[:, sl],
-                     d_skip, y[:, sl])
-            else:
-                y[:, sl] = ssm_scan_plain(h, dt[:, sl], x[:, sl], A,
-                                          B[:, sl], C[:, sl], d_skip)
+            ops.ssm_scan(h, dt[:, sl], x[:, sl], A, B[:, sl], C[:, sl],
+                         d_skip, y=y[:, sl])
         ctx.save_for_backward(starts, dt, x, A, B, C, d_skip)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
+        from repro_torch.launch import exec_cost
+        with exec_cost.at(ctx.shard):
+            return SSMScanFn._backward(ctx, dy, dh)
+
+    @staticmethod
+    def _backward(ctx, dy, dh):
         starts, dt, x, A, B, C, d_skip = ctx.saved_tensors
         S = x.shape[1]
         f = starts.dtype

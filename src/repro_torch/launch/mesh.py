@@ -5,9 +5,14 @@ One process drives every device of a mesh (tensor-parallel serving,
 mesh serving programs, ``distributed/mesh_serving.py``), so a mesh here
 is only a grid of torch devices with axis names; no process group
 stands behind it. A device may appear several times (shards that share
-one card). The JAX package's production pod meshes
-(``make_production_mesh``) wait for the port's cost tooling (ROADMAP.md,
-queue 1).
+one card). The mesh programs take ("data", "model") or ("pod", "data",
+"model") (``check_axes``).
+
+``make_production_mesh`` is the JAX package's production pod mesh, (16,
+16) or (2, 16, 16), every device ``meta`` by default: the counterpart of
+the reference's 512 placeholder host devices, on which the dry-run
+(``launch/dryrun.py``) counts a cell without running its kernels. It is
+not a CPU fallback.
 """
 from __future__ import annotations
 
@@ -58,6 +63,26 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     grid = np.empty(n, dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(shape), axes)
+
+
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
+def check_axes(mesh: Mesh, what: str = "a mesh") -> None:
+    """Refuse a mesh whose axes are not ("data", "model") or ("pod",
+    "data", "model")."""
+    if tuple(mesh.axis_names) not in MESH_AXES:
+        raise ValueError(f"{what} has axes ('data', 'model') or ('pod', "
+                         f"'data', 'model'), not {mesh.axis_names}")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> Mesh:
+    """The JAX package's production mesh: (data=16, model=16), or with
+    ``multi_pod`` (pod=2, data=16, model=16), every device ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = MESH_AXES[1] if multi_pod else MESH_AXES[0]
+    return make_mesh(shape, axes, [device] * math.prod(shape))
 
 
 def single_device_mesh(device=None) -> Mesh:

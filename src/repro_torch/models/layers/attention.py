@@ -139,26 +139,29 @@ def flash_attention(q, k, v, h: AttnHyper, *, q_offset: int, causal: bool,
     and an input that requires grad) it goes through
     ``ops.flash_attention_autograd``, the same kernel with a backward."""
     B, Skv = q.shape[0], k.shape[1]
-    qo, kl = _prefill_lens(B, int(q_offset),
-                           Skv if kv_len is None else int(kv_len), q.device)
+    host = (int(q_offset), Skv if kv_len is None else int(kv_len))
+    qo, kl = _prefill_lens(B, *host, q.device)
     fn = ops.flash_attention
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         fn = ops.flash_attention_autograd
     return fn(q, k, v, qo, kl, causal=causal, softcap=h.attn_softcap,
-              window=window)
+              window=window, host_lens=host)
 
 
 def decode_attention(q, k_cache, v_cache, h: AttnHyper, *, kv_len,
                      window: Optional[int] = None, kv_start=None,
-                     return_lse: bool = False):
+                     return_lse: bool = False, host_kv_len=None,
+                     host_kv_start: Optional[int] = None):
     """One decode token per sequence. q (B,1,H,hd); caches (B,Smax,Kv,hd),
     read in place; kv_len (B,) int live lengths including the new token.
     ``kv_start`` (B,) int: the caches are a context slice holding
     absolute positions [kv_start, kv_start + Smax) (``kv_len`` and
     ``window`` stay absolute); ``return_lse`` returns the slice's partial
     in fp32 and its log-sum-exp per head (B, H) fp32, for
-    ``merge_partials``."""
+    ``merge_partials``. ``host_kv_len`` (B,) and ``host_kv_start`` (one
+    int for every row): the same on the host, where the caller knows
+    them (the counted path, ``launch/exec_cost.py``)."""
     B, _, H, hd = q.shape
     Kv = h.n_kv_heads
     qg = q.reshape(B * Kv, H // Kv, hd)
@@ -167,7 +170,9 @@ def decode_attention(q, k_cache, v_cache, h: AttnHyper, *, kv_len,
               kv_start.to(torch.int32).repeat_interleave(Kv).contiguous())
     out = ops.decode_attention(qg, k_cache, v_cache, lens,
                                softcap=h.attn_softcap, window=window,
-                               kv_start=starts, return_lse=return_lse)
+                               kv_start=starts, return_lse=return_lse,
+                               host_kv_len=_rows(host_kv_len, Kv),
+                               host_kv_start=host_kv_start)
     if not return_lse:
         return out.reshape(B, 1, H, hd)
     out, lse = out
@@ -206,8 +211,15 @@ def attn_output(p: dict, attn: torch.Tensor):
     return torch.matmul(attn.reshape(B, S, H * hd), p["wo"])
 
 
+def _rows(host, Kv: int):
+    """Per-batch host lengths repeated for each KV head's row."""
+    return None if host is None else [int(n) for n in host
+                                      for _ in range(Kv)]
+
+
 def decode_attention_paged(q, k_pool, v_pool, block_table, h: AttnHyper, *,
-                           kv_len, window: Optional[int] = None):
+                           kv_len, window: Optional[int] = None,
+                           host_kv_len=None):
     """One decode token per sequence over a paged pool. q (B,1,H,hd); pools
     (NB,bs,Kv,hd) of this layer, read in place; block_table (B,MB) int32;
     kv_len (B,) int live lengths including the new token."""
@@ -216,5 +228,6 @@ def decode_attention_paged(q, k_pool, v_pool, block_table, h: AttnHyper, *,
     qg = q.reshape(B * Kv, H // Kv, hd)
     lens = kv_len.to(torch.int32).repeat_interleave(Kv).contiguous()
     out = ops.decode_attention_paged(qg, k_pool, v_pool, block_table, lens,
-                                     softcap=h.attn_softcap, window=window)
+                                     softcap=h.attn_softcap, window=window,
+                                     host_kv_len=_rows(host_kv_len, Kv))
     return out.reshape(B, 1, H, hd)

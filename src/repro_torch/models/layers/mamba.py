@@ -152,9 +152,9 @@ def apply_mamba1_shards(ps: list, xs: list, h: Mamba1Hyper, *,
     conv_states = conv_states or [None] * M
     N, R = h.d_state, h.dt_rank
     xcs, zs, convs, parts = [], [], [], []
-    for p, x, cs in zip(ps, xs, conv_states):
+    for m, (p, x, cs) in enumerate(zip(ps, xs, conv_states)):
         I = p["in_proj"].shape[-1] // 2
-        with on_device(x.device):
+        with on_device(x.device, m):
             xz = torch.matmul(x, p["in_proj"])
             xc, new_conv = causal_conv1d(xz[..., :I], p["conv_w"],
                                          p["conv_b"], cs)
@@ -164,11 +164,11 @@ def apply_mamba1_shards(ps: list, xs: list, h: Mamba1Hyper, *,
         zs.append(xz[..., I:])
         convs.append(new_conv)
     outs, states = [], []
-    for p, x, xc, z, proj, h0, conv in zip(ps, xs, xcs, zs,
-                                           reduce_from_shards(parts),
-                                           init_states, convs):
+    for m, (p, x, xc, z, proj, h0, conv) in enumerate(zip(
+            ps, xs, xcs, zs, reduce_from_shards(parts), init_states,
+            convs)):
         dt_low, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
-        with on_device(x.device):
+        with on_device(x.device, m):
             dt = F.softplus(torch.matmul(dt_low, p["dt_proj"])
                             + p["dt_bias"]).float()          # (B,S,I)
             A = -torch.exp(p["a_log"].float())                # (I,N)

@@ -85,6 +85,15 @@ def init_moe(gen: torch.Generator, h: MoEHyper, dtype, device) -> dict:
     return p
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``one_hot(idx, n)`` (int64) as the card computes it, a scatter into
+    zeros: ``one_hot`` also reads the indices' range back to the host on
+    the CPU (not on the card, and it cannot on ``meta``), so its ops would
+    differ by device."""
+    out = torch.zeros(idx.shape + (n,), dtype=torch.long, device=idx.device)
+    return out.scatter_(-1, idx.unsqueeze(-1), 1)
+
+
 def route(p: dict, x: torch.Tensor, h: MoEHyper):
     """Per-row routing of x (B, S, D): the top-k probabilities (B, S·K) in
     token-major order (token s's ranks at s·K .. s·K+K-1), each
@@ -101,7 +110,7 @@ def route(p: dict, x: torch.Tensor, h: MoEHyper):
     flat_e = top_e.reshape(B, T)
     order = torch.argsort(flat_e, dim=-1, stable=True)           # (B, T)
     sorted_e = flat_e.gather(1, order)
-    counts = torch.nn.functional.one_hot(flat_e, E).sum(1)       # (B, E)
+    counts = _one_hot(flat_e, E).sum(1)                          # (B, E)
     starts = counts.cumsum(-1) - counts
     pos = (torch.arange(T, device=x.device)[None]
            - starts.gather(1, sorted_e))                         # (B, T)
@@ -116,7 +125,7 @@ def routing_stats(probs: torch.Tensor):
     (B, S, E): (its sum over tokens (E,), the top-1 counts (E,)); the
     gradient flows through the first alone."""
     E = probs.shape[-1]
-    top1 = torch.nn.functional.one_hot(probs.detach().argmax(-1), E)
+    top1 = _one_hot(probs.detach().argmax(-1), E)
     return probs.sum(dim=(0, 1)), top1.float().sum(dim=(0, 1))
 
 

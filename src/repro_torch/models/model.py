@@ -122,7 +122,11 @@ class Model:
 
     def init(self, seed: int = 0) -> dict:
         """Random parameters from a ``torch.Generator`` on the model's
-        device, seeded with ``seed``."""
+        device, seeded with ``seed``; on ``meta`` (the dry-run's
+        placeholder devices) leaves that hold no data, as ``param_axes``
+        builds them."""
+        if self.device.type == "meta":
+            return self.adapter.init(torch.Generator(), self.device)
         return self.adapter.init(
             torch.Generator(device=self.device).manual_seed(seed))
 

@@ -62,6 +62,7 @@ from repro_torch.distributed.collectives import (copy_to_shards,
 from repro_torch.distributed.sharding import pad_heads
 from repro_torch.distributed.tp import Sharded, on_device
 from repro_torch.kernels import ops
+from repro_torch.launch import exec_cost
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.attention import AttnHyper
 from repro_torch.models.layers.embedding import (MAX_POSITIONS, embed_tokens,
@@ -190,6 +191,29 @@ def rope_at(h: AttnHyper, positions: torch.Tensor,
     return cos[idx], sin[idx]
 
 
+def _shard_rope(h: AttnHyper, positions, end: int):
+    """``rope_at`` over each shard's positions, under its shard: (cos
+    list, sin list)."""
+    cos, sin = [], []
+    for m, pos in enumerate(positions):
+        with on_device(pos.device, m):
+            c, s = rope_at(h, pos, end)
+        cos.append(c)
+        sin.append(s)
+    return cos, sin
+
+
+def _shard_positions(tokens, base: int):
+    """Each shard's positions base + [0, S) as (B, S), under its shard."""
+    out = []
+    for m, t in enumerate(tokens):
+        B, S = t.shape
+        with on_device(t.device, m):
+            out.append((base + torch.arange(S, device=t.device)[None, :])
+                       .expand(B, S))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _row(li: int, device: torch.device) -> torch.Tensor:
     """Layer ``li``'s row index on ``device``, uploaded once: a fresh
@@ -278,7 +302,7 @@ def block_forward_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
               else hist_len + xs[0].shape[1])
     outs, new = [], []
     for m, (b, x) in enumerate(zip(blocks, xs)):
-        with on_device(x.device):
+        with on_device(x.device, m):
             q, k, v = _attn_qkv(b, li, x, h, cos[m], sin[m], q_attn=local)
             new.append((k, v))
             k_all, v_all = k, v
@@ -337,7 +361,8 @@ def write_pool_kv(k_pool, v_pool, k, v, write) -> None:
 
 def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
                         k_caches, v_caches, lengths, starts=None, cos, sin,
-                        window: Optional[int]):
+                        window: Optional[int], host_lengths=None,
+                        host_starts=None):
     """Single-token block ``li`` over M model shards (``blocks``, ``xs``
     (B,1,D) and cos/sin per shard, as ``block_forward_shards``) and C
     context shards of the layer's cache: ``k_caches``/``v_caches``
@@ -351,7 +376,9 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
     ``kv_start`` and log-sum-exp. The partials merge in shard order in
     fp32 on model shard 0's device (``attention.merge_partials``), the
     step's one cross-shard reduction of attention, before the
-    row-parallel ``wo``."""
+    row-parallel ``wo``. ``host_lengths`` (B,) and ``host_starts`` (one
+    int per context shard): ``lengths`` and ``starts`` on the host, where
+    the caller knows them (kernel #3's count, ``launch/exec_cost.py``)."""
     a = h.attn
     M, C = len(blocks), len(k_caches)
     heads = _Heads(a.q_heads, a.n_kv_heads, M)
@@ -359,7 +386,7 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
         a, n_heads=heads.per_shard, padded_heads=0))
     qs, new = [], []
     for m, (b, x) in enumerate(zip(blocks, xs)):
-        with on_device(x.device):
+        with on_device(x.device, m):
             q, k, v = _attn_qkv(b, li, x, h, cos[m], sin[m], q_attn=local)
         qs.append(q)
         new.append((k, v))
@@ -370,11 +397,16 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
         dev = kc.device
         q = qs[c % M].to(dev)
         k, v = (t.to(dev) for t in new[c % M])
-        with on_device(dev):
+        if c >= M:      # the query and new K/V sent to another data shard
+            exec_cost.report_collective("collective-permute", [(q, k, v)],
+                                        [exec_cost.index(c)])
+        with on_device(dev, c):
             if C == 1:
                 write_step_kv(kc, vc, k, v, n)
                 outs.append(attn_lib.decode_attention(
-                    q, kc, vc, a, kv_len=n + 1, window=window))
+                    q, kc, vc, a, kv_len=n + 1, window=window,
+                    host_kv_len=(None if host_lengths is None else
+                                 [x + 1 for x in host_lengths])))
                 lses.append(None)
                 continue
             write_step_kv(kc, vc, k, v, n, starts[c])
@@ -382,9 +414,15 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
             # unsplit kernel clamps it
             o, lse = attn_lib.decode_attention(
                 q, kc, vc, a, kv_len=(n + 1).clamp(max=capacity),
-                window=window, kv_start=starts[c], return_lse=True)
+                window=window, kv_start=starts[c], return_lse=True,
+                host_kv_len=(None if host_lengths is None else
+                             [min(x + 1, capacity) for x in host_lengths]),
+                host_kv_start=(None if host_starts is None
+                               else host_starts[c]))
         outs.append(o)
         lses.append(lse)
+    if C > 1:           # the partials merged across the context shards
+        exec_cost.report_collective("all-reduce", zip(outs, lses))
     dev = xs[0].device
     whole = attn_lib.merge_partials(
         [o.to(dev) for o in outs],
@@ -395,7 +433,7 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
         o = whole.to(x.device)
         if M > 1:
             o = o[:, :, m * hs:(m + 1) * hs]
-        with on_device(x.device):
+        with on_device(x.device, m):
             parts.append(attn_lib.attn_output(layer_params(b["attn"], li),
                                               o))
     return _residual_ffn([layer_params(b, li) for b in blocks], xs,
@@ -415,7 +453,7 @@ def block_decode(blocks: dict, li: int, x, h: LMHyper, *, k_cache, v_cache,
 
 def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
                        v_pool, block_table, write, lengths, cos, sin,
-                       window: Optional[int]):
+                       window: Optional[int], host_lengths=None):
     """Single-token block ``li`` over a paged KV cache. x (B,1,D); pools
     (NB,bs,Kv,hd) of this layer; block_table (B,MB) int32 (entries >= NB
     are unallocated sentinels); lengths (B,) tokens already cached;
@@ -434,7 +472,8 @@ def block_decode_paged(blocks: dict, li: int, x, h: LMHyper, *, k_pool,
         write_pool_kv(k_pool, v_pool, k, v, write)
         attn_out = attn_lib.decode_attention_paged(
             q, k_pool, v_pool, block_table, h.attn, kv_len=lengths + 1,
-            window=window)
+            window=window, host_kv_len=(None if host_lengths is None else
+                                        [n + 1 for n in host_lengths]))
     return _block_tail(layer_params(blocks, li), x, attn_out, h)[0]
 
 
@@ -528,7 +567,7 @@ def _train_attention(ps: List[dict], normed, h: LMHyper, cos, sin,
         k, v = attn_lib.kv_heads(k, v, a_h, cos[m], sin[m])
         if not heads.aligned:
             k, v = heads.select(m, k, v)
-        with on_device(q.device):
+        with on_device(q.device, m):
             o = attn_lib.flash_attention(q, k, v, a_h, q_offset=0,
                                          causal=causal, window=window)
         outs.append(attn_lib.attn_output(p["attn"], o))
@@ -583,8 +622,14 @@ def remat(fn, *args):
     stay alive."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    base = exec_cost.index(0)
+
+    def run(*a):        # the recompute counts to the same shards
+        with exec_cost.shards(base):
+            return fn(*a)
+
     return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=False)
+        run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def lm_train_forward_shards(ps: List[dict], tokens, h: LMHyper, *,
@@ -599,10 +644,8 @@ def lm_train_forward_shards(ps: List[dict], tokens, h: LMHyper, *,
     runs under ``remat``."""
     c = h.cfg
     B, S = tokens[0].shape
-    positions = [torch.arange(S, device=t.device)[None, :].expand(B, S)
-                 for t in tokens]
-    tables = [rope_at(h.attn, pos, S) for pos in positions]
-    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    positions = _shard_positions(tokens, 0)
+    cos, sin = _shard_rope(h.attn, positions, S)
     xs = embed_shards(ps, tokens, h, positions=positions, end=S,
                       patches=patches)
     windows = layer_windows(h)
@@ -645,10 +688,13 @@ def embed_shards(ps: List[dict], tokens, h, *, positions=None, end=None,
     c = h.cfg
     M = len(ps)
     scale = c.embedding_scale if scale is None else scale
-    parts = [embed_tokens(p["embed"], t, scale=scale, d_model=c.d_model,
-                          first_row=(m * p["embed"]["table"].shape[0]
-                                     if M > 1 else None))
-             for m, (p, t) in enumerate(zip(ps, tokens))]
+    parts = []
+    for m, (p, t) in enumerate(zip(ps, tokens)):
+        with on_device(t.device, m):
+            parts.append(embed_tokens(
+                p["embed"], t, scale=scale, d_model=c.d_model,
+                first_row=(m * p["embed"]["table"].shape[0] if M > 1
+                           else None)))
     return [embed_extras(p, h, x, pos, end, pt) for p, x, pos, pt in zip(
         ps, reduce_from_shards(parts), positions or [None] * M,
         patches or [None] * M)]
@@ -683,7 +729,7 @@ def final_logits_shards(ps: List[dict], xs, cfg: ArchConfig,
     logits (one shard: all of them), under its device."""
     outs = []
     for m, (p, x) in enumerate(zip(ps, xs)):
-        with on_device(x.device):
+        with on_device(x.device, m):
             xn = apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
             n = (p["embed"]["unembed"].shape[1] if "unembed" in p["embed"]
                  else p["embed"]["table"].shape[0])
@@ -724,10 +770,8 @@ def lm_forward_shards(ps: List[dict], tokens, h: LMHyper, *, patches=None,
     keep = keep or [slice(None)] * M
     B, S = tokens[0].shape
     base = 0 if hist_len is None else int(hist_len)
-    positions = [(base + torch.arange(S, device=t.device)[None, :])
-                 .expand(B, S) for t in tokens]
-    tables = [rope_at(h.attn, pos, base + S) for pos in positions]
-    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    positions = _shard_positions(tokens, base)
+    cos, sin = _shard_rope(h.attn, positions, base + S)
     xs = embed_shards(ps, tokens, h, positions=positions, end=base + S,
                       patches=patches)
     windows = layer_windows(h)
@@ -779,18 +823,21 @@ def lm_forward(params: dict, tokens: torch.Tensor, h: LMHyper, *,
 
 
 def lm_decode_step_shards(ps: List[dict], tokens, h: LMHyper, *, k, v,
-                          lengths, starts=None):
+                          lengths, starts=None, host_lengths=None,
+                          host_starts=None):
     """One decode step over M model shards (one shard: ``lm_decode_step``):
     ``ps`` and ``tokens`` (B,1) per model shard, as
     ``lm_forward_shards``; the cache over C context shards, ``k``/``v``
     (L,B,Sc,Kv,hd) written in place, ``lengths`` (B,) and ``starts`` (B,)
-    per context shard on its cache's device (``block_decode_shards``).
-    Returns (logits (B,1,V/M) per model shard, hidden (L,B,1,D) per model
-    shard)."""
+    per context shard on its cache's device (``block_decode_shards``);
+    ``host_lengths`` (B,) and ``host_starts`` (one int per context
+    shard) the same on the host, where the caller knows them: then no
+    value is read back from the device. Returns (logits (B,1,V/M) per
+    model shard, hidden (L,B,1,D) per model shard)."""
     lens = [lengths[m].to(t.device) for m, t in enumerate(tokens)]
-    end = int(lens[0].max()) + 1
-    tables = [rope_at(h.attn, n[:, None], end) for n in lens]
-    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    end = (int(lens[0].max()) if host_lengths is None
+           else max(int(n) for n in host_lengths)) + 1
+    cos, sin = _shard_rope(h.attn, [n[:, None] for n in lens], end)
     xs = embed_shards(ps, tokens, h, positions=[n[:, None] for n in lens],
                       end=end)
     windows = layer_windows(h)
@@ -802,7 +849,8 @@ def lm_decode_step_shards(ps: List[dict], tokens, h: LMHyper, *, k, v,
             [p["blocks"] for p in ps], li, xs, h,
             k_caches=[x[li] for x in k], v_caches=[x[li] for x in v],
             lengths=lengths, starts=starts, cos=cos, sin=sin,
-            window=windows[li])
+            window=windows[li], host_lengths=host_lengths,
+            host_starts=host_starts)
     return (final_logits_shards(ps, xs, h.cfg, h.cfg.logit_softcap),
             [torch.stack(x) for x in hidden])
 
@@ -827,7 +875,8 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     (L,NB,bs,Kv,hd), block_table (B,MB) int32, lengths (B,) int32, write:
     the (rows, flat pool positions) of the rows whose new K/V is kept, as
     device tensors, which the caller computes from its host copies of
-    table and lengths).
+    table and lengths; optionally ``host_lengths``, its host copy of the
+    lengths, so the step reads none back from the device).
     tokens (B,1). Returns (logits (B,1,V), new cache, hidden (L,B,1,D));
     the new cache shares the pools, which this step wrote into in place.
     With every live position mapped by the table this gives the bits of
@@ -837,7 +886,8 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
     same bits."""
     lengths, table = cache["lengths"], cache["block_table"]
     k_pool, v_pool, write = cache["k_pool"], cache["v_pool"], cache["write"]
-    end = int(lengths.max()) + 1
+    host = cache.get("host_lengths")
+    end = (int(lengths.max()) if host is None else int(max(host))) + 1
     cos, sin = rope_at(h.attn, lengths[:, None], end)
     x = _embed_input(params, h, tokens, lengths[:, None], end)
     windows = layer_windows(h)
@@ -848,7 +898,7 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
                                k_pool=k_pool[li], v_pool=v_pool[li],
                                block_table=table, write=write,
                                lengths=lengths, cos=cos, sin=sin,
-                               window=windows[li])
+                               window=windows[li], host_lengths=host)
     new_cache = {"k_pool": k_pool, "v_pool": v_pool, "block_table": table,
                  "lengths": lengths + 1}
     return _final_logits(params, x, h), new_cache, torch.stack(hidden)
@@ -856,15 +906,16 @@ def lm_decode_step_paged(params: dict, cache: dict, tokens: torch.Tensor,
 
 # -------------------------------------------------------------- HCache op
 def lm_restore_kv(params: dict, hidden: torch.Tensor, h: LMHyper, *,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, end: Optional[int] = None):
     """Stacked K/V from stacked saved hidden states, in one kernel launch.
 
-    hidden (L,B,S,D) residual-stream inputs per layer; positions (B,S).
-    Returns (k, v): (L,B,S,Kv,hd) each, what prefill with ``emit_kv``
-    produced for these layers."""
+    hidden (L,B,S,D) residual-stream inputs per layer; positions (B,S);
+    ``end`` = ``positions.max() + 1`` where the caller knows it. Returns
+    (k, v): (L,B,S,Kv,hd) each, what prefill with ``emit_kv`` produced
+    for these layers."""
     L, B, S, D = hidden.shape
     rows = torch.arange(L, dtype=torch.int32, device=hidden.device)
-    cos, sin = rope_at(h.attn, positions)
+    cos, sin = rope_at(h.attn, positions, end)
     normed = norm_rows(params["blocks"], rows,
                        hidden.to(h.dtype).reshape(L, B * S, D), h.cfg)
     k, v = project_kv_rows(params["blocks"], rows, normed,

@@ -756,6 +756,7 @@ class PagedBackend(KVCacheBackend):
         cache = {"k_pool": self.k_pool, "v_pool": self.v_pool,
                  "block_table": self._per_pool(table.to(torch.int32)),
                  "lengths": lengths.to(torch.int32),
+                 "host_lengths": self.lengths_np.copy(),
                  "write": self._per_pool(rows_t, slots_t), **self.cross}
         cache.update((k, t.to(torch.int32)) for k, t in zip(extras, more))
         lg, _, hidden = self.model.decode_step_paged(params, cache, tok)

@@ -2,7 +2,9 @@
 
 The port's counterpart of the JAX package's ``jax.jit(train_step)`` under
 the state's shardings: GSPMD partitions the reference's step; here the
-step is written out for an explicit ``Mesh`` (``launch/mesh.py``) and
+step is written out for an explicit ``Mesh`` (``launch/mesh.py``; axes
+("data", "model"), or ("pod", "data", "model") with the batch and ZeRO
+over ("pod", "data") as one data axis in pod-major order) and
 ``ShardingRules`` (``distributed/sharding.py``), one graph per device of
 the mesh, joined by the collectives of ``distributed/collectives.py``.
 
@@ -30,6 +32,9 @@ the mesh, joined by the collectives of ``distributed/collectives.py``.
   order:     every cross-shard sum runs in shard order, and the backward
              runs on one thread whatever the devices, so two runs of one
              mesh give the same bits, on one card or across cards
+  count:     under a counter (``launch/exec_cost.py``) each device's
+             work is attributed to its shard, and the ZeRO gather and
+             the gradient reduction report themselves as collectives
 
 The ssm, hybrid and enc-dec families train over ``data`` only (each data
 shard runs the model's own training forward); a model axis above 1 is
@@ -44,12 +49,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.distributed.sharding import (Placed, ShardingRules,
-                                              block_slices, default_rules,
-                                              entry_axes, gather_tree,
-                                              mesh_coords, place_tree,
-                                              replica_of)
+                                              block_slices, data_axes_of,
+                                              default_rules, entry_axes,
+                                              gather_tree, mesh_coords,
+                                              place_tree, replica_of)
 from repro_torch.distributed.tp import on_device
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch import exec_cost
+from repro_torch.launch.mesh import Mesh, check_axes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers.moe import load_balance_aux
 from repro_torch.training.optimizer import adamw_apply, clip_scale
@@ -59,9 +65,10 @@ from repro_torch.training.tree import (tree_map, tree_paths, tree_unflatten)
 UNPORTED = "is not ported (ROADMAP.md, queue 1)"
 
 
-def _refuse(model, rules: ShardingRules, M: int) -> None:
+def _refuse(model, rules: ShardingRules, M: int,
+            data: tuple = ("data",)) -> None:
     r = rules.rules
-    if entry_axes(r.get("batch")) != ("data",):
+    if entry_axes(r.get("batch")) != data:
         raise ValueError(f"the batch on mesh axes {entry_axes(r.get('batch'))}"
                          f" (long_context placement) {UNPORTED}")
     if r.get("seq") is not None:
@@ -88,14 +95,14 @@ def _block_of(t: torch.Tensor, slices) -> torch.Tensor:
                    for n, sl in zip(t.shape, slices))]
 
 
-def _data_dim(spec, cspec) -> Optional[int]:
-    """The dimension ZeRO split over ``data`` in a master spec whose
-    compute spec is ``cspec`` (None when they are equal)."""
+def _data_dim(spec, cspec, data: tuple = ("data",)) -> Optional[int]:
+    """The dimension ZeRO split over the ``data`` axes in a master spec
+    whose compute spec is ``cspec`` (None when they are equal)."""
     if tuple(spec) == tuple(cspec):
         return None
     diff = [i for i, (a, b) in enumerate(zip(spec, cspec)) if a != b]
     if (len(diff) != 1 or cspec[diff[0]] is not None
-            or entry_axes(spec[diff[0]]) != ("data",)):
+            or entry_axes(spec[diff[0]]) != data):
         raise ValueError(f"master spec {spec} against compute spec {cspec}"
                          f": only a ZeRO split over data {UNPORTED}")
     return diff[0]
@@ -103,22 +110,24 @@ def _data_dim(spec, cspec) -> Optional[int]:
 
 # ------------------------------------------------------------ the trainer
 class ShardedTrainer:
-    """``trainer``'s step over ``mesh`` (axes ("data", "model")) under
-    ``rules`` (default ``default_rules(mesh)``). The model must be laid
-    out for the mesh's model axis (``Model(model_axis=M)``) where its
-    heads need padding."""
+    """``trainer``'s step over ``mesh`` (axes ("data", "model") or ("pod",
+    "data", "model")) under ``rules`` (default ``default_rules(mesh)``).
+    The model must be laid out for the mesh's model axis
+    (``Model(model_axis=M)``) where its heads need padding. D counts the
+    data shards (pod x data on a pod mesh); device r is data shard
+    r // M, model shard r % M."""
 
     def __init__(self, trainer: Trainer, mesh: Mesh,
                  rules: Optional[ShardingRules] = None):
-        if tuple(mesh.axis_names) != ("data", "model"):
-            raise ValueError(f"a training mesh has axes ('data', 'model'),"
-                             f" not {mesh.axis_names}")
+        check_axes(mesh, "a training mesh")
         self.trainer = trainer
         self.model = trainer.model
         self.mesh = mesh
         self.rules = rules or default_rules(mesh)
-        self.D, self.M = mesh.shape["data"], mesh.shape["model"]
-        _refuse(self.model, self.rules, self.M)
+        self.M = mesh.shape["model"]
+        self.D = mesh.size // self.M
+        self.data = data_axes_of(mesh)
+        _refuse(self.model, self.rules, self.M, self.data)
         self.axes = self.model.param_axes()
         self.coords = mesh_coords(mesh)
         self.devices = mesh.device_list()
@@ -157,13 +166,16 @@ class ShardedTrainer:
         """Device r's compute block of a master leaf: its master part, or
         the master parts along ``data`` concatenated where ZeRO split
         them."""
-        dim = _data_dim(leaf.spec, cspec)
+        dim = _data_dim(leaf.spec, cspec, self.data)
         if dim is None:
             return leaf.parts[r]
-        d, m = self.coords[r]
+        m = r % self.M
         dev = self.devices[r]
-        return torch.cat([leaf.parts[d2 * self.M + m].to(dev)
-                          for d2 in range(self.D)], dim)
+        if self.D > 1:
+            exec_cost.report_collective("all-gather", [leaf.parts[r]], [r])
+        with exec_cost.at(r):
+            return torch.cat([leaf.parts[d2 * self.M + m].to(dev)
+                              for d2 in range(self.D)], dim)
 
     def _shard_batch(self, batch: dict, d: int) -> dict:
         B = batch["tokens"].shape[0]
@@ -190,22 +202,24 @@ class ShardedTrainer:
                 r = ranks[0]
                 dev = self.devices[r]
                 local = {k: v.to(dev) for k, v in part.items()}
-                with on_device(dev):
+                with on_device(dev), exec_cost.at(r):
                     total, parts = self.trainer.loss_fn(cast[r], local)
-                share = part["tokens"].shape[0] / B
-                roots[r] = total * share
-                ces.append(parts["ce"] * share)
+                    share = part["tokens"].shape[0] / B
+                    roots[r] = total * share
+                    ces.append(parts["ce"] * share)
                 continue
             devs = [self.devices[r] for r in ranks]
             moved = {k: [v.to(dev) for dev in devs] for k, v in part.items()}
             ps = [cast[r] for r in ranks]
-            xs, st = tfm.lm_train_forward_shards(ps, moved["tokens"], model.h,
-                                                 patches=moved.get("patches"))
             c = model.cfg
-            ce = chunked_ce_loss_shards(
-                [p["embed"] for p in ps], xs, moved["targets"],
-                softcap=c.logit_softcap, true_vocab=c.vocab_size,
-                n_chunks=self.trainer.loss_chunks, denom=B * S)
+            with exec_cost.shards(ranks[0]):
+                xs, st = tfm.lm_train_forward_shards(
+                    ps, moved["tokens"], model.h,
+                    patches=moved.get("patches"))
+                ce = chunked_ce_loss_shards(
+                    [p["embed"] for p in ps], xs, moved["targets"],
+                    softcap=c.logit_softcap, true_vocab=c.vocab_size,
+                    n_chunks=self.trainer.loss_chunks, denom=B * S)
             for r, x in zip(ranks, ce):
                 roots[r] = x
             ces.append(ce[0])
@@ -267,25 +281,31 @@ class ShardedTrainer:
         masks = self.model.head_pad_masks()
         out = []
         for i, (path, leaf) in enumerate(zip(paths, placed)):
-            dim = _data_dim(leaf.spec, self.compute_specs[i])
+            dim = _data_dim(leaf.spec, self.compute_specs[i], self.data)
             parts = []
-            for r, (d, m) in enumerate(self.coords):
+            for r in range(len(self.coords)):
+                d, m = divmod(r, self.M)
                 dev = self.devices[r]
+                if self.D > 1 and grads[r][i] is not None:
+                    exec_cost.report_collective(
+                        "all-reduce" if dim is None else "reduce-scatter",
+                        [grads[r][i]], [r])
                 total = None
-                for d2 in range(self.D):
-                    src = d2 * self.M + m
-                    g = grads[src][i]
-                    if g is None:
-                        g = torch.zeros_like(leaves[src][i])
-                    if dim is not None:
-                        size = leaf.parts[r].shape[dim]
-                        g = g.narrow(dim, d * size, size)
-                    g = g.to(dev)
-                    total = g if total is None else total + g
-                if path in masks:
-                    total = total * _block_of(masks[path].to(dev),
-                                              leaf.block((d, m))).to(
-                                                  total.dtype)
+                with exec_cost.at(r):
+                    for d2 in range(self.D):
+                        src = d2 * self.M + m
+                        g = grads[src][i]
+                        if g is None:
+                            g = torch.zeros_like(leaves[src][i])
+                        if dim is not None:
+                            size = leaf.parts[r].shape[dim]
+                            g = g.narrow(dim, d * size, size)
+                        g = g.to(dev)
+                        total = g if total is None else total + g
+                    if path in masks:
+                        total = total * _block_of(
+                            masks[path].to(dev),
+                            leaf.block(self.coords[r])).to(total.dtype)
                 parts.append(total)
             out.append(parts)
         return out
@@ -303,7 +323,9 @@ class ShardedTrainer:
         for leaf, parts in zip(placed, g):
             for r, coord in enumerate(self.coords):
                 if replica_of(leaf.spec, self.mesh, coord):
-                    s = torch.sum(torch.square(parts[r].float())).to(dev0)
+                    with exec_cost.at(r):
+                        s = torch.sum(torch.square(parts[r].float())).to(
+                            dev0)
                     sq = s if sq is None else sq + s
         gnorm = torch.sqrt(sq)
         scale = clip_scale(gnorm, cfg)
@@ -314,8 +336,9 @@ class ShardedTrainer:
             part = tree_map(lambda leaf: leaf.parts[r], pstate)
             grads_r = tree_unflatten(params, [parts[r] for parts in g])
             state_r = {k: v for k, v in part["opt"].items()}
-            news.append(adamw_apply(part["params"], grads_r, state_r, cfg,
-                                    scale.to(dev)))
+            with exec_cost.at(r):
+                news.append(adamw_apply(part["params"], grads_r, state_r,
+                                        cfg, scale.to(dev)))
         new = {"params": [p for p, _ in news], "opt": [o for _, o in news]}
 
         def assemble(like, per_device):

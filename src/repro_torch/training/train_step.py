@@ -30,6 +30,7 @@ import torch
 from repro_torch.distributed.collectives import (copy_to_shards,
                                                  max_over_shards,
                                                  reduce_from_shards)
+from repro_torch.launch import exec_cost
 from repro_torch.models.layers.embedding import logits as embed_logits
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import remat
@@ -82,8 +83,11 @@ def chunked_ce_loss_shards(embeds: List[dict], final_xs, targets, *,
     while S % n_chunks:
         n_chunks -= 1
     C = S // n_chunks
-    total = [torch.zeros((), dtype=torch.float32, device=x.device)
-             for x in final_xs]
+    total = []
+    for m, x in enumerate(final_xs):
+        with exec_cost.shard(m):
+            total.append(torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
     for i in range(n_chunks):
         cut = slice(i * C, (i + 1) * C)
         loss = remat(
