@@ -5266,6 +5266,288 @@ def run_mesh_ssm(card, model, params, shape, B, S, limit=MESH_REL,
     return row
 
 
+# The hybrid (zamba2-2.7b) and enc-dec (whisper-medium) stacks on the
+# same programs, on the weights their phases loaded: zamba2 over
+# MESH_SHAPE under the default rules (2 sessions of MESH_HYBRID_SEQ) and
+# long_context (one of MESH_HYBRID_LONG_SEQ over 4 context shards),
+# whisper over MESH_SHAPE (2 sessions of MESH_ENCDEC_FRAMES frames and
+# the dry-run's DEC_PROMPT-token prompt), then both in fp32 at
+# MESH_FP32_HYBRID_LAYERS and MESH_FP32_ENCDEC_LAYERS (encoder and
+# decoder each) under MESH_FP32_REL.
+MESH_HYBRID_SEQ = 2048
+MESH_HYBRID_LONG_SEQ = 4096
+MESH_ENCDEC_FRAMES = 1500
+MESH_FP32_HYBRID_LAYERS = 6          # one super-block
+MESH_FP32_ENCDEC_LAYERS = 2
+MESH_FP32_HYBRID_SEQ = 512
+MESH_FP32_HYBRID_LONG_SEQ = 1024
+MESH_FP32_ENCDEC_FRAMES = 1500
+
+
+def mesh_batch(model, B, S, seed, frames=0):
+    """Random tokens (B, S) (and ``frames`` encoder frames (B, frames,
+    D) for an enc-dec model) on the card, from ``seed``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda")}
+    if frames:
+        batch["frames"] = torch.stack([torch.from_numpy(encdec_frames(
+            model, frames, seed + b)) for b in range(B)]).to("cuda")
+    return batch
+
+
+def run_mesh_stack(card, model, params, shape, long_context, batch,
+                   limit=MESH_REL, steps=MESH_STEPS):
+    """A hybrid or enc-dec stack's prefill (``capture_hidden``), restore
+    and ``steps`` decode steps over ``shape``, against the 1x1 twin, as
+    ``run_mesh_lm`` holds llama2-7b: the twin bitwise the plain ``Model``
+    (prefill's logits, K/V, Mamba2 states or cross K/V and hidden; the
+    restore; a decode step's logits, hidden and every cache leaf), the
+    twin's restore bitwise its prefill's K/V, the mesh's restore of the
+    twin's hidden bitwise the twin's restore, the mesh's restore of its
+    own hidden bitwise its prefill's K/V, prefill and every step's logits
+    within ``limit`` of the twin's, and each kernel's launches per layer
+    and shard as the programs' docstrings state them: zamba2 per
+    attention block and shard #1 and #5 once in prefill, #1 once per
+    stepping model shard and #3 once per context shard at decode;
+    whisper per shard #1 once per encoder and decoder layer and once for
+    the cross K/V and #5 once per encoder layer and twice per decoder
+    layer in prefill, #1 once and #3 twice per decoder layer at decode;
+    the restore one #1 per shard."""
+    import torch
+    kind, c = model.kind, model.cfg
+    hyb = kind == "hybrid"
+    twin = mesh_server(model, (1, 1))
+    srv = mesh_server(model, shape, long_context)
+    D, M, C = srv.D, srv.M, srv.C
+    shards = D * M
+    stepping = M if long_context else shards     # model shards per step
+    B, S = batch["tokens"].shape
+    F = batch["frames"].shape[1] if not hyb else 0
+    cap = S + MESH_PAD
+    L = model.h.n_super if hyb else c.n_layers
+    second = "mamba_states" if hyb else "cross_kv"
+    hkey = "attn_hidden" if hyb else "hidden"
+    kvn = ("attn_k", "attn_v") if hyb else ("self_k", "self_v")
+    if hyb:
+        want_prefill = {"#1": L * shards, "#5": L * shards}
+        want_step = {"#1": L * stepping, "#3": L * shards}
+    else:
+        Le = c.encoder_layers
+        want_prefill = {"#1": (Le + 1 + L) * shards,
+                        "#5": (Le + 2 * L) * shards}
+        want_step = {"#1": L * shards, "#3": 2 * L * shards}
+    name = (f"{c.name} {shape[0]}x{shape[1]}"
+            + (" long_context" if long_context else "")
+            + (" fp32" if model.dtype == torch.float32 else ""))
+    row = {"mesh": name, "B": B, "S": S, "context_shards": C}
+    if F:
+        row["frames"] = F
+
+    def logits_rel(got, want):
+        # over the true vocabulary: the padded columns' -1e30 would make
+        # the norms infinite (whisper's 51865 words pad to 51968)
+        return rel_l2(got[..., :c.vocab_size], want[..., :c.vocab_size])
+
+    def states(out):
+        if hyb:
+            return {"conv": out["mamba_states"][0],
+                    "ssm": out["mamba_states"][1]}
+        return {"cross_k": out["cross_kv"][0], "cross_v": out["cross_kv"][1],
+                "enc_len": F}
+
+    with torch.no_grad():
+        tp = twin.place_params(params)
+        tout = twin.prefill(tp, batch, capture_hidden=True)
+        plain = model.prefill(params, batch, capture_hidden=True)
+        pairs = [("logits", tout["logits"], plain["logits"]),
+                 ("hidden", tout["hidden"], plain[hkey])]
+        for i in range(2):
+            pairs += [(f"kv[{i}]", tout["kv"][i], plain["kv"][i]),
+                      (f"{second}[{i}]", tout[second][i], plain[second][i])]
+        for what, got, want in pairs:
+            if not torch.equal(whole(got), want):
+                raise AssertionError(f"{name}: the 1x1 prefill's {what} "
+                                     "differs from Model.prefill")
+        del plain, pairs
+        hidden = whole(tout["hidden"])
+        tk, tv = twin.restore_kv_from_hidden(
+            tp, twin.place_hidden(hidden, cap))
+        pos = torch.arange(S, device="cuda")[None].expand(B, S)
+        pk, pv = model.restore_kv_from_hidden(params, hidden, positions=pos)
+        for got, pre, plain_kv in ((tk, tout["kv"][0], pk),
+                                   (tv, tout["kv"][1], pv)):
+            if not torch.equal(whole(got)[:, :, :S], whole(pre)):
+                raise AssertionError(f"{name}: the 1x1 restore differs from "
+                                     "its prefill's K/V")
+            if not torch.equal(plain_kv, whole(got)[:, :, :S]):
+                raise AssertionError(f"{name}: the 1x1 restore differs from "
+                                     "Model.restore_kv_from_hidden")
+        del pk, pv
+        mp = srv.place_params(params)
+        torch.cuda.synchronize()
+        before, t0 = mesh_launches(), time.perf_counter()
+        mout = srv.prefill(mp, batch, capture_hidden=True)
+        row["prefill_ms"] = _sync_s(t0) * 1e3
+        row["prefill_launches"] = launches_since(before, want_prefill,
+                                                 f"{name} prefill")
+        row["prefill_rel"] = logits_rel(mout["logits"].gather(),
+                                        whole(tout["logits"]))
+        row["state_rel"] = rel_l2(mout[second][1].gather(),
+                                  whole(tout[second][1]))
+        # the mesh's own hidden restores its prefill's K/V
+        mk, mv = srv.restore_kv_from_hidden(mp, mout["hidden"])
+        for got, want in ((mk, mout["kv"][0]), (mv, mout["kv"][1])):
+            if not all(torch.equal(a, b) for a, b in zip(got.parts,
+                                                         want.parts)):
+                raise AssertionError(f"{name}: the mesh's restore differs "
+                                     "from its prefill's K/V")
+        del mk, mv
+        # the twin's hidden at the cache's capacity: the decode cache
+        mh = srv.place_hidden(hidden, cap)
+        torch.cuda.synchronize()
+        before, t0 = mesh_launches(), time.perf_counter()
+        rk, rv = srv.restore_kv_from_hidden(mp, mh)
+        row["restore_ms"] = _sync_s(t0) * 1e3
+        row["restore_launches"] = launches_since(
+            before, {"#1": shards}, f"{name} restore")
+        for got, want in ((rk, whole(tk)), (rv, whole(tv))):
+            for r, part in enumerate(got.parts):
+                if not torch.equal(part, want[got.block(srv.coords[r])]):
+                    raise AssertionError(f"{name}: shard {srv.coords[r]}'s "
+                                         "restored K/V differs from the "
+                                         "1x1 restore")
+        del mh
+        lengths = [S] * B
+        tcache = twin.place_cache({kvn[0]: tk, kvn[1]: tv, **states(tout),
+                                   "lengths": lengths}, cap)
+        mcache = srv.place_cache({kvn[0]: rk, kvn[1]: rv, **states(mout),
+                                  "lengths": lengths}, cap)
+        if mcache[kvn[0]] is not rk:
+            raise AssertionError(f"{name}: the restored K/V was copied into "
+                                 "the cache's layout")
+        del mout
+        # one step of the plain Model on a copy of the twin's cache
+        tok = greedy(whole(tout["logits"]))
+        pc = {n: whole(x).clone() for n, x in tcache.items()
+              if n not in ("lengths", "enc_len")}
+        pc["lengths"] = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        if not hyb:
+            pc["enc_len"] = torch.tensor(F, dtype=torch.int32, device="cuda")
+        plg, pc, phid = model.decode_step_full(params, pc, tok)
+        tlg, tcache, thid = twin.decode_step(tp, tcache, tok)
+        same = [n for n in pc if n not in ("lengths", "enc_len")
+                and not torch.equal(whole(tcache[n]), pc[n])]
+        if not (torch.equal(whole(tlg), plg) and torch.equal(
+                whole(thid), phid[1] if hyb else phid)) or same:
+            raise AssertionError(f"{name}: the 1x1 decode step differs from "
+                                 f"Model.decode_step_full {same}")
+        del pc, plg, phid
+        rels, mesh_ms, twin_ms = [], [], []
+        step_tok = tok
+        for i in range(steps):
+            if i:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tlg, tcache, _ = twin.decode_step(tp, tcache, step_tok)
+                twin_ms.append(_sync_s(t0) * 1e3)
+            before, t0 = mesh_launches(), time.perf_counter()
+            mlg, mcache, _ = srv.decode_step(mp, mcache, step_tok)
+            mesh_ms.append(_sync_s(t0) * 1e3)
+            if i == 0:
+                row["decode_launches"] = launches_since(before, want_step,
+                                                        f"{name} decode")
+            rels.append(logits_rel(mlg.gather(), whole(tlg)))
+            step_tok = greedy(whole(tlg))
+        row["decode_rel_max"] = max(rels)
+        row["decode_ms"] = statistics.median(mesh_ms)
+        row["decode_ms_1x1"] = statistics.median(twin_ms)
+    bad = [g for g in rels + [row["prefill_rel"]] if not g <= limit]
+    if bad:
+        raise AssertionError(f"{name}: logits {bad} relative L2 from the "
+                             f"1x1 twin's (limit {limit})")
+    row["limit"] = limit
+    per = {k: {n: v // (shards if k != "decode" or n != "#1" else stepping)
+               for n, v in row[f"{k}_launches"].items() if v}
+           for k in ("prefill", "restore", "decode")}
+    print(f"mesh serving {name} ({card}): B={B} x S={S}"
+          + (f" over {F} frames" if F else "") + f", {C} context shards; "
+          f"prefill {row['prefill_ms']:.1f} ms (logits rel "
+          f"{row['prefill_rel']:.3g}, {second}[1] rel "
+          f"{row['state_rel']:.3g}), restore {row['restore_ms']:.1f} ms, "
+          f"decode {row['decode_ms']:.1f} ms/step against "
+          f"{row['decode_ms_1x1']:.1f} at 1x1 (max logits rel "
+          f"{row['decode_rel_max']:.3g}, limit {limit}); launches per shard "
+          f"{per}; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+          " GB; the 1x1 prefill, restore and decode bitwise the plain "
+          "Model's, the restores bitwise the 1x1 restore and the prefill")
+    return row
+
+
+def run_mesh_families(card, model, params):
+    """The mesh runs of a phase's loaded hybrid or enc-dec model:
+    (their rows, the slice shapes they gave kernel #3)."""
+    import gc
+
+    import torch
+    from repro_torch.models.model import DEC_PROMPT
+    shapes, rows = {}, []
+    if model.kind == "hybrid":
+        runs = ((False, mesh_batch(model, 2, MESH_HYBRID_SEQ, SEED + 43)),
+                (True, mesh_batch(model, 1, MESH_HYBRID_LONG_SEQ,
+                                  SEED + 47)))
+    else:
+        runs = ((False, mesh_batch(model, 2, DEC_PROMPT, SEED + 53,
+                                   MESH_ENCDEC_FRAMES)),)
+    for long_context, batch in runs:
+        rows.append(recorded_slices(
+            lambda: run_mesh_stack(card, model, params, MESH_SHAPE,
+                                   long_context, batch), shapes))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, shapes
+
+
+def run_mesh_families_fp32(card, kind):
+    """The same programs in fp32 at full width: zamba2 at
+    MESH_FP32_HYBRID_LAYERS under the default rules and long_context, or
+    whisper at MESH_FP32_ENCDEC_LAYERS, under MESH_FP32_REL: (rows, the
+    slice shapes)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.model import DEC_PROMPT
+    shapes, rows = {}, []
+    if kind == "hybrid":
+        cfg = get_arch(HYBRID_ARCH).scaled(n_layers=MESH_FP32_HYBRID_LAYERS)
+    else:
+        cfg = get_arch(ENCDEC_ARCH).scaled(
+            n_layers=MESH_FP32_ENCDEC_LAYERS,
+            encoder_layers=MESH_FP32_ENCDEC_LAYERS)
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(SEED)
+    if kind == "hybrid":
+        runs = ((False, mesh_batch(model, 2, MESH_FP32_HYBRID_SEQ,
+                                   SEED + 59)),
+                (True, mesh_batch(model, 1, MESH_FP32_HYBRID_LONG_SEQ,
+                                  SEED + 61)))
+    else:
+        runs = ((False, mesh_batch(model, 2, DEC_PROMPT, SEED + 67,
+                                   MESH_FP32_ENCDEC_FRAMES)),)
+    for long_context, batch in runs:
+        rows.append(recorded_slices(
+            lambda: run_mesh_stack(card, model, params, MESH_SHAPE,
+                                   long_context, batch, limit=MESH_FP32_REL,
+                                   steps=MESH_FP32_STEPS), shapes))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, shapes
+
+
 def check_mesh_decode(card, shapes: dict):
     """Kernel #3 on a context slice (``kv_start``, ``return_lse``) against
     its plain version at every slice shape the mesh phase gave it: the
@@ -5838,7 +6120,27 @@ def main(argv=None) -> None:
               ("restore_kv_grouped", "decode_attention", "flash_attention"))
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_rows = []
+    mesh_rows, mesh_slices = [], []
+
+    def drive_mesh_family(name, kind, model, params, needs):
+        """The mesh runs of a hybrid or enc-dec phase on its loaded model,
+        then in fp32 on a shallow one (which frees the loaded one's
+        copies first), then kernel #3 on every slice shape they gave it
+        against its plain version."""
+        rows, shapes = drive(f"mesh serving {name}",
+                             lambda: run_mesh_families(card, model, params),
+                             needs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows32, shapes32 = drive(
+            f"mesh serving {name} fp32",
+            lambda: run_mesh_families_fp32(card, kind), needs)
+        t0 = time.perf_counter()
+        mesh_slices.extend(check_mesh_decode(card, {**shapes, **shapes32}))
+        phase_s[f"mesh serving {name} kernel checks"] = \
+            time.perf_counter() - t0
+        mesh_rows.extend(rows + rows32)
+
     if want("llama2-7b", "mesh"):
         model, params = build_model()
     if want("llama2-7b"):
@@ -5849,7 +6151,7 @@ def main(argv=None) -> None:
             "mesh serving", lambda: run_mesh_phase(card, model, params),
             ("restore_kv_grouped", "decode_attention", "flash_attention"))
         t0 = time.perf_counter()
-        mesh_slices = check_mesh_decode(card, slice_shapes)
+        mesh_slices.extend(check_mesh_decode(card, slice_shapes))
         phase_s["mesh serving kernel checks"] = time.perf_counter() - t0
     if want("llama2-7b", "mesh"):
         del model, params                              # free llama2-7b
@@ -5937,7 +6239,11 @@ def main(argv=None) -> None:
               f"({len(requests)} requests, {time.perf_counter() - t1:.1f} "
               f"s): the logits of all {n} tokens bitwise equal, every token "
               "the pass's greedy choice")
-        del model, params, requests                    # free zamba2-2.7b
+        del requests
+        # the reference's mesh serving programs: Mamba2 over ssm_heads
+        drive_mesh_family(HYBRID_ARCH, "hybrid", model, params,
+                          hybrid_needs)
+        del model, params                              # free zamba2-2.7b
         gc.collect()
         torch.cuda.empty_cache()
     if want("encdec"):
@@ -5959,7 +6265,12 @@ def main(argv=None) -> None:
                                params, runs[backend], plain)
         check_engine(runs["contiguous"], runs["paged"], f"{ENCDEC_ARCH} ",
                      methods=("hidden",))
-        del model, params, runs, plain                 # free whisper-medium
+        del runs, plain
+        # the reference's mesh serving programs: the cross K/V split
+        # along the context
+        drive_mesh_family(ENCDEC_ARCH, "encdec", model, params,
+                          encdec_needs)
+        del model, params                              # free whisper-medium
         gc.collect()
         torch.cuda.empty_cache()
     if want("train"):
@@ -5987,10 +6298,10 @@ def main(argv=None) -> None:
             for s in kernels[3]["shapes"]))
         print("flash_attention launches by shape class over the paths: "
               f"{kernels[3]['launches_by_class']}")
-        if want("mesh"):
+        if mesh_rows:
             kernels[1]["mesh_slices"] = mesh_slices
             kernels[1]["mesh_runs"] = mesh_rows
-    elif want("mesh"):
+    elif mesh_rows:
         print(json.dumps({"mesh_runs": mesh_rows,
                           "mesh_slices": mesh_slices}))
     if dryrun_rows:

@@ -12,12 +12,18 @@ placed on the mesh:
 
   train    ``training/sharded.py::ShardedTrainer.train_step`` on a placed
            train state and a batch of tokens (and patches for a VLM)
-  prefill  ``MeshServer.prefill`` -> (logits, K/V) or (logits, states)
+  prefill  ``MeshServer.prefill`` -> the reference's ``serve_prefill``
+           outputs: (logits, K/V), (logits, states), a hybrid stack's
+           (logits, K/V, Mamba2 states), an enc-dec stack's (logits, self
+           K/V, cross K/V) from S frames and a DEC_PROMPT-token prompt
   restore  ``MeshServer.restore_kv_from_hidden`` on hidden states placed
-           as ("layers", "batch", "kv_seq", "d_model"), the paper's op
+           as ("layers", "batch", "kv_seq", "d_model"), the paper's op:
+           a hybrid stack's n_super attention blocks, an enc-dec stack's
+           decoder layers
   decode   ``MeshServer.decode_step`` -> (logits, cache) on a fully
            populated cache placed by ``Model.cache_sharding``, each row's
-           new token landing in its last slot
+           new token landing in its last slot (an enc-dec cache: its
+           DEC_BUF-slot self cache's, over S encoder positions)
 
 The reference lowers and compiles each cell on 512 placeholder host
 devices and counts its cost from the HLO (``hlo_cost``). Here
@@ -54,13 +60,14 @@ from repro_torch.config.arch import ArchConfig
 from repro_torch.config.shapes import (ALL_SHAPES, SHAPES_BY_NAME,
                                        InputShape, shape_applicable)
 from repro_torch.configs import ASSIGNED, get_arch
-from repro_torch.distributed.mesh_serving import MeshParams, MeshServer
+from repro_torch.distributed.mesh_serving import (OUTPUTS, MeshParams,
+                                                  MeshServer)
 from repro_torch.distributed.sharding import (Placed, ShardingRules,
                                               data_axes_of, default_rules,
                                               fsdp_rules)
 from repro_torch.launch import exec_cost
 from repro_torch.launch.mesh import Mesh, make_production_mesh
-from repro_torch.models.model import Model
+from repro_torch.models.model import DEC_BUF, Model
 
 # archs whose bf16 weights exceed one pod's model-axis shard
 FSDP_ARCHS = {"grok-1-314b"}
@@ -158,28 +165,35 @@ def build_cell(mesh: Mesh, cfg: ArchConfig, shape: InputShape,
     if shape.kind == "prefill":
         batch = _inputs(model.prefill_batch_spec(shape), gen,
                         cfg.vocab_size, model.dtype, dev)
-        key = "kv" if model.kind == "lm" else "states"
+        keys = tuple(OUTPUTS[model.kind])
 
         def serve_prefill(mp, batch):
             out = srv.prefill(mp, batch)
-            return out["logits"], out[key]
+            return (out["logits"],) + tuple(out[k] for k in keys)
 
         return serve_prefill, (mp, batch)
     if shape.kind == "restore":
-        hidden = _randn(gen, (cfg.n_layers, B, S, cfg.d_model), model.dtype,
-                        dev)
+        L = model.h.n_super if model.kind == "hybrid" else cfg.n_layers
+        hidden = _randn(gen, (L, B, S, cfg.d_model), model.dtype, dev)
         return srv.restore_kv_from_hidden, (mp, srv.place_hidden(hidden))
+    # each row's new token lands in the last slot of its (self) cache; an
+    # enc-dec cache's S positions are the encoder's
+    n = DEC_BUF - 1 if model.kind == "encdec" else S - 1
     cache = {}
     for name, v in model.cache_spec(B, S).items():
-        cache[name] = (torch.full(v.shape, S - 1, dtype=torch.int32,
-                                  device=dev) if name == "lengths"
-                       else _randn(gen, v.shape, v.dtype, dev, 0.1))
+        if name in ("lengths", "enc_len"):
+            cache[name] = torch.full(v.shape, n if name == "lengths" else S,
+                                     dtype=torch.int32, device=dev)
+        else:
+            cache[name] = _randn(gen, v.shape, v.dtype, dev, 0.1)
     tokens = _randint(gen, cfg.vocab_size, (B, 1), dev)
-    lengths = [S - 1] * B
+    lengths = [n] * B
+    enc_len = S if model.kind == "encdec" else None
 
     def serve_decode(mp, cache, tokens):
         lg, new_cache, _ = srv.decode_step(mp, cache, tokens,
-                                           host_lengths=lengths)
+                                           host_lengths=lengths,
+                                           host_enc_len=enc_len)
         return lg, new_cache
 
     return serve_decode, (mp, srv.place_cache(cache), tokens)

@@ -220,6 +220,7 @@ class HybridAdapter(FamilyAdapter):
     attention block's replay would need the Mamba2 blocks between)."""
 
     kind = "hybrid"
+    supports_mesh = True
     kv_names = ("attn_k", "attn_v")
     n_state_blobs = 1
 
@@ -297,6 +298,7 @@ class EncDecAdapter(FamilyAdapter):
     chunkable = True
     supports_resume = True
     supports_paged = True
+    supports_mesh = True
     kv_names = ("self_k", "self_v")
     has_cross = True
 

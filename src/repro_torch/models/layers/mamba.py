@@ -27,6 +27,20 @@ of elementwise adds (``norm.row_sum``) and its other products have a
 single term: a batched product picks its algorithm by the batch count,
 so a row decoded in a batch of four would not get the bits of the same
 row alone.
+
+Over M model shards (``apply_mamba2_shards``, the mesh serving programs)
+Mamba2 splits ``ssm_heads``: shard m computes its H/M heads' SSD. The
+reference splits the whole in_proj output [z | x | B | C | dt] and the
+conv state's I + 2GN channels evenly over ``ssm_inner``, which is not on
+head boundaries, and with ``n_groups`` = 1 every head reads all of B and
+C. So beyond the reference's even split each shard holds a copy of the
+B/C columns of in_proj and of their conv weights and channels (2GN = 128
+at zamba2-2.7b: at M = 16 a shard's conv state has 320 + 128 = 448
+channels against the even 328), and computes B and C itself; the gated
+norm's mean of squares and out_proj's product are summed over the
+shards. The conv state is stored in the reference's even split and
+converted around each block (``mamba2_conv_from_layout``/
+``mamba2_conv_to_layout``, an all-gather each).
 """
 from __future__ import annotations
 
@@ -36,10 +50,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import reduce_from_shards
+from repro_torch.distributed.collectives import (gather_from_shards,
+                                                 reduce_from_shards)
 from repro_torch.distributed.tp import on_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers.norm import row_mean, row_sum
+from repro_torch.models.layers.norm import row_sum
 from repro_torch.models.module import bias_param, dense_param, normal_init
 
 
@@ -243,11 +258,140 @@ def _ssd_chunk_tensors(xh, dt, Bm, Cm, Q: int):
 def apply_mamba2(p: dict, x, h: Mamba2Hyper, *,
                  init_state: Optional[torch.Tensor] = None,
                  conv_state: Optional[torch.Tensor] = None):
-    """SSD chunked forward. x (B,S,D) -> (out (B,S,D), (conv_state
-    (B, W-1, I+2GN) in x's dtype, ssm_state (B, H, P, N) fp32)), from
-    ``init_state``/``conv_state`` when given, else from zero."""
+    """SSD chunked forward, ``apply_mamba2_shards`` on one shard. x
+    (B,S,D) -> (out (B,S,D), (conv_state (B, W-1, I+2GN) in x's dtype,
+    ssm_state (B, H, P, N) fp32)), from ``init_state``/``conv_state``
+    when given, else from zero."""
+    outs, states = apply_mamba2_shards([p], [x], h, init_states=[init_state],
+                                       conv_states=[conv_state])
+    return outs[0], states[0]
+
+
+def mamba2_shard_columns(h: Mamba2Hyper, M: int, m: int) -> torch.Tensor:
+    """The in_proj columns of model shard m of M over ``ssm_heads``: its
+    heads' z and x columns, every B and C column (``n_groups`` = 1: each
+    head reads all of them) and its heads' dt columns, [z_m | x_m | B | C
+    | dt_m]. The whole is [z | x | B | C | dt]; one shard takes it as it
+    is."""
+    I, GN, H = h.d_inner, h.n_groups * h.d_state, h.n_heads
+    Im, Hm = I // M, H // M
+    dt = 2 * I + 2 * GN
+    return torch.cat([torch.arange(m * Im, (m + 1) * Im),
+                      torch.arange(I + m * Im, I + (m + 1) * Im),
+                      torch.arange(2 * I, dt),
+                      torch.arange(dt + m * Hm, dt + (m + 1) * Hm)])
+
+
+def mamba2_shard_channels(h: Mamba2Hyper, M: int, m: int) -> torch.Tensor:
+    """The conv channels of model shard m (rows of conv_w, conv_b and the
+    conv state's last axis): its heads' x channels and every B and C
+    channel, [x_m | B | C] of the whole [x | B | C]."""
+    I, GN = h.d_inner, h.n_groups * h.d_state
+    Im = I // M
+    return torch.cat([torch.arange(m * Im, (m + 1) * Im),
+                      torch.arange(I, I + 2 * GN)])
+
+
+def mamba2_shard_params(p: dict, h: Mamba2Hyper, M: int, m: int) -> dict:
+    """Model shard m's Mamba2 parameters (any leading stack axes) from the
+    whole ``p``: in_proj by ``mamba2_shard_columns``, conv_w/conv_b by
+    ``mamba2_shard_channels``, its heads' dt_bias, a_log and d_skip, its
+    channels' gate_norm and out_proj rows."""
+    if M == 1:
+        return p
+    Im, Hm = h.d_inner // M, h.n_heads // M
+    dev = p["in_proj"].device
+    cols = mamba2_shard_columns(h, M, m).to(dev)
+    chans = mamba2_shard_channels(h, M, m).to(dev)
+    heads = slice(m * Hm, (m + 1) * Hm)
+    inner = slice(m * Im, (m + 1) * Im)
+    return {"in_proj": p["in_proj"].index_select(-1, cols),
+            "conv_w": p["conv_w"].index_select(-2, chans),
+            "conv_b": p["conv_b"].index_select(-1, chans),
+            "dt_bias": p["dt_bias"][..., heads].contiguous(),
+            "a_log": p["a_log"][..., heads].contiguous(),
+            "d_skip": p["d_skip"][..., heads].contiguous(),
+            "gate_norm": p["gate_norm"][..., inner].contiguous(),
+            "out_proj": p["out_proj"][..., inner, :].contiguous()}
+
+
+def mamba2_conv_to_layout(convs: list, h: Mamba2Hyper) -> list:
+    """Each model shard's conv state (..., [x_m | B | C]) -> its even block
+    of the whole (..., I + 2GN) along the last axis, the reference's
+    ``ssm_inner`` split: the x channels gathered over the shards (an
+    all-gather), each shard's own B/C after them. One shard: as it is."""
+    M = len(convs)
+    if M == 1:
+        return convs
+    Im = h.d_inner // M
+    xs = gather_from_shards([c[..., :Im] for c in convs], convs[0].dim() - 1)
+    n = h.conv_channels // M
+    return [torch.cat([x, c[..., Im:]], dim=-1)[..., m * n:(m + 1) * n]
+            .contiguous() for m, (x, c) in enumerate(zip(xs, convs))]
+
+
+def mamba2_conv_from_layout(parts: list, h: Mamba2Hyper) -> list:
+    """The reverse of ``mamba2_conv_to_layout``: each shard's even block
+    gathered over the shards (an all-gather), then its own channels
+    [x_m | B | C] taken out."""
+    M = len(parts)
+    if M == 1:
+        return parts
+    Im, I = h.d_inner // M, h.d_inner
+    whole = gather_from_shards(parts, parts[0].dim() - 1)
+    return [torch.cat([w[..., m * Im:(m + 1) * Im], w[..., I:]], dim=-1)
+            for m, w in enumerate(whole)]
+
+
+def apply_mamba2_shards(ps: list, xs: list, h: Mamba2Hyper, *,
+                        init_states=None, conv_states=None):
+    """The Mamba2 layer over M model shards, ``ssm_heads`` split (one
+    shard: the whole layer): ``ps[m]`` shard m's parameters
+    (``mamba2_shard_params``: its H/M heads, their I/M channels, every
+    B/C column and conv channel), ``xs[m]`` the replicated input (B,S,D)
+    on its device; states per shard or None, conv (B, W-1, I/M + 2GN) in
+    ``mamba2_shard_channels`` order and ssm (B, H/M, P, N) fp32. Each
+    shard computes its heads' SSD (and the shared B and C, a copy on
+    every shard); the gated norm's mean of squares over all I channels
+    and out_proj's product are summed over the shards in shard order.
+    Returns (the output (B,S,D) on every shard, each shard's (conv_state,
+    ssm_state))."""
+    M = len(ps)
+    init_states = init_states or [None] * M
+    conv_states = conv_states or [None] * M
+    ys, zs, states = [], [], []
+    for m, (p, x, h0, cs) in enumerate(zip(ps, xs, init_states,
+                                           conv_states)):
+        with on_device(x.device, m):
+            y, z, st = _ssd_shard(p, x, h, h0, cs)
+        ys.append(y)
+        zs.append(z)
+        states.append(st)
+    # gated RMSNorm (mamba2's norm before the gate) over all I channels
+    gated, sums = [], []
+    for m, (y, z) in enumerate(zip(ys, zs)):
+        with on_device(y.device, m):
+            g = y * F.silu(z.float())
+            sums.append(row_sum(torch.square(g))[..., None])
+        gated.append(g)
+    outs = []
+    for m, (p, x, g, total) in enumerate(zip(ps, xs, gated,
+                                             reduce_from_shards(sums))):
+        with on_device(x.device, m):
+            var = total / h.d_inner
+            g = (g * torch.reciprocal(torch.sqrt(var + 1e-6))
+                 * p["gate_norm"].float())
+            outs.append(torch.matmul(g.to(x.dtype), p["out_proj"]))
+    return reduce_from_shards(outs), states
+
+
+def _ssd_shard(p: dict, x, h: Mamba2Hyper, init_state, conv_state):
+    """One shard's in_proj, conv and SSD over its heads: (y (B,S,I_m) fp32
+    before the gate, z (B,S,I_m), (conv_state, ssm_state))."""
     B, S, _ = x.shape
-    I, N, H, P, G = h.d_inner, h.d_state, h.n_heads, h.head_dim, h.n_groups
+    N, P, G = h.d_state, h.head_dim, h.n_groups
+    I = p["out_proj"].shape[-2]               # this shard's channels
+    H = I // P
     proj = torch.matmul(x, p["in_proj"])
     z, xBC, dt_raw = (proj[..., :I], proj[..., I:2 * I + 2 * G * N],
                       proj[..., 2 * I + 2 * G * N:])
@@ -286,8 +430,8 @@ def apply_mamba2(p: dict, x, h: Mamba2Hyper, *,
     else:
         scores = torch.einsum("bcqgn,bckgn->bcqkg", C_c, B_c)  # (B,nc,Q,Q,G)
     dx = dt_c[..., None] * xh_c.float()                    # (B,nc,Q,H,P)
-    M = torch.repeat_interleave(scores, H // G, dim=-1) * L
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", M, dx)
+    Mx = torch.repeat_interleave(scores, H // G, dim=-1) * L
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", Mx, dx)
 
     # chunk states and the inter-chunk recurrence
     decay_to_end = torch.exp(a_total[:, :, None, :] - a_cs)  # (B,nc,Q,H)
@@ -312,14 +456,7 @@ def apply_mamba2(p: dict, x, h: Mamba2Hyper, *,
     y_inter = y_inter * torch.exp(a_cs)[..., None]
     y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
     y = y + xh[:, :S].float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(B, S, I)
-    # gated RMSNorm (mamba2's norm before the gate)
-    y = y * F.silu(z.float())
-    var = row_mean(torch.square(y))
-    y = (y * torch.reciprocal(torch.sqrt(var + 1e-6))
-         * p["gate_norm"].float())
-    out = torch.matmul(y.to(x.dtype), p["out_proj"])
-    return out, (new_conv, hs)
+    return y.reshape(B, S, I), z, (new_conv, hs)
 
 
 def decode_mamba2_step(p: dict, x, h: Mamba2Hyper, *, conv_state,

@@ -57,7 +57,9 @@ from repro_torch.models.module import param_axes
 from repro_torch.models.ssm import SSMHyper
 
 LM_FAMILIES = ("dense", "moe", "vlm")
+DEC_PROMPT = 128      # whisper decoder prompt length in prefill cells
 DEC_TRAIN = 448       # whisper decoder target length in train cells
+DEC_BUF = 1024        # whisper decoder self-K/V buffer of decode cells
 N_VIS = 256           # internvl2 patch positions
 
 
@@ -270,12 +272,6 @@ class Model:
     def _tok(self, b: int, s: int) -> torch.Tensor:
         return _meta((b, s), torch.int32)
 
-    def _mesh_family(self) -> None:
-        if self.kind not in ("lm", "ssm"):
-            raise ValueError(f"{self.cfg.name}: the mesh programs' layouts "
-                             f"of the {self.kind} family are not ported "
-                             "(ROADMAP.md, queue 1)")
-
     def train_batch_spec(self, shape: InputShape) -> dict:
         c = self.cfg
         B, S = shape.global_batch, shape.seq_len
@@ -304,28 +300,53 @@ class Model:
         return out
 
     def prefill_batch_spec(self, shape: InputShape) -> dict:
-        self._mesh_family()
+        """A prefill cell's batch: an enc-dec model's frames (B, S, D) and
+        its DEC_PROMPT-token decoder prompt, else the train batch's
+        tokens (and patches)."""
+        if self.kind == "encdec":
+            B, S = shape.global_batch, shape.seq_len
+            return {"frames": _meta((B, S, self.cfg.d_model), self.dtype),
+                    "tokens": self._tok(B, DEC_PROMPT)}
         batch = self.train_batch_spec(shape)
         batch.pop("targets")
         return batch
 
     def prefill_batch_sharding(self, rules) -> dict:
         """``distributed/mesh_serving.py`` places its batch by these."""
-        self._mesh_family()
         out = self.train_batch_sharding(rules)
         out.pop("targets")
         return out
 
     def cache_spec(self, batch: int, ctx_len: int) -> dict:
         """A decode cell's cache (a fully populated context) as meta
-        tensors, in the JAX package's layout."""
-        self._mesh_family()
+        tensors, in the JAX package's layout: an enc-dec model's
+        ``ctx_len`` is the cross (encoder) side, its self K/V a DEC_BUF
+        buffer and ``enc_len`` a scalar."""
         c = self.cfg
         lengths = _meta((batch,), torch.int32)
         if self.kind == "lm":
             kv = _meta((c.n_layers, batch, ctx_len, c.n_kv_heads,
                         c.head_dim_), self.dtype)
             return {"k": kv, "v": kv, "lengths": lengths}
+        if self.kind == "hybrid":
+            h, m = self.h, self.h.mamba
+            kv = _meta((h.n_super, batch, ctx_len, c.n_kv_heads,
+                        c.head_dim_), self.dtype)
+            lead = (h.n_super, h.k - 1, batch)
+            return {"attn_k": kv, "attn_v": kv,
+                    "conv": _meta(lead + (m.d_conv - 1, m.conv_channels),
+                                  self.dtype),
+                    "ssm": _meta(lead + (m.n_heads, m.head_dim, m.d_state),
+                                 torch.float32),
+                    "lengths": lengths}
+        if self.kind == "encdec":
+            kv_self = _meta((c.n_layers, batch, DEC_BUF, c.n_heads,
+                             c.head_dim_), self.dtype)
+            kv_cross = _meta((c.n_layers, batch, ctx_len, c.n_heads,
+                              c.head_dim_), self.dtype)
+            return {"self_k": kv_self, "self_v": kv_self,
+                    "cross_k": kv_cross, "cross_v": kv_cross,
+                    "enc_len": _meta((), torch.int32), "lengths": lengths}
         m = self.h.mamba
         return {"conv": _meta((c.n_layers, batch, m.d_conv - 1, m.d_inner),
                               self.dtype),
@@ -335,14 +356,28 @@ class Model:
 
     def cache_sharding(self, rules) -> dict:
         """The specs of ``cache_spec``'s leaves under ``rules``: the K/V
-        split along the context (``kv_seq``), the recurrent states along
-        ``ssm_inner``."""
-        self._mesh_family()
+        split along the context (``kv_seq``; an enc-dec model's self K/V
+        whole along it, its cross K/V split), the recurrent states along
+        ``ssm_inner`` (Mamba1) or ``ssm_heads`` (Mamba2; its conv state
+        along ``ssm_inner``)."""
         r = rules
+        kv = r.spec(("layers", "batch", "kv_seq", "kv_heads", "head_dim"))
+        lengths = r.spec(("batch",))
         if self.kind == "lm":
-            kv = r.spec(("layers", "batch", "kv_seq", "kv_heads",
-                         "head_dim"))
-            return {"k": kv, "v": kv, "lengths": r.spec(("batch",))}
+            return {"k": kv, "v": kv, "lengths": lengths}
+        if self.kind == "hybrid":
+            return {"attn_k": kv, "attn_v": kv,
+                    "conv": r.spec(("layers", None, "batch", "conv_w",
+                                    "ssm_inner")),
+                    "ssm": r.spec(("layers", None, "batch", "ssm_heads",
+                                   None, "ssm_state")),
+                    "lengths": lengths}
+        if self.kind == "encdec":
+            kv_self = r.spec(("layers", "batch", None, "kv_heads",
+                              "head_dim"))
+            return {"self_k": kv_self, "self_v": kv_self,
+                    "cross_k": kv, "cross_v": kv, "enc_len": (),
+                    "lengths": lengths}
         return {"conv": r.spec(("layers", "batch", "conv_w", "ssm_inner")),
                 "ssm": r.spec(("layers", "batch", "ssm_inner", "ssm_state")),
-                "lengths": r.spec(("batch",))}
+                "lengths": lengths}

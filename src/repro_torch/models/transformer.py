@@ -281,7 +281,8 @@ def _block_tail(p: dict, x, attn_out, h: LMHyper):
 # ---------------------------------------------------------------- blocks
 def block_forward_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
                          cos, sin, window: Optional[int], hist_kv=None,
-                         hist_len: Optional[int] = None):
+                         hist_len: Optional[int] = None,
+                         causal: bool = True):
     """Full-sequence block ``li`` over M model shards (one shard: the
     whole layer): ``blocks`` each shard's stacked block parameters (its
     query heads ``qkv_out``, ``o_in`` and ``d_ff`` where M > 1, the whole
@@ -291,8 +292,8 @@ def block_forward_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
     context. Each shard projects K/V of every head through kernel #1 and
     attends its query heads through kernel #5; ``wo`` is row-parallel and
     the FFN column- then row-parallel, summed over the shards in shard
-    order. Returns (outs, each shard's (k, v) of the new tokens, all
-    heads)."""
+    order; ``causal`` False: every query sees every key (an encoder).
+    Returns (outs, each shard's (k, v) of the new tokens, all heads)."""
     a = h.attn
     M = len(blocks)
     heads = _Heads(a.q_heads, a.n_kv_heads, M)
@@ -313,7 +314,7 @@ def block_forward_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
             if M > 1:
                 k_all, v_all = heads.select(m, k_all, v_all)
             o = attn_lib.flash_attention(
-                q, k_all, v_all, a, q_offset=hist_len or 0, causal=True,
+                q, k_all, v_all, a, q_offset=hist_len or 0, causal=causal,
                 window=window, kv_len=kv_len)
             outs.append(attn_lib.attn_output(layer_params(b["attn"], li), o))
     xs, _ = _residual_ffn([layer_params(b, li) for b in blocks], xs,
@@ -359,6 +360,68 @@ def write_pool_kv(k_pool, v_pool, k, v, write) -> None:
     v_pool.view(NB * bs, *v_pool.shape[2:])[slots] = v[rows, 0]
 
 
+def attend_slices(qs, k_caches, v_caches, a: AttnHyper, *, lengths,
+                  grow: int, starts=None, window: Optional[int] = None,
+                  host_kv_len=None, host_starts=None, new=None, device,
+                  dtype):
+    """One query token of every head against a cache over C context
+    shards: ``qs`` (B,1,H,hd) per model shard (the query of every head,
+    gathered), ``k_caches``/``v_caches`` (B,Sc,Kv,hd) and ``lengths``
+    (B,) per context shard on its device, ``starts`` (B,) the absolute
+    position of each slice's first key (None: one shard). Context shard c
+    takes the query of model shard c % M (sent to another data shard for
+    c >= M); with ``new`` (each model shard's (k, v) (B,1,Kv,hd)) it
+    first writes the new token's K/V where it holds position ``lengths``
+    (``write_step_kv``). Each shard attends its slice through kernel #3
+    at the absolute live length ``lengths + grow`` (clamped to the whole
+    cache's capacity, as the unsplit kernel clamps it) with its
+    ``kv_start`` and log-sum-exp, and the partials merge in fp32 in shard
+    order on ``device`` (``attention.merge_partials``). One context
+    shard: one launch without either, the plain call. ``host_kv_len``
+    (B,) the live lengths and ``host_starts`` (one int per context
+    shard) on the host, for the count. Returns (B,1,H,hd) in
+    ``dtype``."""
+    M, C = len(qs), len(k_caches)
+    capacity = sum(kc.shape[1] for kc in k_caches)
+    outs, lses = [], []
+    for c, (kc, vc, n) in enumerate(zip(k_caches, v_caches, lengths)):
+        dev = kc.device
+        q = qs[c % M].to(dev)
+        sent = (q,)
+        if new is not None:
+            k, v = (t.to(dev) for t in new[c % M])
+            sent = (q, k, v)
+        if c >= M:      # the query (and new K/V) sent to another data shard
+            exec_cost.report_collective("collective-permute", [sent],
+                                        [exec_cost.index(c)])
+        with on_device(dev, c):
+            live = n + grow if grow else n
+            if C == 1:
+                if new is not None:
+                    write_step_kv(kc, vc, k, v, n)
+                outs.append(attn_lib.decode_attention(
+                    q, kc, vc, a, kv_len=live, window=window,
+                    host_kv_len=host_kv_len))
+                lses.append(None)
+                continue
+            if new is not None:
+                write_step_kv(kc, vc, k, v, n, starts[c])
+            o, lse = attn_lib.decode_attention(
+                q, kc, vc, a, kv_len=live.clamp(max=capacity),
+                window=window, kv_start=starts[c], return_lse=True,
+                host_kv_len=(None if host_kv_len is None else
+                             [min(x, capacity) for x in host_kv_len]),
+                host_kv_start=(None if host_starts is None
+                               else host_starts[c]))
+        outs.append(o)
+        lses.append(lse)
+    if C > 1:           # the partials merged across the context shards
+        exec_cost.report_collective("all-reduce", zip(outs, lses))
+    return attn_lib.merge_partials(
+        [o.to(device) for o in outs],
+        [None if x is None else x.to(device) for x in lses], dtype)
+
+
 def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
                         k_caches, v_caches, lengths, starts=None, cos, sin,
                         window: Optional[int], host_lengths=None,
@@ -380,7 +443,7 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
     int per context shard): ``lengths`` and ``starts`` on the host, where
     the caller knows them (kernel #3's count, ``launch/exec_cost.py``)."""
     a = h.attn
-    M, C = len(blocks), len(k_caches)
+    M = len(blocks)
     heads = _Heads(a.q_heads, a.n_kv_heads, M)
     local = (None if M == 1 else dataclasses.replace(
         a, n_heads=heads.per_shard, padded_heads=0))
@@ -390,43 +453,13 @@ def block_decode_shards(blocks: List[dict], li: int, xs, h: LMHyper, *,
             q, k, v = _attn_qkv(b, li, x, h, cos[m], sin[m], q_attn=local)
         qs.append(q)
         new.append((k, v))
-    qs = gather_from_shards(qs, 2)
-    capacity = sum(kc.shape[1] for kc in k_caches)
-    outs, lses = [], []
-    for c, (kc, vc, n) in enumerate(zip(k_caches, v_caches, lengths)):
-        dev = kc.device
-        q = qs[c % M].to(dev)
-        k, v = (t.to(dev) for t in new[c % M])
-        if c >= M:      # the query and new K/V sent to another data shard
-            exec_cost.report_collective("collective-permute", [(q, k, v)],
-                                        [exec_cost.index(c)])
-        with on_device(dev, c):
-            if C == 1:
-                write_step_kv(kc, vc, k, v, n)
-                outs.append(attn_lib.decode_attention(
-                    q, kc, vc, a, kv_len=n + 1, window=window,
-                    host_kv_len=(None if host_lengths is None else
-                                 [x + 1 for x in host_lengths])))
-                lses.append(None)
-                continue
-            write_step_kv(kc, vc, k, v, n, starts[c])
-            # the length clamped to the whole cache's capacity, as the
-            # unsplit kernel clamps it
-            o, lse = attn_lib.decode_attention(
-                q, kc, vc, a, kv_len=(n + 1).clamp(max=capacity),
-                window=window, kv_start=starts[c], return_lse=True,
-                host_kv_len=(None if host_lengths is None else
-                             [min(x + 1, capacity) for x in host_lengths]),
-                host_kv_start=(None if host_starts is None
-                               else host_starts[c]))
-        outs.append(o)
-        lses.append(lse)
-    if C > 1:           # the partials merged across the context shards
-        exec_cost.report_collective("all-reduce", zip(outs, lses))
-    dev = xs[0].device
-    whole = attn_lib.merge_partials(
-        [o.to(dev) for o in outs],
-        [None if x is None else x.to(dev) for x in lses], xs[0].dtype)
+    whole = attend_slices(
+        gather_from_shards(qs, 2), k_caches, v_caches, a, lengths=lengths,
+        grow=1, starts=starts, window=window,
+        host_kv_len=(None if host_lengths is None else
+                     [x + 1 for x in host_lengths]),
+        host_starts=host_starts, new=new, device=xs[0].device,
+        dtype=xs[0].dtype)
     hs = heads.per_shard
     parts = []
     for m, (b, x) in enumerate(zip(blocks, xs)):

@@ -325,13 +325,6 @@ def test_build_cell_is_the_same_program_on_every_mesh():
     _close(got[1], got[0], "2x2 against 1x1")
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "whisper-medium"])
-def test_hybrid_and_encdec_are_refused(name):
-    cfg = reduced_for_smoke(get_arch(name))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        MeshServer(Model(cfg, device="cpu"), _cpu_mesh((1, 1)))
-
-
 def test_fsdp_rules_are_refused():
     cfg = reduced_for_smoke(get_arch("grok-1-314b"))
     mesh = _cpu_mesh((1, 2))
